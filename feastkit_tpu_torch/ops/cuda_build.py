@@ -1,0 +1,76 @@
+"""Build and load the port's CUDA kernels (nvcc + ctypes).
+
+``csrc/<name>.cu`` is compiled at first use by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, which is then
+loaded with ``ctypes``. Libraries go to ``csrc/build/`` inside the package
+(listed in ``.gitignore``) under a name that carries a hash of the source
+and the flags, so an edited source is rebuilt and never loaded stale.
+Nothing here runs at import time: this module imports on machines without
+a CUDA toolkit, and only a call to :func:`build` or :func:`load` needs
+``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build",
+           "load"]
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = SRC_DIR / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+_NVCC_TIMEOUT_S = 600
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").exists():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    src = SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; return the
+    library's path. Raises if ``nvcc`` fails or times out."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
+            capture_output=True, text=True, timeout=_NVCC_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on csrc/{name}.cu (exit "
+                               f"{proc.returncode}):\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)           # atomic: concurrent builders agree
+    finally:
+        tmp.unlink(missing_ok=True)
+    return out
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    return ctypes.CDLL(str(build(name)))

@@ -1,0 +1,478 @@
+"""Sparse symmetric interval FEAST: the polynomial-filter path (PyTorch).
+
+Counterpart of the main-path slice of ``feastkit_tpu/solvers/sparse.py``:
+the auto route of ``sparse_feast_interval`` (the rational-contour filter
+realized as one Chebyshev polynomial, or the Jackson indicator when that is
+cheaper), ``solver="cheb"`` / ``"contour_poly"``, and the host-driven
+refinement loop of ``_sparse_cheb_interval`` for standard and
+positive-diagonal-B pencils.
+
+Every filter application runs the fused Chebyshev-step kernels of
+``ops/cheb_kernels.py`` on CUDA tensors (their plain versions on CPU
+tensors) through a two-rung precision ladder: ``f32`` (the f32-rounded
+operator, half the bytes of the bandwidth-bound recurrence) while epsout
+is above the f32 floor, then ``f64``. The JAX package's middle
+double-single rung exists because a TPU emulates f64; on Hopper it is the
+same fp64 kernel, so the port's top rung covers both. The mixed-precision
+policy fpm[42] reads "auto" as "on for CUDA" (the JAX package: "on for the
+TPU"), and stays off on the CPU.
+
+Paths the JAX package has and this port does not yet (each raises
+``NotImplementedError`` naming its ROADMAP.md queue 1 item): sparse SPD or
+indefinite B (item 8), complex Hermitian operators and operators with
+more than 32 diagonals (item 6), pencils that leave the polynomial route
+for the dense engine (item 9) or the Krylov contour engine (item 10), the
+narrow-band BCR delegation (item 11) and the stochastic count fpm[14]=2
+(item 16). Sharded meshes (item 15) are refused by ``feast()``.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..core.backend import resolve_device
+from ..core.contour import feast_contour
+from ..core.parameters import FeastConfig, _ensure_fpm
+from ..core.tools import initial_subspace, thin_svd
+from ..core.types import FeastError, FeastResult, _trim
+from ..kernel.hermitian import (SPURIOUS_RES, init_hermitian_state,
+                                make_rayleigh_ritz_update,
+                                verify_spurious_from)
+from ..ops.cheb_kernels import cheb_f32_chunk, cheb_f64_chunk
+from ..ops.chebfilter import (ChebInfeasible, build_cheb_filter_coeffs,
+                              gershgorin_interval,
+                              rational_filter_cheb_coeffs)
+from ..ops.dia import bcoo_to_dia, dia_matvec
+
+__all__ = ["feast_scsrev", "feast_scsrgv", "sparse_coo_arrays",
+           "sparse_feast_interval"]
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported to feastkit_tpu_torch yet (ROADMAP.md, "
+        f"queue 1 item {item})")
+
+
+def _cast_values(data, dtype):
+    """dtype cast keeping the real part of complex data for a real dtype."""
+    if dtype is None:
+        return data
+    if np.iscomplexobj(data) and not np.issubdtype(np.dtype(dtype),
+                                                   np.complexfloating):
+        data = data.real
+    return data.astype(dtype)
+
+
+def sparse_coo_arrays(A, dtype=None):
+    """scipy.sparse / dense input -> host (data, indices (nnz, 2), shape)."""
+    import scipy.sparse as sp
+    if sp.issparse(A):
+        coo = A.tocoo()
+        data = _cast_values(coo.data, dtype)
+        idx = np.stack([coo.row.astype(np.int32),
+                        coo.col.astype(np.int32)], axis=1)
+        return np.ascontiguousarray(data), idx, tuple(coo.shape)
+    A = np.asarray(A) if dtype is None else _cast_values(np.asarray(A), dtype)
+    r, c = np.nonzero(np.ones(A.shape, bool))
+    idx = np.stack([r.astype(np.int32), c.astype(np.int32)], axis=1)
+    return A.ravel(), idx, tuple(A.shape)
+
+
+def _peek_dtype(A):
+    import scipy.sparse as sp
+    if sp.issparse(A):
+        return np.zeros((), A.dtype)
+    return np.zeros((), np.asarray(A).dtype)
+
+
+def _is_double(dt) -> bool:
+    """True when the real-component precision is 64-bit."""
+    dt = np.dtype(dt)
+    if dt.kind == "c":
+        return np.finfo(dt).dtype.itemsize >= 8
+    if dt.kind == "f":
+        return dt.itemsize >= 8
+    return True          # integer / exotic inputs promote to double
+
+
+def _b_diagonal(B):
+    """B is None/identity -> ("identity", None); a positive diagonal ->
+    ("diagonal", d); anything else -> (None, None)."""
+    if B is None:
+        return "identity", None
+    data, idx, shape = sparse_coo_arrays(B)
+    if shape[0] != shape[1]:
+        return None, None
+    off = idx[:, 0] != idx[:, 1]
+    if np.any(np.abs(data[off]) > 0):
+        return None, None
+    diag = np.zeros(shape[0], np.complex128 if np.iscomplexobj(data)
+                    else np.float64)
+    np.add.at(diag, idx[~off, 0], data[~off])
+    if np.iscomplexobj(diag):
+        if np.abs(np.imag(diag)).max(initial=0.0) > 0:
+            return None, None
+        diag = np.real(diag)
+    if bool(np.allclose(diag, 1.0, rtol=0, atol=1e-14)):
+        return "identity", None
+    if np.all(diag > 0):
+        return "diagonal", diag
+    return None, None
+
+
+def _quick_narrow_band(A, B, max_half_bw=16, max_n=16384):
+    """True for the narrow-banded small pencils the JAX package's auto route
+    leaves to its banded direct engine."""
+    try:
+        _, idx, shape = sparse_coo_arrays(A)
+    except Exception:                                    # noqa: BLE001
+        return False
+    if shape[0] > max_n:
+        return False
+    d = idx[:, 0].astype(np.int64) - idx[:, 1].astype(np.int64)
+    if int(np.abs(d).max(initial=0)) > max_half_bw:
+        return False
+    if B is not None:
+        try:
+            _, bi, _ = sparse_coo_arrays(B)
+        except Exception:                                # noqa: BLE001
+            return False
+        db = bi[:, 0].astype(np.int64) - bi[:, 1].astype(np.int64)
+        if int(np.abs(db).max(initial=0)) > max_half_bw:
+            return False
+    return True
+
+
+def _mixed_enabled(config, device, f64) -> bool:
+    """fpm[42] policy: 0 off, 1 auto (on for CUDA tensors: the f32 rung
+    halves the bytes of the bandwidth-bound recurrence; off on the CPU),
+    2 force. Only meaningful for double-precision work."""
+    if not f64 or not config.mixed:
+        return False
+    if int(config.mixed) >= 2:
+        return True
+    return device.type == "cuda"
+
+
+def _cheb_fused_context(A_dia, offsets, coeffs, lo, hi):
+    """Device operands of both rungs, built once per solve (counterpart of
+    ``_cheb_ds_context``): the f64 diagonals and their f32 rounding, the
+    coefficients and map scalars in each rung's precision."""
+    return dict(
+        offsets=offsets,
+        f64=dict(dia=A_dia, coeffs=np.asarray(coeffs, np.float64),
+                 sc=2.0 / (hi - lo), sh=(hi + lo) / (hi - lo),
+                 half=0.5, chunk=cheb_f64_chunk, dtype=torch.float64),
+        f32=dict(dia=A_dia.to(torch.float32),
+                 coeffs=np.asarray(coeffs, np.float32),
+                 sc=np.float32(2.0 / (hi - lo)),
+                 sh=np.float32((hi + lo) / (hi - lo)),
+                 half=np.float32(0.5), chunk=cheb_f32_chunk,
+                 dtype=torch.float32))
+
+
+def _sparse_cheb_filter_host_fused(ctx, Q, *, rung, n_coeffs=None):
+    """One filter application rho(A) Q through the fused step kernels of
+    rung "f32" or "f64". The k=1 init is one kernel step with HALVED map
+    scalars from T0 = 0: T2 = 2 (sc/2 A Q - sh/2 Q) = Ahat Q. acc starts at
+    c0 Q in the rung's precision. ``n_coeffs`` truncates the series (the
+    rational filter's shorter f32-rung expansion)."""
+    r = ctx[rung]
+    coeffs = r["coeffs"]
+    if n_coeffs is not None:
+        coeffs = coeffs[:max(int(n_coeffs), 3)]
+    t1 = Q.to(r["dtype"], copy=True)      # overwritten as the carry rotates
+    carry = (torch.zeros_like(t1), t1, t1 * float(coeffs[0]))
+    carry = r["chunk"](r["dia"], ctx["offsets"], carry, coeffs[1:2],
+                       r["sc"] * r["half"], r["sh"] * r["half"])
+    carry = r["chunk"](r["dia"], ctx["offsets"], carry, coeffs[2:],
+                       r["sc"], r["sh"])
+    return carry[2]
+
+
+def _backxform(apply_A, dscale, Q, lam):
+    """Congruence back-transform for a diagonal B = D: with s = D^-1/2,
+    x_j = s y_j / ||s y_j|| and the ORIGINAL pencil's residual
+    ||A x - lam B x|| / max(|lam|, 1) = ||(Ahat y - lam y) / s|| / (...)."""
+    s = dscale[:, None].to(Q.dtype)
+    nrm = torch.linalg.vector_norm(s * Q, dim=0)
+    nrm = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+    X = (s * Q) / nrm[None, :]
+    R = (apply_A(Q) - Q * lam[None, :].to(Q.dtype)) / (s * nrm[None, :])
+    res = torch.linalg.vector_norm(R, dim=0) / torch.clamp(lam.abs(), min=1.0)
+    return X, res
+
+
+def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
+                          device, Q0=None, contour=None,
+                          route=False) -> FeastResult:
+    """Polynomial-filtered FEAST for standard and positive-diagonal-B
+    pencils (counterpart of the JAX package's ``_sparse_cheb_interval``,
+    host-loop branch). ``contour``: realize that contour's rational filter
+    as a Chebyshev series; ``route=True`` (the auto route) also builds the
+    indicator and keeps the cheaper one, and reports an ineligible
+    configuration as ChebInfeasible."""
+    fpm = _ensure_fpm(fpm)
+    b_kind, b_diag = _b_diagonal(B)
+    if b_kind is None:
+        raise _not_ported("a sparse SPD or indefinite B (only None, the "
+                          "identity or a positive diagonal)", 8)
+    is_complex = np.iscomplexobj(_peek_dtype(A))
+    if hermitian is None:
+        hermitian = is_complex
+    if hermitian:
+        raise _not_ported("the complex Hermitian sparse path", 6)
+    f64 = _is_double(_peek_dtype(A).dtype)
+    rdtype = np.float64 if f64 else np.float32
+    tdtype = torch.float64 if f64 else torch.float32
+    cdtype = np.complex128 if f64 else np.complex64
+
+    A_data, A_idx, shape = sparse_coo_arrays(A, rdtype)
+    N = shape[0]
+    if b_kind == "diagonal":
+        dscale = 1.0 / np.sqrt(b_diag.astype(np.float64))
+        A_data = (A_data * (dscale[A_idx[:, 0]] * dscale[A_idx[:, 1]])
+                  ).astype(rdtype)
+    if not 0 < M0 <= N:
+        raise ValueError(f"M0 must be in 1..N={N}, got {M0}")
+    if not Emax > Emin:
+        raise ValueError(f"Emin={Emin} must be < Emax={Emax}")
+    outA = bcoo_to_dia(A_data, A_idx, N)
+    if outA is None:
+        raise _not_ported("an operator with more than 32 diagonals (the "
+                          "unfused BCOO recurrence)", 6)
+    A_dia_np, offsets = outA
+
+    config = FeastConfig.from_fpm(fpm, dtype=cdtype)
+    lo, hi = gershgorin_interval(A_data, A_idx, N)
+    # Ladder degree rule of the JAX package: a mixed-precision solve spends
+    # >= 2 rungs, and a 1.5x-sharper indicator trades a top-rung loop for
+    # ~constant total matvecs.
+    ladder_scale = (1.5 if (_mixed_enabled(config, device, f64)
+                            and config.tol <= 1e-6) else 1.0)
+    if contour is not None:
+        if route:
+            # Cost model: rational vs indicator, work = degree x expected
+            # loops (~3 rational, ~5 indicator), on the UNSCALED indicator
+            # degree; a cap-bound indicator that barely decays outside is
+            # refused.
+            rat = ind = None
+            rat_err = None
+            try:
+                rat = rational_filter_cheb_coeffs(
+                    contour.Zne, contour.Wne, lo, hi,
+                    float(Emin), float(Emax))
+            except ChebInfeasible as e:
+                rat_err = e
+            try:
+                ind = build_cheb_filter_coeffs(
+                    lo, hi, float(Emin), float(Emax),
+                    degree_scale=ladder_scale)
+                if ind[1]["outside_at_1w"] > 0.25 * ind[1]["inside_min"]:
+                    ind = None
+            except ValueError:
+                ind = None
+            if rat is None and ind is None:
+                raise ChebInfeasible(
+                    f"neither polynomial filter resolves this "
+                    f"configuration ({rat_err})")
+            if rat is not None and (ind is None
+                                    or 3 * rat[1]["degree"]
+                                    <= 5 * ind[1]["degree"] / ladder_scale):
+                coeffs, cinfo = rat
+            else:
+                coeffs, cinfo = ind
+        else:
+            coeffs, cinfo = rational_filter_cheb_coeffs(
+                contour.Zne, contour.Wne, lo, hi, float(Emin),
+                float(Emax))
+    else:
+        try:
+            coeffs, cinfo = build_cheb_filter_coeffs(
+                lo, hi, float(Emin), float(Emax), degree_scale=ladder_scale)
+        except ValueError as _e:
+            if route:
+                raise ChebInfeasible(str(_e)) from _e
+            raise
+    if config.print_level >= 1:
+        kindname = ("contour-poly" if cinfo.get("kind") == "rational"
+                    else "cheb")
+        print(f"feast {kindname} filter: degree={cinfo['degree']} "
+              f"enclosure=[{lo:.3g},{hi:.3g}] "
+              f"outside@1w={cinfo['outside_at_1w']:.2e}", flush=True)
+    if config.mode == 2:
+        raise _not_ported("the stochastic eigenvalue count fpm[14]=2", 16)
+
+    A_dia = torch.as_tensor(A_dia_np, dtype=tdtype).to(device)
+    ctx = _cheb_fused_context(A_dia, offsets, coeffs, lo, hi)
+
+    def apply_A(X):
+        return dia_matvec(A_dia, offsets, X)
+
+    def apply_B(X):          # identity: a diagonal B is congruenced away
+        return X
+
+    update = make_rayleigh_ritz_update(
+        apply_A, apply_B, float(Emin), float(Emax), tol=config.tol,
+        convergence_criterion=config.convergence_criterion)
+    # rung-truncated series for the f32 rung (rational filters only)
+    n_lo = (int(cinfo["degree_lo"]) + 1
+            if cinfo.get("degree_lo") else None)
+    rung_top = "f64" if f64 else "f32"
+    use_lp = _mixed_enabled(config, device, f64)
+    lp_avail = use_lp
+    # switch to the top rung at 2x the predicted f32 floor
+    # sqrt(degree) * eps_f32 (or 30 tol, whichever is larger)
+    lp_switch = max(2.0 * np.sqrt(float(cinfo["degree"])) * 6e-8,
+                    30.0 * float(config.tol))
+
+    q0_np = initial_subspace(fpm, Q0, N, M0, rdtype)
+    if use_lp and config.mode != 1 and Q0 is None and int(fpm[5]) == 0:
+        # as the JAX package ships it on the ladder: the seeded subspace's
+        # f32 bits, widened (Gaussian noise has no information in its f64
+        # mantissa tail, and both packages then start from one subspace)
+        q0_np = q0_np.astype(np.float32)
+    state = init_hermitian_state(
+        torch.as_tensor(q0_np).to(device=device, dtype=tdtype))
+    del q0_np
+
+    if config.mode == 1:
+        # subspace only: one filter application, orthonormalized
+        Qp = _sparse_cheb_filter_host_fused(ctx, state.Q, rung=rung_top)
+        U, _ = thin_svd(Qp)
+        state = state._replace(Q=U, loop=1)
+    else:
+        eps_best, eps_prev, best_state, stall_loops = np.inf, np.inf, None, 0
+        gm_prev = np.inf
+        for _loop in range(config.max_loops + 1):
+            _t0 = time.perf_counter()
+            # the Rayleigh-Ritz update builds the next basis from Qproj
+            # alone: drop the old (N, M0) subspace while the filter runs
+            Q_in = state.Q
+            state = state._replace(Q=None)
+            rung = "f32" if use_lp else rung_top
+            Qp = _sparse_cheb_filter_host_fused(
+                ctx, Q_in, rung=rung,
+                n_coeffs=n_lo if rung == "f32" else None).to(tdtype)
+            Q_in = None
+            state = update(state, Qp)
+            Qp = None
+            # one host fetch per loop: flag, epsout, residuals, mask
+            conv = bool(state.converged)
+            eps_now = float(state.epsout)
+            res_h = state.res.cpu().numpy()
+            ins_h = state.inside.cpu().numpy()
+            M_now = int(np.sum(ins_h))
+            if config.print_level >= 1:
+                print(f"feast cheb loop {_loop}: epsout={eps_now:.2e} "
+                      f"M={M_now} ({rung} recurrence, "
+                      f"{time.perf_counter() - _t0:.1f}s)", flush=True)
+            if eps_now < eps_best and M_now > 0 and not use_lp:
+                eps_best, best_state = eps_now, state
+            if conv:
+                break
+            # a loop stalls only when NEITHER the max nor the geometric
+            # mean of the plausible residuals improves
+            pl = ins_h & (res_h < SPURIOUS_RES)
+            gm_now = (float(np.exp(np.mean(np.log(np.maximum(
+                res_h[pl], 1e-300))))) if pl.any() else np.inf)
+            stalled = _loop >= 1 and eps_now >= 0.5 * eps_prev \
+                and gm_now >= 0.7 * gm_prev
+            # ladder: a stall (or reaching the f32 floor) switches f32 ->
+            # top rung; only a stall on the top rung counts toward giving up
+            if use_lp and (stalled or eps_now <= lp_switch):
+                use_lp = False
+                stall_loops = 0
+                if config.print_level >= 1:
+                    print(f"feast cheb: recurrence switching to {rung_top}",
+                          flush=True)
+            elif stalled:
+                stall_loops += 1
+                if stall_loops >= 2:
+                    break
+            else:
+                stall_loops = 0
+            eps_prev, gm_prev = eps_now, gm_now
+        if best_state is not None:
+            state = best_state
+        # spurious-verify filter pass: rho = ||P q|| against 0.25, so the
+        # f32 rung's noise is irrelevant under the mixed schedule
+        vrung = "f32" if lp_avail else rung_top
+        Qp = _sparse_cheb_filter_host_fused(
+            ctx, state.Q, rung=vrung,
+            n_coeffs=n_lo if vrung == "f32" else None).to(tdtype)
+        state = verify_spurious_from(state, Qp)
+        Qp = None
+
+    conv = bool(state.converged)
+    lam = state.lam.cpu().numpy()
+    res = state.res.cpu().numpy()
+    inside = state.inside.cpu().numpy()
+    epsout = float(state.epsout)
+    Q = state.Q
+    if b_kind == "diagonal":
+        Q, res_t = _backxform(
+            apply_A, torch.as_tensor(dscale, dtype=tdtype).to(device), Q,
+            state.lam)
+        res = res_t.cpu().numpy()
+        epsout = float(res[inside].max()) if inside.any() else epsout
+    # Post-verify SUCCESS upgrade: every genuine pair below tol meets the
+    # convergence contract even when junk columns pinned the loop's flag.
+    if (not conv and inside.any()
+            and float(np.max(res[inside])) <= config.tol):
+        conv = True
+    info = FeastError.SUCCESS if conv else FeastError.NO_CONVERGENCE
+    return _trim(FeastResult, lam, Q, res, inside, int(info), epsout,
+                 int(state.loop) - 1, inner_ok=bool(state.inner_ok))
+
+
+def sparse_feast_interval(A, B, Emin, Emax, M0, fpm=None, *, hermitian=None,
+                          solver=None, Q0=None, device=None) -> FeastResult:
+    """Sparse symmetric interval driver (counterpart of the JAX package's
+    ``sparse_feast_interval``): ``solver=None`` takes the auto route,
+    ``"cheb"`` the indicator filter, ``"contour_poly"`` the rational
+    contour filter as a polynomial. ``device=None`` means CUDA."""
+    device = resolve_device(device)
+    fpm = _ensure_fpm(fpm)
+    from ..core.aux import feast_get_custom_contour
+    if solver in ("cheb", ":cheb"):
+        return _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm,
+                                     hermitian=hermitian, Q0=Q0,
+                                     device=device)
+    if solver in ("contour_poly", ":contour_poly"):
+        contour_r = (feast_get_custom_contour(fpm)
+                     or feast_contour(Emin, Emax, fpm))
+        return _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm,
+                                     hermitian=hermitian, Q0=Q0,
+                                     device=device, contour=contour_r)
+    if solver is not None:
+        raise _not_ported(f"solver={solver!r} (the Krylov contour engine)",
+                          10)
+    if _quick_narrow_band(A, B):
+        raise _not_ported("the narrow-band pencil delegation to the banded "
+                          "BCR engine", 11)
+    contour_r = (feast_get_custom_contour(fpm)
+                 or feast_contour(Emin, Emax, fpm))
+    try:
+        return _sparse_cheb_interval(
+            A, B, Emin, Emax, M0, fpm, hermitian=hermitian, Q0=Q0,
+            device=device, contour=contour_r, route=True)
+    except ChebInfeasible as e:
+        raise _not_ported(
+            f"this configuration leaves the polynomial route ({e}); its "
+            "dense-engine (item 9) or Krylov-engine fallback", 10) from e
+
+
+def feast_scsrev(A, Emin, Emax, M0, fpm=None, **kw) -> FeastResult:
+    """Sparse real-symmetric standard problem (feast_scsrev!)."""
+    return sparse_feast_interval(A, None, Emin, Emax, M0, fpm,
+                                 hermitian=False, **kw)
+
+
+def feast_scsrgv(A, B, Emin, Emax, M0, fpm=None, **kw) -> FeastResult:
+    """Sparse real-symmetric generalized problem (feast_scsrgv!)."""
+    return sparse_feast_interval(A, B, Emin, Emax, M0, fpm,
+                                 hermitian=False, **kw)

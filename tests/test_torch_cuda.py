@@ -1,0 +1,80 @@
+"""PyTorch port on the card: CUDA kernels against their plain versions.
+
+Needs a CUDA device and nvcc; elsewhere every test here skips. Run on the
+card with ``python -m pytest -m cuda tests/test_torch_cuda.py`` (this file
+imports no JAX, so it runs where only the port is installed). The full
+device check, at the main path's shapes, is chip_smoke.py.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import scipy.sparse as sp  # noqa: E402
+
+import feastkit_tpu_torch as ft  # noqa: E402
+from feastkit_tpu_torch.ops import cheb_kernels as ck  # noqa: E402
+from feastkit_tpu_torch.ops.dia import bcoo_to_dia  # noqa: E402
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: "
+                    "python -m pytest -m cuda tests/test_torch_cuda.py)")
+
+
+def _operator(nx, ny, seed=0):
+    rng = np.random.default_rng(seed)
+    n = nx * ny
+    e1 = -rng.random(n - 1)
+    e1[np.arange(1, n) % nx == 0] = 0.0
+    en = -rng.random(n - nx)
+    c = sp.diags([en, e1, 4.0 + rng.random(n), e1, en],
+                 [-nx, -1, 0, 1, nx]).tocoo()
+    return bcoo_to_dia(c.data, np.stack([c.row, c.col], axis=1), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,tol", [
+    ("cheb_step_f32", torch.float32, 1e-5),
+    ("cheb_step_f64", torch.float64, 1e-13)])
+@pytest.mark.parametrize("nx,ny,M", [(37, 29, 11), (33, 33, 72), (5, 7, 1)])
+def test_kernel_matches_plain(name, dtype, tol, nx, ny, M):
+    _need_cuda()
+    dia, offs = _operator(nx, ny)
+    g = torch.Generator().manual_seed(1)
+    d = torch.as_tensor(dia, dtype=dtype).cuda()
+    carry = [torch.randn(nx * ny, M, generator=g, dtype=dtype).cuda()
+             for _ in range(3)]
+    plain = [t.clone() for t in carry]
+    wrapper = getattr(ck, name)
+    before = wrapper.launches
+    coeffs = np.random.default_rng(2).standard_normal(9) * 0.1
+    for c in coeffs:
+        wrapper(d, offs, *carry, 0.3, 0.6, c)
+        carry[0], carry[1] = carry[1], carry[0]
+        ck.cheb_step_plain(d, offs, *plain, 0.3, 0.6, float(c))
+        plain[0], plain[1] = plain[1], plain[0]
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + len(coeffs)
+    scale = plain[2].abs().max()
+    for a, b in zip(carry, plain):
+        assert float((a - b).abs().max() / scale) <= tol
+
+
+@pytest.mark.cuda
+def test_feast_on_cuda_matches_cpu():
+    _need_cuda()
+    nx = 40
+    D = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    A = (sp.kron(D, sp.eye(nx)) + sp.kron(sp.eye(nx), D)).tocsr()
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    ck.reset_launch_counts()
+    rg = ft.feast(A, None, (0.001, 0.1), 48, fpm)
+    counts = ck.launch_counts()
+    rc = ft.feast(A, None, (0.001, 0.1), 48, fpm, device="cpu")
+    assert rg.q.is_cuda and rg.info == 0 and rg.M == rc.M
+    assert counts["cheb_step_f32"] > 0 and counts["cheb_step_f64"] > 0
+    assert np.abs(np.sort(rg.lam) - np.sort(rc.lam)).max() <= 1e-8
+    assert rg.res.max() <= 1e-8
