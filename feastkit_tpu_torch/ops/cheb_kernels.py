@@ -1,7 +1,7 @@
 """Fused Chebyshev-recurrence step: CUDA kernels, plain version, drivers.
 
-Counterpart of ``feastkit_tpu/ops/cheb_pallas.py`` for the one-step
-kernels. One step of the three-term recurrence on row-major (N, M)
+Counterpart of ``feastkit_tpu/ops/cheb_pallas.py`` for the one-, two- and
+four-step kernels. One step of the three-term recurrence on row-major (N, M)
 tensors,
 
     T2 = 2 (sc * A @ T1 - sh * T1) - T0,    acc += c_k * T2,
@@ -24,6 +24,31 @@ unpacks the JAX package's planes). On a CUDA tensor each wrapper launches
 its kernel (``csrc/cheb_step.cu``) or raises; on a CPU tensor it runs
 :func:`cheb_step_plain`. Each wrapper counts its launches in its
 ``launches`` attribute.
+
+The multi-step kernels (``csrc/cheb_multistep.cu``) run S = 2 or 4 steps
+per pass,
+
+    T_{s+2} = 2 (sc * A @ T_{s+1} - sh * T_{s+1}) - T_s,   s = 0..S-1,
+    acc += c_0 T_2 + c_1 T_3 + ...   (added in that order),
+
+and return T_S, T_{S+1} and acc, the next pass's carry:
+
+* ``cheb_step2_f32`` / ``cheb_step4_f32`` replace ``_cheb_f32_2_kernel``
+  (cheb_pallas.py:749) and ``_cheb_f32_4_kernel`` (:847);
+* ``cheb_step2_f64`` / ``cheb_step4_f64`` replace ``_cheb_ds2_kernel``
+  (:370) and ``_cheb_ds4_kernel`` (:522), in native fp64.
+
+Their carry is COLUMN-major: contiguous (M, N) tensors, one contiguous
+N-vector per subspace column (:func:`transpose_planes` converts). The
+stencil couples rows only, so a thread block works on a tile of rows of
+one column and keeps the intermediate levels of that tile, with their
+halos, in shared memory; :func:`multistep_plan` sizes the tile against the
+card's shared memory and says whether a shape fits. A block reads T0 and
+T1 in its neighbours' rows, so T_S and T_{S+1} are written to two separate
+output buffers (the chunk functions ping-pong two pairs); only acc is
+updated in place. On a CPU tensor the wrappers run
+:func:`cheb_step2_plain` / :func:`cheb_step4_plain`, which are S
+applications of :func:`cheb_step_plain`.
 """
 from __future__ import annotations
 
@@ -35,8 +60,19 @@ import torch
 from .dia import dia_matvec
 
 __all__ = ["cheb_step_f32", "cheb_step_f64", "cheb_step_plain",
-           "cheb_f32_chunk", "cheb_f64_chunk", "reset_launch_counts",
-           "launch_counts"]
+           "cheb_step2_f32", "cheb_step4_f32", "cheb_step2_f64",
+           "cheb_step4_f64", "cheb_step2_plain", "cheb_step4_plain",
+           "cheb_f32_chunk", "cheb_f64_chunk", "cheb_f32_2_chunk",
+           "cheb_f32_4_chunk", "cheb_f64_2_chunk", "cheb_f64_4_chunk",
+           "multistep_plan", "transpose_planes", "SHARED_BYTES_PER_BLOCK",
+           "reset_launch_counts", "launch_counts"]
+
+# dynamic shared memory one thread block may use on sm_90 (227 KB), and
+# what each of two blocks resident on one SM may use (the SM has 228 KB and
+# keeps 1 KB per block for itself)
+SHARED_BYTES_PER_BLOCK = 232448
+_SHARED_BYTES_TWO_BLOCKS = (233472 - 2 * 1024) // 2
+_TILE_ALIGN = 32
 
 
 def cheb_step_plain(diags, offsets, t0, t1, acc, sc, sh, ck):
@@ -128,18 +164,217 @@ def cheb_step_f64(diags, offsets, t0, t1, acc, sc, sh, ck):
           sc, sh, ck)
 
 
-cheb_step_f32.launches = 0
-cheb_step_f64.launches = 0
+# --------------------------------------------------------- multi-step
+
+def multistep_plan(offsets, N, M, dtype, steps):
+    """Tile plan of the ``steps``-step kernel (2 or 4) for an (M, N) carry
+    of ``dtype``, or None when the shape does not fit this card.
+
+    A block of the kernel owns ``tile`` rows of one column and holds in
+    shared memory, with halo = max |offset|: level T2 on tile + 2 (S-1)
+    halo rows (T4 is later written over it), for S = 4 level T3 on tile +
+    4 halo rows, and the tile's partial accumulator: 2 tile + 2 halo
+    elements for S = 2, 3 tile + 10 halo for S = 4, within
+    ``SHARED_BYTES_PER_BLOCK``. The shape fits when the largest such tile
+    is at least as long as the 2 (S-1) halo rows recomputed beside it at
+    the first level (so a pass recomputes at most half of its work). Where
+    a tile of half the SM's shared memory is still twice that long, the
+    plan takes it, so that two blocks are resident per SM (the kernel is
+    latency-bound, and it is built for the 32 registers per thread that
+    two blocks of 1024 threads may have;
+    measured faster for the 2-step kernels at the main shapes, PERF.md);
+    the rows are then split into equal tiles. ``recompute`` and
+    ``planes_moved`` are reckoned from the tile and the halo, not read
+    from the card. Pure function of its arguments: the routing among the
+    4-, 2- and 1-step kernels is decided from it before any launch."""
+    if steps not in (2, 4):
+        raise ValueError(f"steps must be 2 or 4, got {steps}")
+    N, M = int(N), int(M)
+    itemsize = torch.finfo(dtype).bits // 8
+    halo = max((abs(int(d)) for d in offsets if abs(int(d)) < N), default=0)
+    n_tile, n_halo = (3, 10) if steps == 4 else (2, 2)
+    min_tile = max(2 * (steps - 1) * halo, _TILE_ALIGN)
+
+    def largest_tile(shared_bytes):
+        words = shared_bytes // itemsize
+        return (words - n_halo * halo) // n_tile // _TILE_ALIGN * _TILE_ALIGN
+
+    tile_max = largest_tile(SHARED_BYTES_PER_BLOCK)
+    if (N <= 0 or M <= 0 or len(offsets) > 32
+            or tile_max < min_tile
+            or 2 * N + tile_max + (steps + 1) * halo + 1024 > 2**31 - 1):
+        return None
+    if largest_tile(_SHARED_BYTES_TWO_BLOCKS) >= 2 * min_tile:
+        tile_max = largest_tile(_SHARED_BYTES_TWO_BLOCKS)
+    tiles = -(-N // tile_max)
+    if tiles * M > 2**31 - 1:                # one block per (tile, column)
+        return None
+    tile = -(-(-(-N // tiles)) // _TILE_ALIGN) * _TILE_ALIGN
+    return dict(steps=steps, tile=tile, tiles=tiles, halo=halo,
+                shared_bytes=(n_tile * tile + n_halo * halo) * itemsize,
+                # arithmetic relative to S exact steps on the own rows
+                recompute=1.0 + (steps - 1) * halo / tile,
+                # (N, M) planes a pass reads and writes through the halos:
+                # T1 on tile + 2 S halo, T0 on tile + 2 (S-1) halo, acc
+                # read; T_S, T_{S+1}, acc written
+                planes_moved=6.0 + (4 * steps - 2) * halo / tile)
+
+
+def transpose_planes(planes: list) -> None:
+    """Transpose each 2-D tensor of the list into a new contiguous tensor,
+    in place in the list: row-major (N, M) planes become the column-major
+    (M, N) planes of the multi-step kernels, and back. One plane at a
+    time, so each source is released before the next copy is made."""
+    for i, x in enumerate(planes):
+        planes[i] = x.t().contiguous()
+
+
+def _multistep_plain(S, diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
+    if len(cs) != S:
+        raise ValueError(f"expected {S} coefficients, got {len(cs)}")
+    a, b, c = (x.t().clone(memory_format=torch.contiguous_format)
+               for x in (t0, t1, acc))
+    for ck in cs:
+        cheb_step_plain(diags, offsets, a, b, c, float(sc), float(sh),
+                        float(ck))
+        a, b = b, a
+    out0.copy_(a.t())
+    out1.copy_(b.t())
+    acc.copy_(c.t())
+
+
+def cheb_step2_plain(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
+    """The plain PyTorch version of one two-step pass on column-major
+    (M, N) tensors: two applications of :func:`cheb_step_plain`. Same
+    contract as the kernels: T0 and T1 are left as they are, out0 <- T2,
+    out1 <- T3, acc updated in place. dtype-generic."""
+    _multistep_plain(2, diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs)
+
+
+def cheb_step4_plain(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
+    """The plain PyTorch version of one four-step pass (out0 <- T4,
+    out1 <- T5); see :func:`cheb_step2_plain`."""
+    _multistep_plain(4, diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs)
+
+
+@functools.cache
+def _multistep_library():
+    from .cuda_build import load
+    lib = load("cheb_multistep")
+    for name, scalar, S in (("cheb_step2_f32", ctypes.c_float, 2),
+                            ("cheb_step4_f32", ctypes.c_float, 4),
+                            ("cheb_step2_f64", ctypes.c_double, 2),
+                            ("cheb_step4_f64", ctypes.c_double, 4)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                        ctypes.c_int] + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int64] * 3 + [scalar] * (2 + S)
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.cheb_multistep_error_string.argtypes = [ctypes.c_int]
+    lib.cheb_multistep_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_multistep(diags, offsets, planes, dtype):
+    names = ("T0", "T1", "acc", "out0", "out1")
+    t0 = planes[0]
+    for name, t in (("diags", diags), *zip(names, planes)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != t0.device:
+            raise ValueError(f"{name} is on {t.device}, T0 on {t0.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if t0.dim() != 2 or any(t.shape != t0.shape for t in planes):
+        raise ValueError("T0, T1, acc, out0 and out1 must be column-major "
+                         "(M, N) of one shape, got "
+                         + ", ".join(str(tuple(t.shape)) for t in planes))
+    if diags.dim() != 2 or diags.shape[0] != len(offsets) \
+            or diags.shape[1] != t0.shape[1]:
+        raise ValueError(f"diags must be ({len(offsets)}, {t0.shape[1]}), "
+                         f"got {tuple(diags.shape)}")
+    if len(offsets) > 32:
+        raise ValueError(f"at most 32 diagonals, got {len(offsets)}")
+    if len({t.data_ptr() for t in planes}) != 5:
+        raise ValueError("T0, T1, acc, out0 and out1 must be five distinct "
+                         "buffers")
+
+
+def _multistep(wrapper, S, dtype, diags, offsets, t0, t1, acc, out0, out1,
+               sc, sh, cs):
+    planes = (t0, t1, acc, out0, out1)
+    _check_multistep(diags, offsets, planes, dtype)
+    cs = [float(c) for c in cs]
+    if len(cs) != S:
+        raise ValueError(f"expected {S} coefficients, got {len(cs)}")
+    if t0.device.type == "cpu":
+        _multistep_plain(S, diags, offsets, t0, t1, acc, out0, out1, sc, sh,
+                         cs)
+        return
+    if not t0.is_cuda:
+        raise ValueError(f"unsupported device {t0.device}")
+    M, N = t0.shape
+    plan = multistep_plan(offsets, N, M, dtype, S)
+    if plan is None:
+        raise ValueError(
+            f"{wrapper.__name__}: N={N}, M={M}, offsets={tuple(offsets)} "
+            "does not fit the kernel's shared-memory tile (multistep_plan)")
+    lib = _multistep_library()
+    offs = (ctypes.c_int64 * max(len(offsets), 1))(*offsets)
+    with torch.cuda.device(t0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, wrapper.__name__)(
+            diags.data_ptr(), offs, len(offsets),
+            *(t.data_ptr() for t in planes), N, M, plan["tile"],
+            float(sc), float(sh), *cs, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{wrapper.__name__} launch failed: CUDA error {err} "
+            f"({lib.cheb_multistep_error_string(err).decode()})")
+    wrapper.launches += 1
+
+
+def cheb_step2_f32(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
+    """Two fused f32 steps on column-major (M, N) tensors: out0 <- T2,
+    out1 <- T3, acc += cs[0] T2 + cs[1] T3 in place."""
+    _multistep(cheb_step2_f32, 2, torch.float32, diags, offsets, t0, t1,
+               acc, out0, out1, sc, sh, cs)
+
+
+def cheb_step4_f32(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
+    """Four fused f32 steps: out0 <- T4, out1 <- T5, acc += sum cs[i]
+    T_{2+i} in place."""
+    _multistep(cheb_step4_f32, 4, torch.float32, diags, offsets, t0, t1,
+               acc, out0, out1, sc, sh, cs)
+
+
+def cheb_step2_f64(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
+    """Two fused fp64 steps; see :func:`cheb_step2_f32`."""
+    _multistep(cheb_step2_f64, 2, torch.float64, diags, offsets, t0, t1,
+               acc, out0, out1, sc, sh, cs)
+
+
+def cheb_step4_f64(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
+    """Four fused fp64 steps; see :func:`cheb_step4_f32`."""
+    _multistep(cheb_step4_f64, 4, torch.float64, diags, offsets, t0, t1,
+               acc, out0, out1, sc, sh, cs)
+
+
+_WRAPPERS = (cheb_step_f32, cheb_step_f64, cheb_step2_f32, cheb_step4_f32,
+             cheb_step2_f64, cheb_step4_f64)
 
 
 def launch_counts() -> dict:
-    return {"cheb_step_f32": cheb_step_f32.launches,
-            "cheb_step_f64": cheb_step_f64.launches}
+    return {w.__name__: w.launches for w in _WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    cheb_step_f32.launches = 0
-    cheb_step_f64.launches = 0
+    for w in _WRAPPERS:
+        w.launches = 0
+
+
+reset_launch_counts()
 
 
 def _chunk(step, diags, offsets, carry, coeffs_chunk, sc, sh):
@@ -160,3 +395,46 @@ def cheb_f64_chunk(diags, offsets, carry, coeffs_chunk, sc, sh):
     """Advance the fp64 recurrence carry over a coefficient chunk
     (counterpart of ``cheb_ds_chunk``)."""
     return _chunk(cheb_step_f64, diags, offsets, carry, coeffs_chunk, sc, sh)
+
+
+def _multistep_chunk(step, S, diags, offsets, carry, coeffs_chunk, sc, sh):
+    if len(coeffs_chunk) % S:
+        raise ValueError(f"chunk length {len(coeffs_chunk)} is not a "
+                         f"multiple of {S}")
+    t0, t1, acc = carry
+    if len(coeffs_chunk) == 0:
+        return t0, t1, acc
+    out0, out1 = torch.empty_like(t0), torch.empty_like(t1)
+    for i in range(0, len(coeffs_chunk), S):
+        step(diags, offsets, t0, t1, acc, out0, out1, sc, sh,
+             coeffs_chunk[i:i + S])
+        t0, t1, out0, out1 = out0, out1, t0, t1
+    return t0, t1, acc
+
+
+def cheb_f32_2_chunk(diags, offsets, carry, coeffs_chunk, sc, sh):
+    """Advance the column-major f32 carry (T0, T1, acc) two steps per pass
+    over a chunk of even length (counterpart of ``cheb_f32_2_chunk``). The
+    carry's T buffers are reused as the second output pair, so the carry
+    passed in is consumed; two more planes are allocated."""
+    return _multistep_chunk(cheb_step2_f32, 2, diags, offsets, carry,
+                            coeffs_chunk, sc, sh)
+
+
+def cheb_f32_4_chunk(diags, offsets, carry, coeffs_chunk, sc, sh):
+    """Four steps per pass over a chunk whose length is a multiple of 4
+    (counterpart of ``cheb_f32_4_chunk``); see :func:`cheb_f32_2_chunk`."""
+    return _multistep_chunk(cheb_step4_f32, 4, diags, offsets, carry,
+                            coeffs_chunk, sc, sh)
+
+
+def cheb_f64_2_chunk(diags, offsets, carry, coeffs_chunk, sc, sh):
+    """The fp64 two-step chunk (counterpart of ``cheb_ds2_chunk``)."""
+    return _multistep_chunk(cheb_step2_f64, 2, diags, offsets, carry,
+                            coeffs_chunk, sc, sh)
+
+
+def cheb_f64_4_chunk(diags, offsets, carry, coeffs_chunk, sc, sh):
+    """The fp64 four-step chunk (counterpart of ``cheb_ds4_chunk``)."""
+    return _multistep_chunk(cheb_step4_f64, 4, diags, offsets, carry,
+                            coeffs_chunk, sc, sh)

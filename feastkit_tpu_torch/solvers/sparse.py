@@ -9,8 +9,11 @@ positive-diagonal-B pencils.
 
 Every filter application runs the fused Chebyshev-step kernels of
 ``ops/cheb_kernels.py`` on CUDA tensors (their plain versions on CPU
-tensors) through a two-rung precision ladder: ``f32`` (the f32-rounded
-operator, half the bytes of the bandwidth-bound recurrence) while epsout
+tensors): one 1-step launch for the k=1 init, then 4-step passes where the
+shape fits the 4-step kernel, else 2-step passes, else 1-step launches
+(``FEAST_CHEB_FUSE2=0`` / ``FEAST_CHEB_FUSE4=0`` select the 1-step and the
+2-step configuration, as in the JAX package). It does so through a
+two-rung precision ladder: ``f32`` (the f32-rounded operator, half the bytes of the bandwidth-bound recurrence) while epsout
 is above the f32 floor, then ``f64``. The JAX package's middle
 double-single rung exists because a TPU emulates f64; on Hopper it is the
 same fp64 kernel, so the port's top rung covers both. The mixed-precision
@@ -27,6 +30,7 @@ narrow-band BCR delegation (item 11) and the stochastic count fpm[14]=2
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -40,7 +44,10 @@ from ..core.types import FeastError, FeastResult, _trim
 from ..kernel.hermitian import (SPURIOUS_RES, init_hermitian_state,
                                 make_rayleigh_ritz_update,
                                 verify_spurious_from)
-from ..ops.cheb_kernels import cheb_f32_chunk, cheb_f64_chunk
+from ..ops.cheb_kernels import (cheb_f32_2_chunk, cheb_f32_4_chunk,
+                                cheb_f32_chunk, cheb_f64_2_chunk,
+                                cheb_f64_4_chunk, cheb_f64_chunk,
+                                multistep_plan, transpose_planes)
 from ..ops.chebfilter import (ChebInfeasible, build_cheb_filter_coeffs,
                               gershgorin_interval,
                               rational_filter_cheb_coeffs)
@@ -157,39 +164,84 @@ def _mixed_enabled(config, device, f64) -> bool:
     return device.type == "cuda"
 
 
-def _cheb_fused_context(A_dia, offsets, coeffs, lo, hi):
+def _cheb_fused_context(A_dia, offsets, coeffs, lo, hi, M):
     """Device operands of both rungs, built once per solve (counterpart of
     ``_cheb_ds_context``): the f64 diagonals and their f32 rounding, the
-    coefficients and map scalars in each rung's precision."""
+    coefficients and map scalars in each rung's precision, and each rung's
+    steps per pass: 4 where the 4-step kernel's tile fits
+    (``multistep_plan``), else 2, else 1, decided per rung from the shape
+    alone. ``FEAST_CHEB_FUSE2=0`` keeps the 1-step kernels for every step
+    and ``FEAST_CHEB_FUSE4=0`` stops at two steps per pass (the JAX
+    package's opt-out switches, with its meaning)."""
+    N = A_dia.shape[1]
+    fuse2 = os.environ.get("FEAST_CHEB_FUSE2") not in ("0", "")
+    fuse4 = fuse2 and os.environ.get("FEAST_CHEB_FUSE4") not in ("0", "")
+
+    def steps(dtype):
+        if fuse4 and multistep_plan(offsets, N, M, dtype, 4):
+            return 4
+        if fuse2 and multistep_plan(offsets, N, M, dtype, 2):
+            return 2
+        return 1
+
     return dict(
         offsets=offsets,
         f64=dict(dia=A_dia, coeffs=np.asarray(coeffs, np.float64),
                  sc=2.0 / (hi - lo), sh=(hi + lo) / (hi - lo),
-                 half=0.5, chunk=cheb_f64_chunk, dtype=torch.float64),
+                 half=0.5, chunk=cheb_f64_chunk, chunk2=cheb_f64_2_chunk,
+                 chunk4=cheb_f64_4_chunk, dtype=torch.float64,
+                 steps=steps(torch.float64)),
         f32=dict(dia=A_dia.to(torch.float32),
                  coeffs=np.asarray(coeffs, np.float32),
                  sc=np.float32(2.0 / (hi - lo)),
                  sh=np.float32((hi + lo) / (hi - lo)),
                  half=np.float32(0.5), chunk=cheb_f32_chunk,
-                 dtype=torch.float32))
+                 chunk2=cheb_f32_2_chunk, chunk4=cheb_f32_4_chunk,
+                 dtype=torch.float32, steps=steps(torch.float32)))
 
 
 def _sparse_cheb_filter_host_fused(ctx, Q, *, rung, n_coeffs=None):
     """One filter application rho(A) Q through the fused step kernels of
-    rung "f32" or "f64". The k=1 init is one kernel step with HALVED map
-    scalars from T0 = 0: T2 = 2 (sc/2 A Q - sh/2 Q) = Ahat Q. acc starts at
-    c0 Q in the rung's precision. ``n_coeffs`` truncates the series (the
-    rational filter's shorter f32-rung expansion)."""
+    rung "f32" or "f64". The k=1 init is one 1-step kernel launch with
+    HALVED map scalars from T0 = 0: T2 = 2 (sc/2 A Q - sh/2 Q) = Ahat Q.
+    acc starts at c0 Q in the rung's precision. The remaining r steps run
+    as floor(r/4) 4-step passes, then one 2-step pass if r mod 4 >= 2, then
+    one 1-step launch if r is odd (with the rung's ``steps`` = 2: r/2
+    2-step passes and the odd step; = 1: r 1-step launches). The multi-step
+    kernels carry column-major (M, N) planes, so the carry is transposed
+    once after the init and acc (or, before an odd last step, the carry)
+    once at the end. ``n_coeffs`` truncates the series (the rational
+    filter's shorter f32-rung expansion)."""
     r = ctx[rung]
     coeffs = r["coeffs"]
     if n_coeffs is not None:
         coeffs = coeffs[:max(int(n_coeffs), 3)]
+    dia, offsets, sc, sh = r["dia"], ctx["offsets"], r["sc"], r["sh"]
     t1 = Q.to(r["dtype"], copy=True)      # overwritten as the carry rotates
     carry = (torch.zeros_like(t1), t1, t1 * float(coeffs[0]))
-    carry = r["chunk"](r["dia"], ctx["offsets"], carry, coeffs[1:2],
-                       r["sc"] * r["half"], r["sh"] * r["half"])
-    carry = r["chunk"](r["dia"], ctx["offsets"], carry, coeffs[2:],
-                       r["sc"], r["sh"])
+    del t1
+    carry = r["chunk"](dia, offsets, carry, coeffs[1:2],
+                       sc * r["half"], sh * r["half"])
+    rest = coeffs[2:]
+    n4 = len(rest) // 4 * 4 if r["steps"] == 4 else 0
+    n2 = (len(rest) - n4) // 2 * 2 if r["steps"] >= 2 else 0
+    if n4 + n2:
+        planes = list(carry)
+        del carry
+        transpose_planes(planes)
+        carry = r["chunk4"](dia, offsets, planes, rest[:n4], sc, sh)
+        del planes
+        carry = r["chunk2"](dia, offsets, carry, rest[n4:n4 + n2], sc, sh)
+        if n4 + n2 == len(rest):
+            acc = carry[2]
+            del carry                     # the T planes, before the copy
+            return acc.t().contiguous()
+        planes = list(carry)
+        del carry
+        transpose_planes(planes)
+        carry = tuple(planes)
+        del planes
+    carry = r["chunk"](dia, offsets, carry, rest[n4 + n2:], sc, sh)
     return carry[2]
 
 
@@ -307,7 +359,7 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         raise _not_ported("the stochastic eigenvalue count fpm[14]=2", 16)
 
     A_dia = torch.as_tensor(A_dia_np, dtype=tdtype).to(device)
-    ctx = _cheb_fused_context(A_dia, offsets, coeffs, lo, hi)
+    ctx = _cheb_fused_context(A_dia, offsets, coeffs, lo, hi, M0)
 
     def apply_A(X):
         return dia_matvec(A_dia, offsets, X)

@@ -62,6 +62,66 @@ def test_kernel_matches_plain(name, dtype, tol, nx, ny, M):
         assert float((a - b).abs().max() / scale) <= tol
 
 
+_MULTISTEP = [
+    ("cheb_step2_f32", "cheb_step2_plain", 2, torch.float32, 1e-5),
+    ("cheb_step4_f32", "cheb_step4_plain", 4, torch.float32, 1e-5),
+    ("cheb_step2_f64", "cheb_step2_plain", 2, torch.float64, 1e-13),
+    ("cheb_step4_f64", "cheb_step4_plain", 4, torch.float64, 1e-13)]
+
+
+def _two_passes(name, plain, S, dtype, tol, dia, offs, N, M):
+    """Two consecutive passes through the kernel and its plain version
+    (the output pair of the first is the input pair of the second)."""
+    g = torch.Generator().manual_seed(1)
+    d = torch.as_tensor(dia, dtype=dtype).cuda()
+    k = [torch.randn(M, N, generator=g, dtype=dtype).cuda()
+         for _ in range(5)]
+    p = [t.clone() for t in k]
+    wrapper, plain = getattr(ck, name), getattr(ck, plain)
+    before = wrapper.launches
+    coeffs = np.random.default_rng(2).standard_normal(2 * S) * 0.1
+    for i in (0, S):
+        wrapper(d, offs, *k, 0.3, 0.6, coeffs[i:i + S])
+        plain(d, offs, *p, 0.3, 0.6, coeffs[i:i + S])
+        k = [k[3], k[4], k[2], k[0], k[1]]
+        p = [p[3], p[4], p[2], p[0], p[1]]
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    scale = p[2].abs().max()
+    for a, b in zip(k[:3], p[:3]):
+        assert float((a - b).abs().max() / scale) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,plain,S,dtype,tol", _MULTISTEP)
+@pytest.mark.parametrize("nx,ny,M", [(37, 29, 11), (33, 33, 72), (5, 7, 1),
+                                     (40, 3, 5)])
+def test_multistep_kernel_matches_plain(name, plain, S, dtype, tol, nx, ny,
+                                        M):
+    # (40, 3): S * max|offset| exceeds N
+    _need_cuda()
+    dia, offs = _operator(nx, ny)
+    _two_passes(name, plain, S, dtype, tol, dia, offs, nx * ny, M)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,plain,S,dtype,tol", _MULTISTEP)
+@pytest.mark.parametrize("offs", [
+    (-1, 0, 1), (-40, -33, -7, -2, -1, 0, 1, 2, 7, 33, 40)],
+    ids=["3diags", "11diags"])
+def test_multistep_kernel_other_diagonal_counts(name, plain, S, dtype, tol,
+                                                offs):
+    # the kernels have one body for five diagonals and one for any other
+    # count: hold the latter against the plain version too
+    _need_cuda()
+    N = 1089
+    rng = np.random.default_rng(3)
+    dia = np.zeros((len(offs), N))
+    for k, d in enumerate(offs):
+        dia[k, max(0, -d):N - max(0, d)] = rng.random(N - abs(d)) - 0.5
+    _two_passes(name, plain, S, dtype, tol, dia, offs, N, 6)
+
+
 @pytest.mark.cuda
 def test_feast_on_cuda_matches_cpu():
     _need_cuda()
@@ -75,6 +135,10 @@ def test_feast_on_cuda_matches_cpu():
     counts = ck.launch_counts()
     rc = ft.feast(A, None, (0.001, 0.1), 48, fpm, device="cpu")
     assert rg.q.is_cuda and rg.info == 0 and rg.M == rc.M
+    # the default schedule: one 1-step init per application, then 4-step
+    # passes (and the 2-step / 1-step tail the degree asks for)
     assert counts["cheb_step_f32"] > 0 and counts["cheb_step_f64"] > 0
+    assert counts["cheb_step4_f32"] > counts["cheb_step_f32"]
+    assert counts["cheb_step4_f64"] > counts["cheb_step_f64"]
     assert np.abs(np.sort(rg.lam) - np.sort(rc.lam)).max() <= 1e-8
     assert rg.res.max() <= 1e-8

@@ -10,6 +10,14 @@ same problem from the same seeded subspace:
     port its f32 -> f64 rungs;
   * a positive diagonal B: a separable pencil Dx(x)By + Bx(x)Dy with
     B = Bx(x)By, whose eigenvalues are known exactly.
+  * the fused path: the JAX package with ``FEAST_CHEB_DS=1`` and
+    fpm[42] = 2 runs its 1-step init and 4-step Pallas kernels in interpret
+    mode through the f32 -> double-single ladder (the 1D Laplacian, n = 300,
+    of tests/test_cheb_pallas.py keeps that to seconds), the port its
+    init -> 4 -> 2 -> 1 schedule on the f32 -> f64 rungs;
+  * the port alone under the default switches, ``FEAST_CHEB_FUSE4=0``
+    (2-step passes) and ``FEAST_CHEB_FUSE2=0`` (1-step launches): the same
+    M and eigenvalues within 1e-10.
 Each case checks: the same M and info, eigenvalues within 1e-8 of each
 other and of the exact values (the BASELINE.md sparse tolerance), every
 residual <= tol, and eigenvectors equal cluster by cluster as subspaces to
@@ -158,3 +166,73 @@ def test_subspace_only_mode_matches(mixed):
     R = np.asarray(r.q_full)[:, :len(exact)]
     P = p.q_full.numpy()[:, :len(exact)]
     assert np.linalg.norm(P - R @ (R.T @ P), 2) <= 1e-10
+
+
+@functools.lru_cache(maxsize=None)
+def _solve_fused_1d():
+    import os
+    from feastkit_tpu.solvers.sparse import feast_scsrev as ref_scsrev
+    n = 300
+    A = sp.diags([2.0 * np.ones(n), -np.ones(n - 1), -np.ones(n - 1)],
+                 [0, 1, -1], format="csr")
+    w = 2.0 - 2.0 * np.cos(np.arange(1, n + 1) * np.pi / (n + 1))
+    exact = np.sort(w[w <= 0.01])
+    fpm = ref_feastinit()
+    fpm[3] = 13
+    fpm[42] = 2
+    saved = {k: os.environ.pop(k, None) for k in
+             ("FEAST_CHEB_DS", "FEAST_CHEB_FUSE2", "FEAST_CHEB_FUSE4")}
+    os.environ["FEAST_CHEB_DS"] = "1"
+    try:
+        r = ref_scsrev(A, 0.0, 0.01, len(exact) + 4, fpm, solver="cheb")
+        p = ft.feast_scsrev(A, 0.0, 0.01, len(exact) + 4,
+                            fpm_from_reference(fpm), solver="cheb",
+                            device="cpu")
+    finally:
+        del os.environ["FEAST_CHEB_DS"]
+        os.environ.update({k: v for k, v in saved.items() if v is not None})
+    return r, p, exact
+
+
+def test_fused_path_same_count_and_status():
+    r, p, exact = _solve_fused_1d()
+    assert p.M == r.M == len(exact)
+    assert int(p.info) == int(r.info) == 0
+
+
+def test_fused_path_eigenvalues_and_residuals():
+    r, p, exact = _solve_fused_1d()
+    lam_p = np.sort(np.asarray(p.lam))
+    assert np.abs(lam_p - np.sort(np.asarray(r.lam))).max() <= TOL
+    assert np.abs(lam_p - exact).max() <= 1e-13
+    assert np.asarray(p.res).max() <= 1e-13     # fpm[3] = 13
+
+
+@functools.lru_cache(maxsize=None)
+def _solve_port_alone(switch, mixed):
+    import os
+    A, B, (Emin, Emax, exact) = _fixture("auto")
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    fpm[42] = mixed
+    names = ("FEAST_CHEB_FUSE2", "FEAST_CHEB_FUSE4")
+    saved = {k: os.environ.pop(k, None) for k in names}
+    if switch:
+        os.environ[switch] = "0"
+    try:
+        return ft.feast(A, B, (Emin, Emax), M0, fpm, device="cpu"), exact
+    finally:
+        for k in names:
+            os.environ.pop(k, None)
+        os.environ.update({k: v for k, v in saved.items() if v is not None})
+
+
+@pytest.mark.parametrize("mixed", [1, 2])
+@pytest.mark.parametrize("switch", ["FEAST_CHEB_FUSE4", "FEAST_CHEB_FUSE2"])
+def test_switches_keep_the_result(switch, mixed):
+    default, exact = _solve_port_alone(None, mixed)
+    other, _ = _solve_port_alone(switch, mixed)
+    assert other.M == default.M == len(exact)
+    assert int(other.info) == int(default.info) == 0
+    assert np.abs(np.sort(other.lam) - np.sort(default.lam)).max() <= 1e-10
+    assert np.asarray(other.res).max() <= TOL
