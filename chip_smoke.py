@@ -3,12 +3,14 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py           # every phase (about a few minutes)
-    python3 chip_smoke.py --quick   # phases 1-3: build and check kernels
+    python3 chip_smoke.py --quick   # phases 1-3b: build and check kernels
 
 Phases, each printed before the last line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of every kernel from feastkit_tpu_torch/ops/csrc with nvcc
-     (sm_90a), one nvcc per source, all started together, and its time;
+     (sm_90a), one nvcc per source, all started together, and its time
+     (with cheb_multistep.cu built a second time with the run-time
+     diagonal count only, for phase 3b);
   3. each of the six kernels against its plain PyTorch version on the card,
      at the main path's shapes (2D Laplacian P=10: N = 1,048,576, M = 72,
      five diagonals; 8 steps for the 1-step kernels, two consecutive passes
@@ -21,6 +23,13 @@ Phases, each printed before the last line:
      kernel's time per launch and per step, its plain version's time, the
      bound, and a torch.sparse.mm (CSR) matvec for scale; and the
      Rayleigh-Ritz update's time at the main path's shapes;
+  3b. the SPD-B composite's kernels (the column-major one-step entries
+     cheb_step_cm_f32/f64 and the combine cheb_combine_f32/f64) against
+     their plain versions at the P=8 consistent-mass shapes (N = 65,536,
+     M = 72, the nine-diagonal B~) and at awkward shapes, same
+     tolerances, and their times; and the 2- and 4-step kernels on the
+     nine-diagonal operator with the ND = 9 instantiation and with the
+     run-time-count body, each checked and timed;
   4. the main path: feast(lap2d(1024), None, (Emin, Emax), 72, fpm) with
      fpm[3] = 8 and the default fpm[42] (mixed precision on CUDA) under the
      default switches, once cold and three times warm, the kernel launch
@@ -36,8 +45,20 @@ Phases, each printed before the last line:
      call under the default switches, FEAST_CHEB_FUSE4=0 (the 2-step
      kernels carry it) and FEAST_CHEB_FUSE2=0 (the 1-step kernels carry
      every step), which must agree to 1e-8;
-  6. one JSON line {"kernels": [...]} with each kernel's launches on the
-     main path, its error against its plain version and its times.
+  6. the SPD-B path: feast(A, B, (0, Emax), 72, fpm) on the
+     consistent-mass pencil of scripts/scale_sparse_gen.py at P=8
+     (N = 65,536, A = Dx(x)Mx + Mx(x)Dx, B = Mx(x)Mx, Emax at the gap after
+     the 50th analytic eigenvalue, fpm[3] = 8) through the auto route,
+     once cold and three times warm, the launch counts reset just before
+     the first warm solve and read just after it; checks M against the
+     analytic count, eigenvalue error <= 1e-8, residuals <= 1e-8, info 0,
+     the launches of every kernel against the schedule the solve's outer
+     and inner series imply, on both rungs; then one more warm solve with
+     its stages timed (the Lanczos bounds, coefficients, each rung's
+     filter, Rayleigh-Ritz, back-transform, Q0);
+  7. one JSON line {"kernels": [...]} with each kernel's launches on its
+     path (the main path's, or for the composite's own kernels the SPD-B
+     path's), its error against its plain version and its times.
 The last line is {"ok": true, "device": {...}}. Any failed check raises
 and exits nonzero before that line. Without a CUDA device the script
 exits nonzero and prints no result.
@@ -113,6 +134,36 @@ def separable_pencil(nx, seed):
     return A, B, np.sort((mu[:, None] + nu[None, :]).ravel())
 
 
+def consistent_mass_pencil(p):
+    """The consistent-mass rung of scripts/scale_sparse_gen.py: on an
+    nx = 2^p grid, A = Dx (x) Mx + Mx (x) Dx and B = Mx (x) Mx with
+    Mx = (1/6)[1 4 1], nine diagonals each. The pencil's eigenvalues are
+    mu_i + mu_j of the 1D pencil Dx v = mu Mx v (one dense eigh)."""
+    import scipy.linalg as sla
+    import scipy.sparse as sp
+    nx = 2 ** p
+    Dx = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    Mx = sp.diags([4 / 6, 1 / 6, 1 / 6], [0, 1, -1], shape=(nx, nx))
+    A = (sp.kron(Dx, Mx) + sp.kron(Mx, Dx)).tocsr()
+    B = sp.kron(Mx, Mx).tocsr()
+    mu = sla.eigh(Dx.toarray(), Mx.toarray(), eigvals_only=True)
+    return A, B, np.sort((mu[:64, None] + mu[None, :64]).ravel())
+
+
+def congruenced_dia(A, B):
+    """The unit-diagonal congruences of A and B as (nd, N) DIA arrays and
+    offsets, as the solver builds them."""
+    from feastkit_tpu_torch.ops.dia import bcoo_to_dia
+    from feastkit_tpu_torch.solvers.sparse import sparse_coo_arrays
+    d = 1.0 / np.sqrt(B.diagonal())
+    out = []
+    for X in (A, B):
+        data, idx, _ = sparse_coo_arrays(X, np.float64)
+        out.append(bcoo_to_dia(data * d[idx[:, 0]] * d[idx[:, 1]], idx,
+                               X.shape[0]))
+    return out
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -147,21 +198,37 @@ def phase_card():
     return smi
 
 
+RUNTIME_COUNT_ONLY = ("-DCHEB_RUNTIME_COUNT_ONLY",)
+
+
 def phase_build():
     from feastkit_tpu_torch.ops import cuda_build
     sources = sorted(p.stem for p in cuda_build.SRC_DIR.glob("*.cu"))
+    # every source, and the multi-step kernels with the run-time diagonal
+    # count only (timed against the nine-diagonal instantiation, phase 3)
+    builds = [(name, ()) for name in sources] + [("cheb_multistep",
+                                                  RUNTIME_COUNT_ONLY)]
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
-        list(pool.map(cuda_build.build, sources))
+    with ThreadPoolExecutor(len(builds)) as pool:    # one nvcc per build
+        list(pool.map(lambda b: cuda_build.build(*b), builds))
     dt = time.perf_counter() - t0
-    print(f"== 2. built {sources} for sm_90a in {dt:.2f} s", flush=True)
+    print(f"== 2. built {sources} and cheb_multistep {RUNTIME_COUNT_ONLY} "
+          f"for sm_90a in {dt:.2f} s", flush=True)
     return dt
 
 
 KERNELS = {   # name -> (steps per launch, source, TPU kernel it replaces)
     "cheb_step_f32": (1, "cheb_step.cu", "feastkit_tpu/ops/cheb_pallas.py:685"),
     "cheb_step_f64": (1, "cheb_step.cu", "feastkit_tpu/ops/cheb_pallas.py:256"),
+    "cheb_step_cm_f32": (1, "cheb_step.cu",
+                         "feastkit_tpu/ops/cheb_pallas.py:685"),
+    "cheb_step_cm_f64": (1, "cheb_step.cu",
+                         "feastkit_tpu/ops/cheb_pallas.py:256"),
+    "cheb_combine_f32": (0, "cheb_combine.cu",
+                         "feastkit_tpu/ops/cheb_pallas.py:990"),
+    "cheb_combine_f64": (0, "cheb_combine.cu",
+                         "feastkit_tpu/ops/cheb_pallas.py:990"),
     "cheb_step2_f32": (2, "cheb_multistep.cu",
                        "feastkit_tpu/ops/cheb_pallas.py:749"),
     "cheb_step4_f32": (4, "cheb_multistep.cu",
@@ -385,6 +452,155 @@ def phase_kernels(card_name):
     return out
 
 
+def phase_gen_kernels(card_name):
+    """Phase 3 for the kernels of the sparse-SPD-B composite: the
+    column-major one-step entries and the combine against their plain
+    versions at the P=8 consistent-mass shapes (N = 65,536, M = 72, the
+    nine-diagonal B~) and at awkward shapes; their times; and the
+    multi-step kernels on the nine-diagonal operator, with the ND = 9
+    instantiation and with the run-time-count body."""
+    import torch
+    from feastkit_tpu_torch.ops import cheb_kernels as ck
+    bw, peak32, peak64 = _card_rates(card_name)
+    print("== 3b. the SPD-B composite's kernels (P=8 consistent mass)",
+          flush=True)
+    A, B, _ = consistent_mass_pencil(8)
+    (_, _), (dB_np, offs) = congruenced_dia(A, B)
+    N, M, nd = A.shape[0], 72, len(offs)
+    # b_lo, b_hi of the solve (0.9 / 1.1 x the B~ spectrum (0.25, 2.25))
+    scB, shB = 2.0 / (2.475 - 0.225), (2.475 + 0.225) / (2.475 - 0.225)
+    awkward = _awkward_operators()
+    out = {}
+    for dtype, tol, peak in ((torch.float32, 1e-5, peak32),
+                             (torch.float64, 1e-13, peak64)):
+        rung = "f32" if dtype == torch.float32 else "f64"
+        npd = np.float32 if dtype == torch.float32 else np.float64
+        size = torch.finfo(dtype).bits // 8
+        dia = torch.as_tensor(dB_np, device="cuda").to(dtype)
+        cs = np.asarray(np.random.default_rng(0).standard_normal(8) * 0.1,
+                        npd)
+        # the column-major one-step entry (8 steps, as for cheb_step_*)
+        name = f"cheb_step_cm_{rung}"
+        wrapper, plain = getattr(ck, name), ck.cheb_step_cm_plain
+        carry = _planes(torch, dtype, (M, N), 3, 1)
+        err, rel = _compare(torch, wrapper, plain, dia, offs, carry,
+                            npd(scB), npd(shB), cs)
+        print(f"   {name} N={N} M={M} nd={nd}: max abs err {err:.3e}, "
+              f"relative {rel:.3e} (tol {tol:g})", flush=True)
+        check(rel <= tol, f"{name} agrees with its plain version at the "
+              "consistent-mass shapes")
+        worst = rel
+        for dn, on, an, am in awkward:
+            dd = torch.as_tensor(dn, device="cuda").to(dtype)
+            c2 = _planes(torch, dtype, (am, an), 3, 2)
+            _, r2 = _compare(torch, wrapper, plain, dd, on, c2, npd(0.37),
+                             npd(0.61), cs[:5])
+            print(f"   {name} N={an} M={am} offsets={on}: relative "
+                  f"{r2:.3e}", flush=True)
+            check(r2 <= tol, f"{name} agrees at N={an} M={am}")
+            worst = max(worst, r2)
+
+        def step():
+            wrapper(dia, offs, *carry, scB, shB, 0.01)
+            carry[0], carry[1] = carry[1], carry[0]
+
+        def step_plain():
+            plain(dia, offs, *carry, float(scB), float(shB), 0.01)
+            carry[0], carry[1] = carry[1], carry[0]
+        ms = cuda_time_ms(step, 100)
+        plain_ms = cuda_time_ms(step_plain, 10)
+        nbytes = (5 * N * M + nd * N) * size
+        flops = N * M * (2 * nd + 6)
+        bound_ms = max(nbytes / bw, flops / peak) * 1e3
+        print(f"   {name}: {ms:.4f} ms/launch (plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms, {bound_ms / ms:.1%} of bound)",
+              flush=True)
+        out[name] = dict(max_abs_err=err, max_rel_err=worst, ms=ms,
+                         ms_per_step=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms,
+                         bound_by="bytes" if nbytes / bw >= flops / peak
+                         else "operations", csr_spmm_ms=None)
+        del carry
+        # the combine: in place (the outer step) and from zero (the inits)
+        name = f"cheb_combine_{rung}"
+        wrapper = getattr(ck, name)
+        worst, err = 0.0, 0.0
+        for (an, am) in ((N, M), (1089, 1), (1089, 7), (100, 11)):
+            z, x, t0, f = _planes(torch, dtype, (am, an), 4, 3)
+            t0p, fp = t0.clone(), f.clone()
+            wrapper(z, x, t0, f, npd(0.3), npd(0.7), npd(0.11))
+            ck.cheb_combine_plain(z, x, t0p, fp, 0.3, 0.7, 0.11)
+            o = wrapper(z, x, None, None, npd(0.3), npd(-0.7), 0.5)
+            op = ck.cheb_combine_plain(z, x, None, None, 0.3, -0.7, 0.5)
+            torch.cuda.synchronize()
+            e = max(float((a - b).abs().max())
+                    for a, b in ((t0, t0p), (f, fp), (o, op)))
+            r = e / max(float(fp.abs().max()), float(op.abs().max()))
+            print(f"   {name} N={an} M={am}: max abs err {e:.3e}, "
+                  f"relative {r:.3e} (tol {tol:g})", flush=True)
+            check(r <= tol, f"{name} agrees with its plain version at "
+                  f"N={an} M={am}")
+            if an == N:
+                err = e
+            worst = max(worst, r)
+        before = wrapper.launches
+        z, x, t0, f = _planes(torch, dtype, (M, N), 4, 4)
+        ms = cuda_time_ms(lambda: wrapper(z, x, t0, f, 0.3, 0.7, 1e-3), 100)
+        check(wrapper.launches == before + 103,
+              f"{name} counts one launch per call")
+        plain_ms = cuda_time_ms(lambda: ck.cheb_combine_plain(
+            z, x, t0, f, 0.3, 0.7, 1e-3), 10)
+        nbytes = 6 * N * M * size          # z, x, t0, f read; t2, f written
+        flops = 6 * N * M
+        bound_ms = max(nbytes / bw, flops / peak) * 1e3
+        print(f"   {name}: {ms:.4f} ms/launch (plain, three torch "
+              f"operations and their temporaries: {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms = {nbytes / 1e9:.4f} GB at "
+              f"{bw / 1e12:.2f} TB/s, {bound_ms / ms:.1%} of bound)",
+              flush=True)
+        out[name] = dict(max_abs_err=err, max_rel_err=worst, ms=ms,
+                         ms_per_step=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms,
+                         bound_by="bytes" if nbytes / bw >= flops / peak
+                         else "operations", csr_spmm_ms=None)
+        del z, x, t0, f
+        # the multi-step kernels on the nine-diagonal B~: the ND = 9
+        # instantiation and the run-time-count body, both against plain
+        for S in (2, 4):
+            name = f"cheb_step{S}_{rung}"
+            wrapper = getattr(ck, name)
+            plan = ck.multistep_plan(offs, N, M, dtype, S)
+            row = {}
+            for body, defines in (("nd9", ()),
+                                  ("runtime_count", RUNTIME_COUNT_ONLY)):
+                def kern(planes, cks, defines=defines):
+                    ck._multistep(wrapper, S, dtype, dia, offs, *planes,
+                                  npd(scB), npd(shB), cks, defines=defines)
+                k = _planes(torch, dtype, (M, N), 5, 5)
+                p_ = [t.clone() for t in k]
+                kern(k, cs[:S])
+                ck._multistep_plain(S, dia, offs, *p_, npd(scB), npd(shB),
+                                    cs[:S])
+                torch.cuda.synchronize()
+                # the pass's outputs: out0, out1 and acc
+                _, r = _errors([k[3], k[4], k[2]], [p_[3], p_[4], p_[2]])
+                check(r <= tol, f"{name} ({body} body) agrees with its "
+                      "plain version on the nine-diagonal operator")
+
+                def step(k=k, kern=kern):
+                    kern(k, [0.01] * S)
+                    k[:] = [k[3], k[4], k[2], k[0], k[1]]
+                row[body] = dict(ms=cuda_time_ms(step, 50), max_rel_err=r)
+                del k, p_
+            print(f"   {name} nd={nd} (tile {plan['tile']}): ND=9 body "
+                  f"{row['nd9']['ms']:.4f} ms/launch, run-time-count body "
+                  f"{row['runtime_count']['ms']:.4f} ms/launch", flush=True)
+            out[f"{name}_nd9"] = row
+        del dia
+        torch.cuda.empty_cache()
+    return out
+
+
 def sp_awkward(nx, ny):
     """A 2D five-point operator with random coefficients on an nx-by-ny
     grid (offsets -nx, -1, 0, 1, nx)."""
@@ -471,27 +687,54 @@ def expected_launches(applications, steps):
     return want
 
 
+def expected_gen_launches(applications, inner, qlen):
+    """Launch counts the composite's schedule (``ops/cheb_gen.py``) must
+    give: an application of n outer coefficients runs n - 1 outer steps
+    (the init's and the chunk's), each with one column-major one-step
+    launch for A, one for the inner init, the r = len(qc) - 2 other inner
+    steps split 4 / 2 / 1 as ``inner[rung]`` allows, and one combine; the
+    fp64 carry's inner init adds a combine per outer step and its outer
+    init one more."""
+    from feastkit_tpu_torch.ops.cheb_gen import inner_split
+    want = {name: 0 for name in KERNELS}
+    for rung, n in applications:
+        outer = n - 1
+        n4, n2, n1 = inner_split(qlen[rung] - 2, inner[rung])
+        want[f"cheb_step_cm_{rung}"] += outer * (2 + n1)
+        want[f"cheb_step4_{rung}"] += outer * (n4 // 4)
+        want[f"cheb_step2_{rung}"] += outer * (n2 // 2)
+        ds = rung == "f64"
+        want[f"cheb_combine_{rung}"] += outer * (1 + ds) + ds
+    return want
+
+
 @contextlib.contextmanager
-def recorded_applications():
+def recorded_applications(gen=False):
     """Record (rung, series length) of every filter application and each
-    rung's steps per pass, read back from the solver as it runs."""
+    rung's steps per pass (the composite's: its inner steps per pass and
+    the length of its inner series), read back from the solver as it
+    runs."""
     from feastkit_tpu_torch.solvers import sparse
-    orig = sparse._sparse_cheb_filter_host_fused
-    seen = dict(applications=[], steps={})
+    name = ("_sparse_cheb_filter_host_fused_gen" if gen
+            else "_sparse_cheb_filter_host_fused")
+    orig = getattr(sparse, name)
+    seen = dict(applications=[], steps={}, qlen={})
 
     def recorder(ctx, Q, *, rung, n_coeffs=None):
         n = len(ctx[rung]["coeffs"])
         if n_coeffs is not None:
             n = min(n, max(int(n_coeffs), 3))
         seen["applications"].append((rung, n))
-        seen["steps"][rung] = ctx[rung]["steps"]
+        seen["steps"][rung] = ctx[rung]["inner_steps" if gen else "steps"]
+        if gen:
+            seen["qlen"][rung] = len(ctx[rung]["qc"])
         return orig(ctx, Q, rung=rung, n_coeffs=n_coeffs)
 
-    sparse._sparse_cheb_filter_host_fused = recorder
+    setattr(sparse, name, recorder)
     try:
         yield seen
     finally:
-        sparse._sparse_cheb_filter_host_fused = orig
+        setattr(sparse, name, orig)
 
 
 @contextlib.contextmanager
@@ -509,16 +752,18 @@ def switches(**env):
         os.environ.update({k: v for k, v in saved.items() if v is not None})
 
 
-def _counted_solve(A, B, Emin, Emax, M0, fpm, label):
+def _counted_solve(A, B, Emin, Emax, M0, fpm, label, gen=False):
     """One solve with the launch counts set to 0 just before and read just
     after; checks the counts against the schedule the solve reports."""
     from feastkit_tpu_torch.ops.cheb_kernels import (launch_counts,
                                                       reset_launch_counts)
-    with recorded_applications() as seen:
+    with recorded_applications(gen) as seen:
         reset_launch_counts()
         r, seconds = _run_feast(A, B, Emin, Emax, M0, fpm)
         counts = launch_counts()
-    want = expected_launches(seen["applications"], seen["steps"])
+    want = (expected_gen_launches(seen["applications"], seen["steps"],
+                                  seen["qlen"]) if gen
+            else expected_launches(seen["applications"], seen["steps"]))
     print(f"   {label}: {seconds:.2f} s, steps per pass {seen['steps']}, "
           f"applications {seen['applications']}, launches {counts}",
           flush=True)
@@ -555,8 +800,9 @@ def phase_main_path(kernels):
     _check_result(r, exp, 1e-8, "P=10 warm")
     check(seen["steps"] == {"f32": 4, "f64": 4},
           "both rungs take four steps per pass at the main shapes")
-    for name, n in counts.items():
-        check(n > 0, f"{name} launched on the main path ({n})")
+    for name in MAIN_PATH_KERNELS:
+        check(counts[name] > 0,
+              f"{name} launched on the main path ({counts[name]})")
     del r
     warm = [warm_s]
     for _ in range(2):
@@ -566,9 +812,9 @@ def phase_main_path(kernels):
         del r
     print(f"   warm solves {[round(s, 3) for s in warm]} s, median "
           f"{float(np.median(warm)):.3f} s", flush=True)
-    breakdown = _breakdown(A, Emin, Emax, M0, fpm)
+    breakdown = _breakdown(A, None, Emin, Emax, M0, fpm)
     for rung in ("f32", "f64"):
-        names = [n for n in counts if n.endswith(rung)]
+        names = [n for n in counts if n.endswith(rung) and counts[n]]
         kernel_s = sum(counts[n] * kernels[n]["ms"] for n in names) / 1e3
         print(f"   {rung} rung: launches "
               f"{ {n: counts[n] for n in names} } x ms/launch (CUDA events, "
@@ -579,7 +825,7 @@ def phase_main_path(kernels):
         applications=seen["applications"], breakdown=breakdown)
 
 
-def _breakdown(A, Emin, Emax, M0, fpm):
+def _breakdown(A, B, Emin, Emax, M0, fpm):
     """One more warm solve with the solver's stages wrapped in timers (the
     device synchronised at each stage's edges): where the time goes."""
     import torch
@@ -618,6 +864,11 @@ def _breakdown(A, Emin, Emax, M0, fpm):
     saved_rr = sparse.make_rayleigh_ritz_update
     saved = [timed("_sparse_cheb_filter_host_fused",
                    lambda k: f"filter_{k['rung']}"),
+             timed("_sparse_cheb_filter_host_fused_gen",
+                   lambda k: f"filter_{k['rung']}"),
+             timed("_b_spd_bounds", "b_bounds_lanczos"),
+             timed("_pencil_upper_edge_fast", "pencil_edge_lanczos"),
+             timed("cheb_inverse_coeffs", "host_coeffs", sync=False),
              timed("sparse_coo_arrays", "host_coo", sync=False),
              timed("bcoo_to_dia", "host_dia", sync=False),
              timed("gershgorin_interval", "host_enclosure", sync=False),
@@ -629,7 +880,7 @@ def _breakdown(A, Emin, Emax, M0, fpm):
              timed("_backxform", "backxform")]
     sparse.make_rayleigh_ritz_update = rr_factory
     try:
-        _, wall = _run_feast(A, None, Emin, Emax, M0, fpm)
+        _, wall = _run_feast(A, B, Emin, Emax, M0, fpm)
     finally:
         sparse.make_rayleigh_ritz_update = saved_rr
         for name, orig in saved:
@@ -708,6 +959,78 @@ def phase_p9():
                 diag_b_s=diag_s, diag_b_loops=r.loop, switches=sw)
 
 
+MAIN_PATH_KERNELS = ("cheb_step_f32", "cheb_step_f64", "cheb_step2_f32",
+                     "cheb_step4_f32", "cheb_step2_f64", "cheb_step4_f64")
+SPD_B_KERNELS = ("cheb_step_cm_f32", "cheb_step_cm_f64", "cheb_combine_f32",
+                 "cheb_combine_f64")
+
+
+def phase_consistent_mass(kernels):
+    """The SPD-B path: feast on the consistent-mass pencil at P=8 through
+    the auto route, once cold, then three warm solves (the first counted),
+    then one with its stages timed."""
+    import torch
+    import feastkit_tpu_torch as ft
+    print("== 6. SPD-B path: feast on the consistent-mass pencil, P=8",
+          flush=True)
+    A, B, w = consistent_mass_pencil(8)
+    gaps = np.nonzero(np.diff(w) > 1e-12)[0]
+    hi = gaps[np.searchsorted(gaps, 50)]
+    Emax = float(0.5 * (w[hi] + w[hi + 1]))
+    exp = w[w <= Emax]
+    M0 = 72
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    fpm[1] = 1
+    print(f"   N={A.shape[0]} interval=(0, {Emax:.6e}) M0={M0}, "
+          f"{len(exp)} analytic pairs", flush=True)
+    r, cold_s = _run_feast(A, B, 0.0, Emax, M0, fpm)
+    print(f"   cold solve {cold_s:.2f} s", flush=True)
+    _check_result(r, exp, 1e-8, "P=8 consistent mass cold")
+    del r
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with switches():
+        r, warm_s, counts, seen = _counted_solve(
+            A, B, 0.0, Emax, M0, fpm, "P=8 consistent mass warm", gen=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"   warm solve {warm_s:.2f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB; inner steps per pass {seen['steps']}, "
+          f"inner series lengths {seen['qlen']}", flush=True)
+    _check_result(r, exp, 1e-8, "P=8 consistent mass warm")
+    for name in SPD_B_KERNELS:
+        check(counts[name] > 0, f"{name} launched on the SPD-B path "
+              f"({counts[name]})")
+    rungs = {rung for rung, _ in seen["applications"]}
+    check(rungs == {"f32", "f64"}
+          and all(counts[f"cheb_step4_{rung}"] > 0 for rung in rungs),
+          "both rungs ran, their inner recurrences in 4-step passes")
+    del r
+    warm = [warm_s]
+    for _ in range(2):
+        r, s = _run_feast(A, B, 0.0, Emax, M0, fpm)
+        check(r.M == len(exp) and int(r.info) == 0,
+              "repeat warm solve agrees")
+        warm.append(s)
+        del r
+    print(f"   warm solves {[round(s, 3) for s in warm]} s, median "
+          f"{float(np.median(warm)):.3f} s", flush=True)
+    breakdown = _breakdown(A, B, 0.0, Emax, M0, fpm)
+    for rung in ("f32", "f64"):
+        names = [n for n in counts if n.endswith(rung) and counts[n]]
+        kernel_s = sum(counts[n] * kernels[n]["ms"] for n in names
+                       if n in kernels) / 1e3
+        print(f"   {rung} rung: launches "
+              f"{ {n: counts[n] for n in names} }; x ms/launch (phase 3, "
+              f"nine-diagonal times for the multi-step kernels) = "
+              f"{kernel_s:.3f} s; filter stage "
+              f"{breakdown.get('filter_' + rung, 0.0):.3f} s", flush=True)
+    return dict(cold_s=cold_s, warm_s=warm, warm_median_s=float(
+        np.median(warm)), peak_bytes=peak, counts=counts,
+        applications=seen["applications"], inner_steps=seen["steps"],
+        inner_series=seen["qlen"], breakdown=breakdown)
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -720,13 +1043,24 @@ def main(argv):
     smi = phase_card()
     phase_build()
     kernels = phase_kernels(smi.split(",")[0])
+    gen_kernels = phase_gen_kernels(smi.split(",")[0])
+    nd9 = {k: gen_kernels.pop(k) for k in list(gen_kernels)
+           if k.endswith("_nd9")}
+    kernels.update(gen_kernels)
     rr_ms = phase_rayleigh_ritz()
     counts = {name: None for name in KERNELS}
     if not quick:
         main_path = phase_main_path(kernels)
-        counts = main_path["counts"]
         p9 = phase_p9()
-        print(json.dumps({"main_path": main_path, "p9": p9}), flush=True)
+        # each kernel's launches on its own path: the main path for the
+        # kernels it runs, the SPD-B path for the composite's own
+        ms9 = dict(kernels)
+        ms9.update({k[:-4]: v["nd9"] for k, v in nd9.items()})
+        spd_b = phase_consistent_mass(ms9)
+        counts = dict(main_path["counts"])
+        counts.update({n: spd_b["counts"][n] for n in SPD_B_KERNELS})
+        print(json.dumps({"main_path": main_path, "p9": p9,
+                          "spd_b": spd_b}), flush=True)
     rows = []
     copy_tbs = kernels.pop("copy_tbs")
     for name, k in kernels.items():
@@ -740,8 +1074,8 @@ def main(argv):
             bound_by=k["bound_by"], library_ms=None,
             steps_per_launch=steps, ms_per_step=k["ms_per_step"],
             csr_spmm_ms=k["csr_spmm_ms"]))
-    print(json.dumps({"rayleigh_ritz_ms": rr_ms, "copy_tbs": copy_tbs}),
-          flush=True)
+    print(json.dumps({"rayleigh_ritz_ms": rr_ms, "copy_tbs": copy_tbs,
+                      "multistep_nine_diagonals": nd9}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

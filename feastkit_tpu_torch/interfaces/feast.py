@@ -21,7 +21,9 @@ __all__ = ["feast", "feast_summary"]
 def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
           Q0=None, device=None, **kw) -> FeastResult:
     """All eigenpairs of A x = lam B x with lam in [Emin, Emax] for a
-    sparse symmetric A and B None or positive diagonal.
+    sparse real symmetric A and B None, a positive diagonal (lumped mass)
+    or a sparse symmetric positive-definite matrix (consistent mass,
+    solved through the polynomial-inverse composite q(B) A).
 
     Args:
       A, B: sparse operands (B=None for the standard problem).

@@ -49,6 +49,20 @@ output buffers (the chunk functions ping-pong two pairs); only acc is
 updated in place. On a CPU tensor the wrappers run
 :func:`cheb_step2_plain` / :func:`cheb_step4_plain`, which are S
 applications of :func:`cheb_step_plain`.
+
+The sparse-SPD-B composite (``ops/cheb_gen.py``) runs one-step and
+multi-step passes in turn on every outer step, so it needs the one-step
+kernels on the column-major carry too: ``cheb_step_cm_f32`` /
+``cheb_step_cm_f64`` are the entries of ``csrc/cheb_step.cu`` for (M, N)
+planes (plain version :func:`cheb_step_cm_plain`, the 1-step plain version
+on the transposed views). Its elementwise combine
+
+    T2 = 2 (sc * z - sh * x) - T0,    F += c_k * T2,
+
+is ``cheb_combine_f64`` (replaces ``_ds_combine_kernel``,
+cheb_pallas.py:990, in native fp64) and ``cheb_combine_f32`` (the f32
+rung's three XLA operations, cheb_pallas.py:1174-1185, as one pass), in
+``csrc/cheb_combine.cu``; plain version :func:`cheb_combine_plain`.
 """
 from __future__ import annotations
 
@@ -60,9 +74,12 @@ import torch
 from .dia import dia_matvec
 
 __all__ = ["cheb_step_f32", "cheb_step_f64", "cheb_step_plain",
+           "cheb_step_cm_f32", "cheb_step_cm_f64", "cheb_step_cm_plain",
            "cheb_step2_f32", "cheb_step4_f32", "cheb_step2_f64",
            "cheb_step4_f64", "cheb_step2_plain", "cheb_step4_plain",
-           "cheb_f32_chunk", "cheb_f64_chunk", "cheb_f32_2_chunk",
+           "cheb_combine_f32", "cheb_combine_f64", "cheb_combine_plain",
+           "cheb_f32_chunk", "cheb_f64_chunk", "cheb_f32_cm_chunk",
+           "cheb_f64_cm_chunk", "cheb_f32_2_chunk",
            "cheb_f32_4_chunk", "cheb_f64_2_chunk", "cheb_f64_4_chunk",
            "multistep_plan", "transpose_planes", "SHARED_BYTES_PER_BLOCK",
            "reset_launch_counts", "launch_counts"]
@@ -84,12 +101,21 @@ def cheb_step_plain(diags, offsets, t0, t1, acc, sc, sh, ck):
     acc.add_(t2, alpha=ck)
 
 
+def cheb_step_cm_plain(diags, offsets, t0, t1, acc, sc, sh, ck):
+    """The plain version of one step on column-major (M, N) planes: the
+    row-major plain version on the transposed views, which write through
+    to the planes (elementwise the same arithmetic in the same order)."""
+    cheb_step_plain(diags, offsets, t0.t(), t1.t(), acc.t(), sc, sh, ck)
+
+
 @functools.cache
 def _library():
     from .cuda_build import load
     lib = load("cheb_step")
     for name, scalar in (("cheb_step_f32", ctypes.c_float),
-                         ("cheb_step_f64", ctypes.c_double)):
+                         ("cheb_step_f64", ctypes.c_double),
+                         ("cheb_step_cm_f32", ctypes.c_float),
+                         ("cheb_step_cm_f64", ctypes.c_double)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -101,19 +127,21 @@ def _library():
     return lib
 
 
-def _check(diags, offsets, t0, t1, acc, dtype):
+def _check(diags, offsets, t0, t1, acc, dtype, colmajor=False):
     for name, t in (("diags", diags), ("T0", t0), ("T1", t1), ("acc", acc)):
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != t0.device:
             raise ValueError(f"{name} is on {t.device}, T0 on {t0.device}")
     if t0.dim() != 2 or t1.shape != t0.shape or acc.shape != t0.shape:
-        raise ValueError("T0, T1 and acc must be (N, M) of one shape, got "
-                         f"{tuple(t0.shape)}, {tuple(t1.shape)}, "
+        layout = "(M, N)" if colmajor else "(N, M)"
+        raise ValueError(f"T0, T1 and acc must be {layout} of one shape, "
+                         f"got {tuple(t0.shape)}, {tuple(t1.shape)}, "
                          f"{tuple(acc.shape)}")
+    n = t0.shape[1] if colmajor else t0.shape[0]
     if diags.dim() != 2 or diags.shape[0] != len(offsets) \
-            or diags.shape[1] != t0.shape[0]:
-        raise ValueError(f"diags must be ({len(offsets)}, {t0.shape[0]}), "
+            or diags.shape[1] != n:
+        raise ValueError(f"diags must be ({len(offsets)}, {n}), "
                          f"got {tuple(diags.shape)}")
     if len(offsets) > 32:
         raise ValueError(f"at most 32 diagonals, got {len(offsets)}")
@@ -121,32 +149,33 @@ def _check(diags, offsets, t0, t1, acc, dtype):
         raise ValueError("T0, T1 and acc must be three distinct buffers")
 
 
-def _launch(wrapper, diags, offsets, t0, t1, acc, sc, sh, ck):
+def _launch(wrapper, diags, offsets, t0, t1, acc, sc, sh, ck, colmajor):
     for name, t in (("diags", diags), ("T0", t0), ("T1", t1), ("acc", acc)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib = _library()
     offs = (ctypes.c_int64 * max(len(offsets), 1))(*offsets)
+    n, m = (t0.shape[1], t0.shape[0]) if colmajor else t0.shape
     with torch.cuda.device(t0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, wrapper.__name__)(
             diags.data_ptr(), offs, len(offsets), t0.data_ptr(),
-            t1.data_ptr(), acc.data_ptr(), t0.shape[0], t0.shape[1],
-            sc, sh, ck, stream)
+            t1.data_ptr(), acc.data_ptr(), n, m, sc, sh, ck, stream)
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} launch failed: CUDA error "
                            f"{err} ({lib.cheb_error_string(err).decode()})")
     wrapper.launches += 1
 
 
-def _step(wrapper, dtype, diags, offsets, t0, t1, acc, sc, sh, ck):
-    _check(diags, offsets, t0, t1, acc, dtype)
+def _step(wrapper, dtype, diags, offsets, t0, t1, acc, sc, sh, ck,
+          colmajor=False):
+    _check(diags, offsets, t0, t1, acc, dtype, colmajor)
     if t0.is_cuda:
         _launch(wrapper, diags, offsets, t0, t1, acc, float(sc), float(sh),
-                float(ck))
+                float(ck), colmajor)
     elif t0.device.type == "cpu":
-        cheb_step_plain(diags, offsets, t0, t1, acc, float(sc), float(sh),
-                        float(ck))
+        plain = cheb_step_cm_plain if colmajor else cheb_step_plain
+        plain(diags, offsets, t0, t1, acc, float(sc), float(sh), float(ck))
     else:
         raise ValueError(f"unsupported device {t0.device}")
 
@@ -162,6 +191,103 @@ def cheb_step_f64(diags, offsets, t0, t1, acc, sc, sh, ck):
     """One fused fp64 step in place (T0 <- T2, acc += ck T2)."""
     _step(cheb_step_f64, torch.float64, diags, offsets, t0, t1, acc,
           sc, sh, ck)
+
+
+def cheb_step_cm_f32(diags, offsets, t0, t1, acc, sc, sh, ck):
+    """One fused f32 step in place on column-major (M, N) planes."""
+    _step(cheb_step_cm_f32, torch.float32, diags, offsets, t0, t1, acc,
+          sc, sh, ck, colmajor=True)
+
+
+def cheb_step_cm_f64(diags, offsets, t0, t1, acc, sc, sh, ck):
+    """One fused fp64 step in place on column-major (M, N) planes."""
+    _step(cheb_step_cm_f64, torch.float64, diags, offsets, t0, t1, acc,
+          sc, sh, ck, colmajor=True)
+
+
+# ------------------------------------------------------------ combine
+
+def cheb_combine_plain(z, x, t0, f, sc, sh, ck):
+    """The plain version of the combine (same contract as the kernels;
+    dtype-generic): T2 = 2 (sc z - sh x) - T0 and F + ck T2. ``t0`` and
+    ``f`` are updated in place (T0 <- T2, f <- F'); either may be None,
+    read as zero (T2 is then not kept; F' goes to a new plane). Returns
+    the plane that holds F'."""
+    t2 = 2.0 * (sc * z - sh * x)
+    if t0 is not None:
+        t2 = t2 - t0
+        t0.copy_(t2)
+    if f is None:
+        return ck * t2
+    return f.add_(t2, alpha=ck)
+
+
+@functools.cache
+def _combine_library():
+    from .cuda_build import load
+    lib = load("cheb_combine")
+    for name, scalar in (("cheb_combine_f32", ctypes.c_float),
+                         ("cheb_combine_f64", ctypes.c_double)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64]
+                       + [scalar] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.cheb_combine_error_string.argtypes = [ctypes.c_int]
+    lib.cheb_combine_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _combine(wrapper, dtype, z, x, t0, f, sc, sh, ck):
+    named = [("z", z), ("x", x), ("T0", t0), ("F", f)]
+    for name, t in named:
+        if t is None:
+            continue
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != z.device:
+            raise ValueError(f"{name} is on {t.device}, z on {z.device}")
+        if t.shape != z.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, z "
+                             f"{tuple(z.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    ptrs = [t.data_ptr() for _, t in named if t is not None]
+    if len(set(ptrs)) != len(ptrs):
+        raise ValueError("z, x, T0 and F must be distinct buffers")
+    sc, sh, ck = float(sc), float(sh), float(ck)
+    if z.device.type == "cpu":
+        return cheb_combine_plain(z, x, t0, f, sc, sh, ck)
+    if not z.is_cuda:
+        raise ValueError(f"unsupported device {z.device}")
+    out = torch.empty_like(z) if f is None else f
+    lib = _combine_library()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, wrapper.__name__)(
+            z.data_ptr(), x.data_ptr(), ptr(t0), ptr(t0), ptr(f),
+            out.data_ptr(), z.numel(), sc, sh, ck, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{wrapper.__name__} launch failed: CUDA error {err} "
+            f"({lib.cheb_combine_error_string(err).decode()})")
+    wrapper.launches += 1
+    return out
+
+
+def cheb_combine_f32(z, x, t0, f, sc, sh, ck):
+    """The f32 combine in one pass: T0 <- 2 (sc z - sh x) - T0 and
+    f += ck T2 in place (``t0`` / ``f`` None: read as zero, F' returned in
+    a new plane). Returns the plane that holds F'. Scalars are used as
+    f32."""
+    return _combine(cheb_combine_f32, torch.float32, z, x, t0, f, sc, sh, ck)
+
+
+def cheb_combine_f64(z, x, t0, f, sc, sh, ck):
+    """The fp64 combine; see :func:`cheb_combine_f32`."""
+    return _combine(cheb_combine_f64, torch.float64, z, x, t0, f, sc, sh, ck)
 
 
 # --------------------------------------------------------- multi-step
@@ -258,9 +384,9 @@ def cheb_step4_plain(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
 
 
 @functools.cache
-def _multistep_library():
+def _multistep_library(*defines):
     from .cuda_build import load
-    lib = load("cheb_multistep")
+    lib = load("cheb_multistep", *defines)
     for name, scalar, S in (("cheb_step2_f32", ctypes.c_float, 2),
                             ("cheb_step4_f32", ctypes.c_float, 4),
                             ("cheb_step2_f64", ctypes.c_double, 2),
@@ -302,7 +428,7 @@ def _check_multistep(diags, offsets, planes, dtype):
 
 
 def _multistep(wrapper, S, dtype, diags, offsets, t0, t1, acc, out0, out1,
-               sc, sh, cs):
+               sc, sh, cs, defines=()):
     planes = (t0, t1, acc, out0, out1)
     _check_multistep(diags, offsets, planes, dtype)
     cs = [float(c) for c in cs]
@@ -320,7 +446,7 @@ def _multistep(wrapper, S, dtype, diags, offsets, t0, t1, acc, out0, out1,
         raise ValueError(
             f"{wrapper.__name__}: N={N}, M={M}, offsets={tuple(offsets)} "
             "does not fit the kernel's shared-memory tile (multistep_plan)")
-    lib = _multistep_library()
+    lib = _multistep_library(*defines)
     offs = (ctypes.c_int64 * max(len(offsets), 1))(*offsets)
     with torch.cuda.device(t0.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -362,7 +488,8 @@ def cheb_step4_f64(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
 
 
 _WRAPPERS = (cheb_step_f32, cheb_step_f64, cheb_step2_f32, cheb_step4_f32,
-             cheb_step2_f64, cheb_step4_f64)
+             cheb_step2_f64, cheb_step4_f64, cheb_step_cm_f32,
+             cheb_step_cm_f64, cheb_combine_f32, cheb_combine_f64)
 
 
 def launch_counts() -> dict:
@@ -395,6 +522,18 @@ def cheb_f64_chunk(diags, offsets, carry, coeffs_chunk, sc, sh):
     """Advance the fp64 recurrence carry over a coefficient chunk
     (counterpart of ``cheb_ds_chunk``)."""
     return _chunk(cheb_step_f64, diags, offsets, carry, coeffs_chunk, sc, sh)
+
+
+def cheb_f32_cm_chunk(diags, offsets, carry, coeffs_chunk, sc, sh):
+    """One-step launches over a chunk on the column-major f32 carry."""
+    return _chunk(cheb_step_cm_f32, diags, offsets, carry, coeffs_chunk, sc,
+                  sh)
+
+
+def cheb_f64_cm_chunk(diags, offsets, carry, coeffs_chunk, sc, sh):
+    """One-step launches over a chunk on the column-major fp64 carry."""
+    return _chunk(cheb_step_cm_f64, diags, offsets, carry, coeffs_chunk, sc,
+                  sh)
 
 
 def _multistep_chunk(step, S, diags, offsets, carry, coeffs_chunk, sc, sh):

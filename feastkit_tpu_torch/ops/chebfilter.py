@@ -5,20 +5,24 @@ builders are host numpy, copied from the JAX package so that both packages
 build the same filter bits: the Gershgorin enclosure, the Jackson-damped
 indicator expansion and its auto degree (which reads
 ``FEAST_CHEB_DEGREE_SCALE`` as the JAX package does), and the Chebyshev
-realization of the rational contour filter. ``make_cheb_filter`` is the
-plain recurrence on tensors; the fused kernels that carry it on the card
-live in ``ops/cheb_kernels.py``. The sparse-SPD-B inverse polynomial is not
-ported yet.
+realization of the rational contour filter, and for sparse SPD B the
+closed-form polynomial inverse ``cheb_inverse_coeffs`` and the composite's
+enclosure ``binva_enclosure``. ``make_cheb_filter`` is the plain recurrence
+on tensors and ``make_apply_binv_a`` the plain composite q(B) A (a
+Clenshaw sum on tensors); the fused kernels that carry them on the card
+live in ``ops/cheb_kernels.py`` and ``ops/cheb_gen.py``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = [
     "gershgorin_interval", "cheb_indicator_coeffs", "cheb_eval_scalar",
     "auto_cheb_degree", "build_cheb_filter_coeffs", "make_cheb_filter",
     "make_cheb_stepper", "rational_eval_scalar",
-    "rational_filter_cheb_coeffs", "ChebInfeasible",
+    "rational_filter_cheb_coeffs", "ChebInfeasible", "cheb_inverse_coeffs",
+    "make_apply_binv_a", "binva_enclosure",
 ]
 
 
@@ -164,6 +168,100 @@ def build_cheb_filter_coeffs(lo, hi, Emin, Emax, degree=None, *, cap=8000,
                  if probes.size else 0.0)
     return c, {"degree": int(degree), "inside_min": inside_min,
                "outside_at_1w": out_level}
+
+
+def cheb_inverse_coeffs(b_lo, b_hi, rel_err, *, cap=512):
+    """Chebyshev coefficients of 1/x on [b_lo, b_hi] (0 < b_lo < b_hi) to
+    relative accuracy ``rel_err``, host numpy.
+
+    The expansion is geometric: with kappa = b_hi/b_lo the error decays
+    like ((sqrt(kappa)-1)/(sqrt(kappa)+1))^m, so diagonally-scaled FEM
+    mass matrices (kappa ~ 3..10 after unit-diagonal congruence) need
+    m ~ 15..60 for 1e-10. Coefficients by closed form: for
+    x = c + d t (c = (b_hi+b_lo)/2, d = (b_hi-b_lo)/2),
+    1/x = (2/s) sum_k' (-q)^k T_k(t) with s = sqrt(c^2 - d^2) (geometric
+    mean of the endpoints) and q = (c - s)/d. Verified on a grid; the
+    degree is the smallest m meeting rel_err (capped)."""
+    b_lo, b_hi = float(b_lo), float(b_hi)
+    if not 0 < b_lo < b_hi:
+        raise ValueError(f"need 0 < b_lo < b_hi, got [{b_lo}, {b_hi}]")
+    c = 0.5 * (b_hi + b_lo)
+    d = 0.5 * (b_hi - b_lo)
+    s = np.sqrt(c * c - d * d)
+    q = (c - s) / d
+    # error after truncating at degree m ~ q^(m+1)/(1-q) relative to 1/x
+    m = int(np.ceil(np.log(max(rel_err, 1e-16) * (1.0 - q))
+                    / np.log(q))) if q > 0 else 1
+    m = int(np.clip(m, 2, cap))
+    k = np.arange(m + 1, dtype=np.float64)
+    coef = (2.0 / s) * (-q) ** k
+    coef[0] *= 0.5
+    # verify on a grid (guards the closed form and the cap)
+    t = np.cos(np.linspace(0.0, np.pi, 257))
+    x = c + d * t
+    b1 = np.zeros_like(t)
+    b2 = np.zeros_like(t)
+    for ck in coef[:0:-1]:
+        b1, b2 = 2.0 * t * b1 - b2 + ck, b1
+    approx = t * b1 - b2 + coef[0]
+    err = float(np.max(np.abs(approx * x - 1.0)))
+    return coef, {"degree": m, "rel_err": err, "kappa": b_hi / b_lo}
+
+
+def make_apply_binv_a(apply_A, apply_B, b_lo, b_hi, qcoeffs):
+    """Composite operator closure X -> q(B)(A X) with q ~= inverse of B on
+    [b_lo, b_hi]: the polynomial-inverse spectral transform that extends
+    the solve-free Chebyshev filter to generalized pencils with sparse SPD
+    B (consistent FEM mass matrices). q(B)A is similar to the symmetric
+    q(B)^1/2 A q(B)^1/2, so its spectrum is real and ~= that of B^-1 A to
+    the inverse-polynomial accuracy; the FEAST outer loop does exact
+    generalized Rayleigh-Ritz with the TRUE pencil, so the approximation
+    only shapes the subspace. Evaluation by the Clenshaw recurrence on
+    B-hat in the operand's precision: the map scalars are computed from
+    ``b_lo`` / ``b_hi`` and ``qcoeffs`` rounded to that precision, as the
+    JAX package computes them from its traced arrays. The plain version of
+    the fused composite (``ops/cheb_gen.py``); the pencil-edge Lanczos of
+    ``solvers/sparse.py`` runs on it."""
+    nb = len(qcoeffs)
+
+    def apply_C(X):
+        Y = apply_A(X)
+        rdt = np.float32 if Y.dtype == torch.float32 else np.float64
+        cs = np.asarray(qcoeffs, rdt)
+        lo_, hi_ = rdt(b_lo), rdt(b_hi)
+        sc = float(rdt(2.0) / (hi_ - lo_))
+        sh = float((hi_ + lo_) / (hi_ - lo_))
+
+        def bhat(V):
+            return sc * apply_B(V) - sh * V
+
+        b1, b2 = float(cs[nb - 1]) * Y, torch.zeros_like(Y)
+        for k in range(1, nb - 1):
+            b1, b2 = 2.0 * bhat(b1) - b2 + float(cs[nb - 1 - k]) * Y, b1
+        return bhat(b1) - b2 + float(cs[0]) * Y
+
+    return apply_C
+
+
+def binva_enclosure(a_lo, a_hi, b_lo, b_hi, inv_err):
+    """Safe spectrum enclosure of q(B)A from enclosures of A ([a_lo,a_hi],
+    Gershgorin) and B ([b_lo,b_hi], 0 < b_lo): the Rayleigh quotient of
+    the similar symmetric form gives lam(B^-1 A) within the extreme
+    quotients a/b.
+
+    The polynomial-inverse perturbation is RELATIVE per eigenvalue, not
+    global: q(B)A is similar to P^(1/2) C P^(1/2) with C = B^-1/2 A B^-1/2
+    and P = f(B), f(b) = b q(b) in [1-inv_err, 1+inv_err], so by
+    Ostrowski's theorem every composite eigenvalue is lam_i(C) * theta_i
+    with theta_i in [1-inv_err, 1+inv_err]. Padding each end by
+    inv_err*|end| (instead of inv_err*max|end|) keeps the spectral-edge
+    arccos advantage at the LOWER edge of stiffness pencils, where a
+    global pad ~inv_err*hi would rival the target interval's width."""
+    combos = [a_lo / b_lo, a_lo / b_hi, a_hi / b_lo, a_hi / b_hi]
+    lo, hi = min(combos), max(combos)
+    tiny = 1e-8 * max(hi - lo, 1.0)
+    e = float(inv_err)
+    return lo - e * abs(lo) - tiny, hi + e * abs(hi) + tiny
 
 
 def make_cheb_filter(apply_A, lo, hi, coeffs):

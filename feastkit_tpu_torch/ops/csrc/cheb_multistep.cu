@@ -52,9 +52,12 @@
 // by their bytes: it must keep all ~2 nd + 3 loads of a row in flight at
 // once. So the loop has no branch (an out-of-range neighbour is loaded
 // from a safe address and dropped by a select). The five-point stencil,
-// the operator of the main path, has its number of diagonals as a template
-// parameter, which unrolls the loop over them without predicates; every
-// other operator runs the same body with a run-time count.
+// the operator of the main path, and the nine-point stencil, both operators
+// of the consistent-mass pencils (ops/cheb_gen.py), have their number of
+// diagonals as a template parameter, which unrolls the loop over them
+// without predicates; every other operator runs the same body with a
+// run-time count. Built with -DCHEB_RUNTIME_COUNT_ONLY, every operator runs
+// the run-time-count body (chip_smoke.py times the two against each other).
 //
 // Plain C interface (bound with ctypes). Each entry point launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
@@ -77,7 +80,7 @@ struct Coeffs {
 };
 
 // ND > 0: the operator has exactly ND diagonals (the loop over them unrolls
-// with no predicate; instantiated for the five-point stencil only);
+// with no predicate; instantiated for the five- and nine-point stencils);
 // ND == 0: nd is a run-time value up to kMaxDiags. The kernel is held to
 // the 32 registers per thread that let two blocks share an SM, which they
 // do where the wrapper's tile rule gives each half the SM's shared memory.
@@ -216,7 +219,11 @@ int launch(const T* diags, const long long* offsets, int nd, const T* t0,
                       static_cast<int>(tile), static_cast<int>(halo), sc,    \
                       sh, ck, static_cast<unsigned int>(tiles * m),          \
                       static_cast<size_t>(bytes), st)
-  return nd == 5 ? CHEB_LAUNCH(5) : CHEB_LAUNCH(0);
+#ifdef CHEB_RUNTIME_COUNT_ONLY
+  return CHEB_LAUNCH(0);
+#else
+  return nd == 5 ? CHEB_LAUNCH(5) : nd == 9 ? CHEB_LAUNCH(9) : CHEB_LAUNCH(0);
+#endif
 #undef CHEB_LAUNCH
 }
 

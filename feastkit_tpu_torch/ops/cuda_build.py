@@ -5,6 +5,9 @@
 loaded with ``ctypes``. Libraries go to ``csrc/build/`` inside the package
 (listed in ``.gitignore``) under a name that carries a hash of the source
 and the flags, so an edited source is rebuilt and never loaded stale.
+``defines`` (``-D`` flags) build a variant of a source beside the default
+library (``chip_smoke.py`` times ``cheb_multistep.cu`` built with
+``-DCHEB_RUNTIME_COUNT_ONLY`` against the default build).
 Nothing here runs at import time: this module imports on machines without
 a CUDA toolkit, and only a call to :func:`build` or :func:`load` needs
 ``nvcc``.
@@ -40,25 +43,29 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: tuple = ()) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     src = SRC_DIR / f"{name}.cu"
+    flags = (*NVCC_FLAGS, *defines)
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; return the
-    library's path. Raises if ``nvcc`` fails or times out."""
-    out = library_path(name)
+def build(name: str, defines: tuple = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with the ``-D`` flags ``defines``)
+    unless its library exists; return the library's path. Raises if
+    ``nvcc`` fails or times out."""
+    defines = tuple(defines)
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+             str(SRC_DIR / f"{name}.cu")],
             capture_output=True, text=True, timeout=_NVCC_TIMEOUT_S)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu (exit "
@@ -71,6 +78,7 @@ def build(name: str) -> Path:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, *defines: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built with the ``-D``
+    flags ``defines``), built first if needed."""
+    return ctypes.CDLL(str(build(name, defines)))

@@ -4,8 +4,8 @@ Counterpart of the main-path slice of ``feastkit_tpu/solvers/sparse.py``:
 the auto route of ``sparse_feast_interval`` (the rational-contour filter
 realized as one Chebyshev polynomial, or the Jackson indicator when that is
 cheaper), ``solver="cheb"`` / ``"contour_poly"``, and the host-driven
-refinement loop of ``_sparse_cheb_interval`` for standard and
-positive-diagonal-B pencils.
+refinement loop of ``_sparse_cheb_interval`` for standard,
+positive-diagonal-B and sparse-SPD-B (consistent-mass) pencils.
 
 Every filter application runs the fused Chebyshev-step kernels of
 ``ops/cheb_kernels.py`` on CUDA tensors (their plain versions on CPU
@@ -20,13 +20,24 @@ same fp64 kernel, so the port's top rung covers both. The mixed-precision
 policy fpm[42] reads "auto" as "on for CUDA" (the JAX package: "on for the
 TPU"), and stays off on the CPU.
 
+A sparse SPD B (``_b_sparse_spd``) is solved as in the JAX package: both
+operators are congruenced to unit diagonal, f32 Lanczos runs on the
+solve's device bound B~ and the pencil's upper edge
+(``_b_spd_bounds``, ``_pencil_upper_edge_fast``), and the filter runs on
+the composite q(B~) A~ with q a Chebyshev polynomial inverse of B~
+(``ops/cheb_gen.py``: per outer step one A pass, the inner recurrence in B
+and one combine kernel), while Rayleigh-Ritz and the residuals use the
+exact pencil. An indefinite or nonsymmetric B is refused with the JAX
+package's message (a ValueError; on the auto route its Krylov fallback is
+not ported, item 10).
+
 Paths the JAX package has and this port does not yet (each raises
-``NotImplementedError`` naming its ROADMAP.md queue 1 item): sparse SPD or
-indefinite B (item 8), complex Hermitian operators and operators with
-more than 32 diagonals (item 6), pencils that leave the polynomial route
-for the dense engine (item 9) or the Krylov contour engine (item 10), the
-narrow-band BCR delegation (item 11) and the stochastic count fpm[14]=2
-(item 16). Sharded meshes (item 15) are refused by ``feast()``.
+``NotImplementedError`` naming its ROADMAP.md queue 1 item): complex
+Hermitian operators, and operators (A or a sparse B) with more than 32
+diagonals (item 6), pencils that leave the polynomial route for the dense
+engine (item 9) or the Krylov contour engine (item 10), the narrow-band
+BCR delegation (item 11) and the stochastic count fpm[14]=2 (item 16).
+Sharded meshes (item 15) are refused by ``feast()``.
 """
 from __future__ import annotations
 
@@ -44,12 +55,14 @@ from ..core.types import FeastError, FeastResult, _trim
 from ..kernel.hermitian import (SPURIOUS_RES, init_hermitian_state,
                                 make_rayleigh_ritz_update,
                                 verify_spurious_from)
+from ..ops.cheb_gen import cheb_gen_chunk, cheb_gen_init
 from ..ops.cheb_kernels import (cheb_f32_2_chunk, cheb_f32_4_chunk,
                                 cheb_f32_chunk, cheb_f64_2_chunk,
                                 cheb_f64_4_chunk, cheb_f64_chunk,
                                 multistep_plan, transpose_planes)
-from ..ops.chebfilter import (ChebInfeasible, build_cheb_filter_coeffs,
-                              gershgorin_interval,
+from ..ops.chebfilter import (ChebInfeasible, binva_enclosure,
+                              build_cheb_filter_coeffs, cheb_inverse_coeffs,
+                              gershgorin_interval, make_apply_binv_a,
                               rational_filter_cheb_coeffs)
 from ..ops.dia import bcoo_to_dia, dia_matvec
 
@@ -128,6 +141,113 @@ def _b_diagonal(B):
     if np.all(diag > 0):
         return "diagonal", diag
     return None, None
+
+
+def _b_sparse_spd(B):
+    """A real symmetric SPARSE B with a positive diagonal (the
+    consistent-mass class) -> ("spd", diag), else (None, None).
+    Positive-definiteness itself is certified downstream by the lowest
+    eigenvalue of the unit-diagonal congruence (``_b_spd_bounds``)."""
+    import scipy.sparse as sp
+    data, idx, shape = sparse_coo_arrays(B)
+    if shape[0] != shape[1] or np.iscomplexobj(data):
+        return None, None
+    diag = np.zeros(shape[0], np.float64)
+    on = idx[:, 0] == idx[:, 1]
+    np.add.at(diag, idx[on, 0], data[on].astype(np.float64))
+    if not np.all(diag > 0):
+        return None, None
+    C = sp.coo_matrix((data, (idx[:, 0], idx[:, 1])), shape=shape).tocsr()
+    d = C - C.T
+    if d.nnz and np.abs(d.data).max() > 1e-12 * np.abs(data).max():
+        return None, None
+    return "spd", diag
+
+
+def _lanczos_tridiag(apply_op, apply_ip, v0, steps):
+    """(alphas, betas) of a fixed-step three-term Lanczos recurrence on
+    ``apply_op`` in the inner product <x, y> = x^T apply_ip(y) (the
+    identity for plain symmetric Lanczos, apply_B for the generalized
+    recurrence on B^-1 A). No reorthogonalization and no basis storage:
+    orthogonality loss only duplicates converged extreme Ritz values,
+    which is harmless for the spectrum-EDGE estimates these feed. Runs in
+    v0's dtype and on its device, with no host fetch until the end."""
+    def ip(x, y):
+        return torch.sum(x * apply_ip(y))
+
+    q = v0 / torch.sqrt(torch.clamp(ip(v0, v0), min=1e-300))
+    q_prev = torch.zeros_like(q)
+    beta = torch.zeros((), dtype=v0.dtype, device=v0.device)
+    alphas, betas = [], []
+    for _ in range(steps):
+        u = apply_op(q) - beta * q_prev
+        a = ip(u, q)
+        u = u - a * q
+        beta = torch.sqrt(torch.clamp(ip(u, u), min=0.0))
+        q_prev, q = q, u / torch.where(beta > 1e-30, beta, 1.0)
+        alphas.append(a)
+        betas.append(beta)
+    return torch.stack(alphas), torch.stack(betas)
+
+
+def _lanczos_v0(N, device):
+    # deterministic start vector (the determinism-by-shape contract): the
+    # JAX package's, in f32
+    return torch.as_tensor((np.cos(0.7 * np.arange(N)) + 0.5).astype(
+        np.float32).reshape(N, 1)).to(device)
+
+
+def _tridiag_edges(al, be):
+    import scipy.linalg as sla
+    al = np.asarray(al, np.float64)
+    be = np.asarray(be, np.float64)[:-1]
+    w = sla.eigh_tridiagonal(al, be, eigvals_only=True,
+                             lapack_driver="stev")
+    return float(w[0]), float(w[-1])
+
+
+def _pencil_upper_edge_fast(A_dia, offsets_A, B_dia, offsets_B, qc, b_lo,
+                            b_hi, N, device, steps=96):
+    """Measured upper edge of the congruenced pencil: f32 Lanczos on
+    q(B~) A~ (``make_apply_binv_a``) in the B~ inner product, every
+    product a plain DIA matvec on ``device`` (the JAX package runs the same
+    outside its kernels)."""
+    A32 = torch.as_tensor(np.asarray(A_dia, np.float32)).to(device)
+    B32 = torch.as_tensor(np.asarray(B_dia, np.float32)).to(device)
+
+    def apply_B(x):
+        return dia_matvec(B32, offsets_B, x)
+
+    apply_C = make_apply_binv_a(lambda x: dia_matvec(A32, offsets_A, x),
+                                apply_B, np.float32(b_lo), np.float32(b_hi),
+                                np.asarray(qc, np.float32))
+    al, be = _lanczos_tridiag(apply_C, apply_B, _lanczos_v0(N, device),
+                              min(int(steps), N))
+    return _tridiag_edges(al.cpu().numpy(), be.cpu().numpy())[1]
+
+
+def _b_spd_bounds(B_data, B_idx, N, B_dia, offsets_B, device):
+    """Spectrum enclosure [b_lo, b_hi] of the unit-diagonal-scaled B.
+    Gershgorin first (free); when the discs touch zero (e.g. P1 2D mass
+    matrices, where interior off-diagonal row sums EQUAL the diagonal) a
+    fixed-step f32 Lanczos on ``device`` refines the ends. Raises a
+    ValueError when B is not positive definite enough for the polynomial
+    inverse."""
+    b_lo, b_hi = gershgorin_interval(B_data, B_idx, N)
+    if b_lo <= 0.02 * b_hi:
+        B32 = torch.as_tensor(np.asarray(B_dia, np.float32)).to(device)
+        al, be = _lanczos_tridiag(lambda x: dia_matvec(B32, offsets_B, x),
+                                  lambda x: x, _lanczos_v0(N, device),
+                                  min(128, N))
+        lo_e, hi_e = _tridiag_edges(al.cpu().numpy(), be.cpu().numpy())
+        b_lo, b_hi = 0.9 * lo_e, min(1.1 * hi_e, b_hi)
+    if b_lo <= 1e-6 * b_hi:
+        raise ValueError(
+            "solver='cheb' with a sparse B requires a well-conditioned "
+            f"SPD mass matrix; the scaled B's spectrum enclosure "
+            f"[{b_lo:.3g}, {b_hi:.3g}] is not safely positive — use the "
+            "contour solvers (gmres/bicgstab) for this pencil")
+    return b_lo, b_hi
 
 
 def _quick_narrow_band(A, B, max_half_bw=16, max_n=16384):
@@ -245,15 +365,77 @@ def _sparse_cheb_filter_host_fused(ctx, Q, *, rung, n_coeffs=None):
     return carry[2]
 
 
-def _backxform(apply_A, dscale, Q, lam):
-    """Congruence back-transform for a diagonal B = D: with s = D^-1/2,
-    x_j = s y_j / ||s y_j|| and the ORIGINAL pencil's residual
-    ||A x - lam B x|| / max(|lam|, 1) = ||(Ahat y - lam y) / s|| / (...)."""
+def _cheb_gen_context(A_dia, offsets_A, B_dia, offsets_B, coeffs, lo, hi,
+                      b_lo, b_hi, qc, qc_lo, M):
+    """Device operands of both rungs of the sparse-SPD-B composite, built
+    once per solve (counterpart of ``_cheb_gen_ds_context``): both
+    congruenced operators' diagonals in each rung's precision, the outer
+    coefficients, the inner inverse (``qc`` on the f64 rung, the shorter
+    ``qc_lo`` on the f32 rung), the outer and B-hat map scalars (f32 on
+    the f32 rung, f64 on the f64 rung) and each rung's inner steps per
+    pass: 4 where the 4-step kernel's tile fits B~ (``multistep_plan``),
+    else 2, else 1. As in the JAX package only ``FEAST_CHEB_FUSE4=0``
+    applies (inner passes of two steps); the composite never runs its
+    inner steps one at a time by choice."""
+    N = A_dia.shape[1]
+    fuse4 = os.environ.get("FEAST_CHEB_FUSE4") not in ("0", "")
+
+    def inner_steps(dtype):
+        if fuse4 and multistep_plan(offsets_B, N, M, dtype, 4):
+            return 4
+        if multistep_plan(offsets_B, N, M, dtype, 2):
+            return 2
+        return 1
+
+    def rung(dtype, npd, q):
+        return dict(
+            dA=A_dia.to(dtype), dB=B_dia.to(dtype),
+            coeffs=np.asarray(coeffs, npd), qc=np.asarray(q, npd),
+            scals=dict(sc_C=npd(2.0 / (hi - lo)),
+                       sh_C=npd((hi + lo) / (hi - lo)),
+                       scB=npd(2.0 / (b_hi - b_lo)),
+                       shB=npd((b_hi + b_lo) / (b_hi - b_lo))),
+            dtype=dtype, inner_steps=inner_steps(dtype))
+
+    return dict(offsets_A=offsets_A, offsets_B=offsets_B,
+                f64=rung(torch.float64, np.float64, qc),
+                f32=rung(torch.float32, np.float32, qc_lo))
+
+
+def _sparse_cheb_filter_host_fused_gen(ctx, Q, *, rung, n_coeffs=None):
+    """One composite filter application rho(q(B~) A~) Q on rung "f32" or
+    "f64" (counterpart of ``_sparse_cheb_filter_host_fused_gen``): Q is
+    transposed once to a column-major (M, N) plane, ``cheb_gen_init`` and
+    ``cheb_gen_chunk`` (``ops/cheb_gen.py``) run the whole series on it,
+    and the accumulator is transposed back once. ``n_coeffs`` truncates
+    the series (the rational filter's shorter f32-rung expansion)."""
+    r = ctx[rung]
+    coeffs = r["coeffs"]
+    if n_coeffs is not None:
+        coeffs = coeffs[:max(int(n_coeffs), 3)]
+    ops = (r["dA"], ctx["offsets_A"], r["dB"], ctx["offsets_B"], r["qc"])
+    q = Q.to(r["dtype"]).t().contiguous()
+    carry = cheb_gen_init(*ops, q, coeffs[:2], r["scals"],
+                          inner_steps=r["inner_steps"])
+    del q
+    carry = cheb_gen_chunk(*ops, carry, coeffs[2:], r["scals"],
+                           inner_steps=r["inner_steps"])
+    acc = carry[2]
+    del carry                              # the T planes, before the copy
+    return acc.t().contiguous()
+
+
+def _backxform(apply_A, apply_B, dscale, Q, lam):
+    """Congruence back-transform for B = D^1/2 B~ D^1/2 (B~ = I for a
+    diagonal B): with s = D^-1/2, x_j = s y_j / ||s y_j|| and the ORIGINAL
+    pencil's residual ||A x - lam B x|| / max(|lam|, 1) =
+    ||(A~ y - lam B~ y) / s|| / (...)."""
     s = dscale[:, None].to(Q.dtype)
     nrm = torch.linalg.vector_norm(s * Q, dim=0)
     nrm = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
     X = (s * Q) / nrm[None, :]
-    R = (apply_A(Q) - Q * lam[None, :].to(Q.dtype)) / (s * nrm[None, :])
+    R = ((apply_A(Q) - apply_B(Q) * lam[None, :].to(Q.dtype))
+         / (s * nrm[None, :]))
     res = torch.linalg.vector_norm(R, dim=0) / torch.clamp(lam.abs(), min=1.0)
     return X, res
 
@@ -261,20 +443,32 @@ def _backxform(apply_A, dscale, Q, lam):
 def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                           device, Q0=None, contour=None,
                           route=False) -> FeastResult:
-    """Polynomial-filtered FEAST for standard and positive-diagonal-B
-    pencils (counterpart of the JAX package's ``_sparse_cheb_interval``,
-    host-loop branch). ``contour``: realize that contour's rational filter
-    as a Chebyshev series; ``route=True`` (the auto route) also builds the
-    indicator and keeps the cheaper one, and reports an ineligible
-    configuration as ChebInfeasible."""
+    """Polynomial-filtered FEAST for standard, positive-diagonal-B and
+    sparse-SPD-B pencils (counterpart of the JAX package's
+    ``_sparse_cheb_interval``, host-loop branch). ``contour``: realize that
+    contour's rational filter as a Chebyshev series; ``route=True`` (the
+    auto route) also builds the indicator and keeps the cheaper one, and
+    reports an ineligible configuration as ChebInfeasible."""
+    elig_err = ChebInfeasible if route else ValueError
     fpm = _ensure_fpm(fpm)
     b_kind, b_diag = _b_diagonal(B)
     if b_kind is None:
-        raise _not_ported("a sparse SPD or indefinite B (only None, the "
-                          "identity or a positive diagonal)", 8)
+        b_kind, b_diag = _b_sparse_spd(B)
+    if b_kind is None:
+        raise elig_err(
+            "solver='cheb' (polynomial filter) requires a standard problem "
+            "(B=None/identity), a positive diagonal B (lumped mass), or a "
+            "real symmetric positive-definite sparse B (consistent mass); "
+            "indefinite/nonsymmetric pencils need the contour solvers "
+            "(gmres/bicgstab)")
     is_complex = np.iscomplexobj(_peek_dtype(A))
     if hermitian is None:
         hermitian = is_complex
+    if b_kind == "spd" and hermitian:
+        raise elig_err(
+            "solver='cheb' with a sparse SPD B currently supports real "
+            "symmetric A (complex Hermitian A + sparse B: use the contour "
+            "solvers)")
     if hermitian:
         raise _not_ported("the complex Hermitian sparse path", 6)
     f64 = _is_double(_peek_dtype(A).dtype)
@@ -284,7 +478,7 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
 
     A_data, A_idx, shape = sparse_coo_arrays(A, rdtype)
     N = shape[0]
-    if b_kind == "diagonal":
+    if b_kind in ("diagonal", "spd"):
         dscale = 1.0 / np.sqrt(b_diag.astype(np.float64))
         A_data = (A_data * (dscale[A_idx[:, 0]] * dscale[A_idx[:, 1]])
                   ).astype(rdtype)
@@ -299,12 +493,52 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
     A_dia_np, offsets = outA
 
     config = FeastConfig.from_fpm(fpm, dtype=cdtype)
-    lo, hi = gershgorin_interval(A_data, A_idx, N)
+    qinfo = qinfo_lo = None
+    if b_kind == "spd":
+        # unit-diagonal congruence of B and a polynomial inverse
+        # q(B~) ~= B~^-1: the recurrence filters the composite q(B~) A~
+        # while Rayleigh-Ritz and the residuals use the exact pencil
+        B_data, B_idx, _ = sparse_coo_arrays(B, rdtype)
+        B_data = (B_data * (dscale[B_idx[:, 0]] * dscale[B_idx[:, 1]])
+                  ).astype(rdtype)
+        outB = bcoo_to_dia(B_data, B_idx, N)
+        if outB is None:
+            raise _not_ported("a sparse SPD B with more than 32 diagonals "
+                              "(the host-scipy bounds and the unfused BCOO "
+                              "composite)", 6)
+        B_dia_np, offsets_B = outB
+        try:
+            b_lo, b_hi = _b_spd_bounds(B_data, B_idx, N, B_dia_np,
+                                       offsets_B, device)
+        except ValueError as e:
+            if route:
+                raise ChebInfeasible(str(e)) from e
+            raise
+        inv_tol = float(np.clip(0.01 * config.tol, 1e-14, 1e-6))
+        qc, qinfo = cheb_inverse_coeffs(b_lo, b_hi, inv_tol)
+        # rung-adaptive inner inverse: the f32 rung's own rounding floor
+        # (~sqrt(degree) eps_f32) only needs q to ~1e-5, about half the
+        # inner degree of the f64 rung's
+        qc_lo, qinfo_lo = cheb_inverse_coeffs(b_lo, b_hi, max(inv_tol, 1e-5))
+        a_lo, a_hi = gershgorin_interval(A_data, A_idx, N)
+        lo, hi = binva_enclosure(a_lo, a_hi, b_lo, b_hi,
+                                 max(qinfo["rel_err"], qinfo_lo["rel_err"]))
+        # tighten the upper edge with a measured pencil eigenvalue (the
+        # degree scales as sqrt(enclosure span)); 1.1x over the Lanczos
+        # estimate, which converges from below, keeps the spectrum inside
+        hi_e = _pencil_upper_edge_fast(A_dia_np, offsets, B_dia_np,
+                                       offsets_B, qc, b_lo, b_hi, N, device)
+        if hi_e > max(float(Emax), 0.0):
+            hi = min(hi, (1.1 + qinfo["rel_err"]) * hi_e)
+    else:
+        lo, hi = gershgorin_interval(A_data, A_idx, N)
     # Ladder degree rule of the JAX package: a mixed-precision solve spends
     # >= 2 rungs, and a 1.5x-sharper indicator trades a top-rung loop for
-    # ~constant total matvecs.
+    # ~constant total matvecs. Not for the SPD-B composite, where every
+    # outer step carries the inner recurrence in B (sparse.py:1845-1861).
     ladder_scale = (1.5 if (_mixed_enabled(config, device, f64)
-                            and config.tol <= 1e-6) else 1.0)
+                            and config.tol <= 1e-6 and b_kind != "spd")
+                    else 1.0)
     if contour is not None:
         if route:
             # Cost model: rational vs indicator, work = degree x expected
@@ -350,22 +584,37 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                 raise ChebInfeasible(str(_e)) from _e
             raise
     if config.print_level >= 1:
+        extra = (f" B-inverse degree={qinfo['degree']} "
+                 f"(kappa={qinfo['kappa']:.2f})" if qinfo else "")
         kindname = ("contour-poly" if cinfo.get("kind") == "rational"
                     else "cheb")
         print(f"feast {kindname} filter: degree={cinfo['degree']} "
               f"enclosure=[{lo:.3g},{hi:.3g}] "
-              f"outside@1w={cinfo['outside_at_1w']:.2e}", flush=True)
+              f"outside@1w={cinfo['outside_at_1w']:.2e}{extra}", flush=True)
     if config.mode == 2:
         raise _not_ported("the stochastic eigenvalue count fpm[14]=2", 16)
 
     A_dia = torch.as_tensor(A_dia_np, dtype=tdtype).to(device)
-    ctx = _cheb_fused_context(A_dia, offsets, coeffs, lo, hi, M0)
 
     def apply_A(X):
         return dia_matvec(A_dia, offsets, X)
 
-    def apply_B(X):          # identity: a diagonal B is congruenced away
-        return X
+    if b_kind == "spd":
+        B_dia = torch.as_tensor(B_dia_np, dtype=tdtype).to(device)
+        # the f32 rung runs the shorter inverse, unless f32 is the top rung
+        ctx = _cheb_gen_context(A_dia, offsets, B_dia, offsets_B, coeffs,
+                                lo, hi, b_lo, b_hi, qc,
+                                qc_lo if f64 else qc, M0)
+        filt = _sparse_cheb_filter_host_fused_gen
+
+        def apply_B(X):
+            return dia_matvec(B_dia, offsets_B, X)
+    else:
+        ctx = _cheb_fused_context(A_dia, offsets, coeffs, lo, hi, M0)
+        filt = _sparse_cheb_filter_host_fused
+
+        def apply_B(X):      # identity: a diagonal B is congruenced away
+            return X
 
     update = make_rayleigh_ritz_update(
         apply_A, apply_B, float(Emin), float(Emax), tol=config.tol,
@@ -380,6 +629,10 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
     # sqrt(degree) * eps_f32 (or 30 tol, whichever is larger)
     lp_switch = max(2.0 * np.sqrt(float(cinfo["degree"])) * 6e-8,
                     30.0 * float(config.tol))
+    if qinfo_lo is not None:
+        # SPD-B composite: the shorter f32-rung inverse's own error, not
+        # the recurrence's rounding, sets that rung's floor
+        lp_switch = max(lp_switch, 2.0 * float(qinfo_lo["rel_err"]))
 
     q0_np = initial_subspace(fpm, Q0, N, M0, rdtype)
     if use_lp and config.mode != 1 and Q0 is None and int(fpm[5]) == 0:
@@ -393,7 +646,7 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
 
     if config.mode == 1:
         # subspace only: one filter application, orthonormalized
-        Qp = _sparse_cheb_filter_host_fused(ctx, state.Q, rung=rung_top)
+        Qp = filt(ctx, state.Q, rung=rung_top)
         U, _ = thin_svd(Qp)
         state = state._replace(Q=U, loop=1)
     else:
@@ -406,9 +659,8 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
             Q_in = state.Q
             state = state._replace(Q=None)
             rung = "f32" if use_lp else rung_top
-            Qp = _sparse_cheb_filter_host_fused(
-                ctx, Q_in, rung=rung,
-                n_coeffs=n_lo if rung == "f32" else None).to(tdtype)
+            Qp = filt(ctx, Q_in, rung=rung,
+                      n_coeffs=n_lo if rung == "f32" else None).to(tdtype)
             Q_in = None
             state = update(state, Qp)
             Qp = None
@@ -453,9 +705,8 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         # spurious-verify filter pass: rho = ||P q|| against 0.25, so the
         # f32 rung's noise is irrelevant under the mixed schedule
         vrung = "f32" if lp_avail else rung_top
-        Qp = _sparse_cheb_filter_host_fused(
-            ctx, state.Q, rung=vrung,
-            n_coeffs=n_lo if vrung == "f32" else None).to(tdtype)
+        Qp = filt(ctx, state.Q, rung=vrung,
+                  n_coeffs=n_lo if vrung == "f32" else None).to(tdtype)
         state = verify_spurious_from(state, Qp)
         Qp = None
 
@@ -465,10 +716,10 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
     inside = state.inside.cpu().numpy()
     epsout = float(state.epsout)
     Q = state.Q
-    if b_kind == "diagonal":
+    if b_kind in ("diagonal", "spd"):
         Q, res_t = _backxform(
-            apply_A, torch.as_tensor(dscale, dtype=tdtype).to(device), Q,
-            state.lam)
+            apply_A, apply_B, torch.as_tensor(dscale, dtype=tdtype).to(device),
+            Q, state.lam)
         res = res_t.cpu().numpy()
         epsout = float(res[inside].max()) if inside.any() else epsout
     # Post-verify SUCCESS upgrade: every genuine pair below tol meets the

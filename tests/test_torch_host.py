@@ -238,9 +238,12 @@ def test_unported_paths_raise():
         ft.feast(A.toarray(), None, (0.01, 0.5), 16, **kw)
     with pytest.raises(NotImplementedError, match="item 15"):
         ft.feast(A, None, (0.01, 0.5), 16, backend="sharded", **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ft.feast(A, sp.eye(400) + 0.1 * sp.eye(400, k=1)
-                 + 0.1 * sp.eye(400, k=-1), (0.01, 0.5), 16, **kw)
+    # a sparse SPD B runs (item 8); one with no DIA form (more than 32
+    # diagonals) still needs the host-scipy bounds of item 6
+    wide_b = sp.eye(400) + sum(0.01 * (sp.eye(400, k=k) + sp.eye(400, k=-k))
+                               for k in range(1, 21))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ft.feast(A, wide_b, (0.01, 0.5), 16, solver="cheb", **kw)
     with pytest.raises(NotImplementedError, match="item 11"):
         ft.feast(sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(400, 400)),
                  None, (0.01, 0.5), 16, **kw)
