@@ -3,7 +3,8 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py           # every phase (about a few minutes)
-    python3 chip_smoke.py --quick   # phases 1-3b: build and check kernels
+    python3 chip_smoke.py --quick   # phases 1-3c: build and check kernels
+    python3 chip_smoke.py --krylov-solve 9   # one Krylov solve at P = 9
 
 Phases, each printed before the last line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -30,6 +31,16 @@ Phases, each printed before the last line:
      tolerances, and their times; and the 2- and 4-step kernels on the
      nine-diagonal operator with the ND = 9 instantiation and with the
      run-time-count body, each checked and timed;
+  3c. the DIA matvec kernels of ops/csrc/dia_matvec.cu (dia_matvec_f32/f64
+     and dia_matvec_batched_f32/f64) against their plain version at the
+     Krylov path's P=8 shapes (N = 65,536, five diagonals: fp64 M = 72,
+     f32 M = 128, batched g = 2, M = 128 in both types) and at awkward
+     shapes (M = 1, 7, 11; N = 1073, 100, 1089; |offset| = nx; 2 max|offset|
+     > N; 1, 3, 9 and 11 diagonals; g = 3), tolerance relative to max|y|:
+     f32 1e-5, fp64 1e-13; their times over four rotating operands, the
+     plain version's, the bound and a torch.sparse.mm (CSR) call on the
+     same product (library_ms); and that a CUDA entry refuses a wrong
+     dtype, a non-contiguous operand and a CPU tensor;
   4. the main path: feast(lap2d(1024), None, (Emin, Emax), 72, fpm) with
      fpm[3] = 8 and the default fpm[42] (mixed precision on CUDA) under the
      default switches, once cold and three times warm, the kernel launch
@@ -56,9 +67,25 @@ Phases, each printed before the last line:
      and inner series imply, on both rungs; then one more warm solve with
      its stages timed (the Lanczos bounds, coefficients, each rung's
      filter, Rayleigh-Ritz, back-transform, Q0);
+  8. the Krylov contour engine: feast(lap2d(256), None, (Emin, Emax), 72,
+     fpm, solver="gmres", solver_maxiter=250) with fpm[3] = 8 and the
+     default fpm[42] (complex64 Krylov inside a complex128 refinement on
+     CUDA), once cold and twice warm; checks M = 52, eigenvalue
+     error <= 1e-8, residuals <= 1e-8, info 0, the multigrid
+     preconditioner with 4 levels, and that each DIA entry's launches in
+     the first warm solve (counts set to 0 just before, read just after)
+     equal the count the solve's own Krylov record implies
+     (``krylov_dia_launches``); then one warm solve with its stages timed,
+     and one with FEAST_GROUP_MAX=1 (the unbatched entries carry every
+     apply, counted and held to its record the same way) that must agree
+     with the default node groups to 1e-8;
+  9. the consistent-mass pencil at P = 7 (N = 16,384) through
+     solver="gmres" with grid=(128, 128) (multigrid with a B stencil),
+     against its analytic eigenvalues, its launches held to its record;
   7. one JSON line {"kernels": [...]} with each kernel's launches on its
-     path (the main path's, or for the composite's own kernels the SPD-B
-     path's), its error against its plain version and its times.
+     path (the main path's, for the composite's own kernels the SPD-B
+     path's, for the DIA kernels the Krylov path's: phase 8's counted
+     solves), its error against its plain version and its times.
 The last line is {"ok": true, "device": {...}}. Any failed check raises
 and exits nonzero before that line. Without a CUDA device the script
 exits nonzero and prints no result.
@@ -601,6 +628,427 @@ def phase_gen_kernels(card_name):
     return out
 
 
+DIA_KERNELS = {   # name -> (batched, dtype name, TPU kernel it replaces)
+    "dia_matvec_f32": (False, "float32",
+                       "feastkit_tpu/ops/pallas_kernels.py:91"),
+    "dia_matvec_f64": (False, "float64",
+                       "feastkit_tpu/ops/pallas_kernels.py:91"),
+    "dia_matvec_batched_f32": (True, "float32",
+                               "feastkit_tpu/ops/pallas_kernels.py:206"),
+    "dia_matvec_batched_f64": (True, "float64",
+                               "feastkit_tpu/ops/pallas_kernels.py:206"),
+}
+# the Krylov path's shapes at P = 8 (N = 65,536, five diagonals): the
+# Rayleigh-Ritz and residual products (fp64, M = M0 = 72), one c64 column
+# chunk of 64 as its (N, 128) real view at g = 1, and a node group of two
+# in both precisions (the inner c64 Krylov and the fp64 refinement)
+DIA_MAIN_SHAPES = {"dia_matvec_f32": (1, 128), "dia_matvec_f64": (1, 72),
+                   "dia_matvec_batched_f32": (2, 128),
+                   "dia_matvec_batched_f64": (2, 128)}
+# (N, offsets, M, g): ragged and awkward operands for every entry
+DIA_AWKWARD = (
+    (1073, (-37, -1, 0, 1, 37), 1, 3),      # |offset| = nx, M = 1, g = 3
+    (1073, (-1, 0, 1), 7, 1),               # three diagonals, M = 7
+    (100, (-60, -1, 0, 1, 60), 11, 3),      # 2 max|offset| > N, M = 11
+    (100, (0,), 7, 3),                      # one diagonal
+    (1089, (-34, -33, -32, -1, 0, 1, 32, 33, 34), 11, 2),   # nine
+    (1089, (-40, -33, -7, -2, -1, 0, 1, 2, 7, 33, 40), 5, 3),  # eleven
+)
+
+
+def _random_dia(N, offsets, seed):
+    rng = np.random.default_rng(seed)
+    d = np.zeros((len(offsets), N))
+    for k, o in enumerate(offsets):
+        n = N - abs(o)
+        if n > 0:
+            d[k, max(0, -o):max(0, -o) + n] = rng.random(n) - 0.5
+    return d
+
+
+def phase_dia_kernels(card_name):
+    """Phase 3c: the DIA matvec entries (``ops/csrc/dia_matvec.cu``)
+    against their plain version at the Krylov path's shapes and at awkward
+    ones, tolerance relative to max|y|: f32 1e-5, fp64 1e-13; then each
+    entry's time per launch over four rotating operands (the 128-column f32
+    operand alone fits the 50 MB L2), the plain version's, the bound and
+    one torch.sparse.mm (CSR) call on the same product."""
+    import torch
+    from feastkit_tpu_torch.ops import dia as D
+    from feastkit_tpu_torch.ops.dia import bcoo_to_dia
+    from feastkit_tpu_torch.solvers.sparse import sparse_coo_arrays
+    bw, peak32, peak64 = _card_rates(card_name)
+    print("== 3c. the DIA matvec kernels against their plain version "
+          "(Krylov path, P=8)", flush=True)
+    A = lap2d(256)
+    N = A.shape[0]
+    data, idx, _ = sparse_coo_arrays(A, np.float64)
+    dia_np, offsets = bcoo_to_dia(data, idx, N)
+    nd = len(offsets)
+    out = {}
+    for name, (batched, dname, _) in DIA_KERNELS.items():
+        dtype = getattr(torch, dname)
+        tol = 1e-5 if dtype == torch.float32 else 1e-13
+        size = torch.finfo(dtype).bits // 8
+        peak = peak32 if dtype == torch.float32 else peak64
+        wrapper = getattr(D, name)
+        dia = torch.as_tensor(dia_np, device="cuda").to(dtype)
+        g, M = DIA_MAIN_SHAPES[name]
+        shape = (g, N, M) if batched else (N, M)
+        x = _planes(torch, dtype, shape, 1, 7)[0]
+        before = wrapper.launches
+        y = wrapper(dia, offsets, x)
+        yp = D.dia_matvec_plain(dia, offsets, x)
+        torch.cuda.synchronize()
+        check(wrapper.launches == before + 1,
+              f"{name} counts one launch per call")
+        err = float((y - yp).abs().max())
+        rel = err / float(yp.abs().max())
+        print(f"   {name} main shapes {tuple(shape)} nd={nd}: max abs err "
+              f"{err:.3e}, relative {rel:.3e} (tol {tol:g})", flush=True)
+        check(rel <= tol, f"{name} agrees with its plain version at the "
+              "Krylov path's shapes")
+        worst = rel
+        for an, aoffs, am, ag in DIA_AWKWARD:
+            dd = torch.as_tensor(_random_dia(an, aoffs, an + am),
+                                 device="cuda").to(dtype)
+            xs = _planes(torch, dtype, (ag, an, am) if batched else (an, am),
+                         1, ag)[0]
+            r = float((wrapper(dd, aoffs, xs)
+                       - D.dia_matvec_plain(dd, aoffs, xs)).abs().max()
+                      / D.dia_matvec_plain(dd, aoffs, xs).abs().max())
+            print(f"   {name} N={an} M={am}{f' g={ag}' if batched else ''} "
+                  f"offsets={aoffs}: relative {r:.3e}", flush=True)
+            check(r <= tol, f"{name} agrees at N={an} M={am} nd={len(aoffs)}")
+            worst = max(worst, r)
+        # times over four rotating operands
+        xs = _planes(torch, dtype, shape, 4, 11)
+        turn = [0]
+
+        def kern(fn):
+            def run():
+                fn(xs[turn[0] % 4])
+                turn[0] += 1
+            return run
+        ms = cuda_time_ms(kern(lambda v: wrapper(dia, offsets, v)), 200)
+        plain_ms = cuda_time_ms(
+            kern(lambda v: D.dia_matvec_plain(dia, offsets, v)), 20)
+        # the library yardstick: one CSR product on the (N, g M) operand,
+        # laid out beforehand
+        with warnings.catch_warnings():   # "CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            Acsr = torch.sparse_csr_tensor(
+                torch.as_tensor(A.indptr, dtype=torch.int64),
+                torch.as_tensor(A.indices, dtype=torch.int64),
+                torch.as_tensor(A.data, dtype=dtype), size=A.shape).cuda()
+        xl = [v.permute(1, 0, 2).reshape(N, g * M).contiguous()
+              if batched else v for v in xs]
+        lib_turn = [0]
+
+        def lib():
+            torch.sparse.mm(Acsr, xl[lib_turn[0] % 4])
+            lib_turn[0] += 1
+        library_ms = cuda_time_ms(lib, 50)
+        nbytes = (2 * g * N * M + nd * N) * size    # x, y once; diagonals
+        flops = 2 * nd * g * N * M
+        bound_ms = max(nbytes / bw, flops / peak) * 1e3
+        print(f"   {name}: {ms:.4f} ms/launch over 4 rotating operands "
+              f"(plain {plain_ms:.4f} ms; torch.sparse.mm CSR "
+              f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms = "
+              f"{nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s, "
+              f"{bound_ms / ms:.1%} of bound)", flush=True)
+        out[name] = dict(max_abs_err=err, max_rel_err=worst, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by="bytes" if nbytes / bw >= flops / peak
+                         else "operations", library_ms=library_ms,
+                         shape=list(shape))
+        del dia, x, y, yp, xs, xl, Acsr
+        torch.cuda.empty_cache()
+    # what a CUDA entry refuses
+    xf = torch.zeros(N, 4, device="cuda", dtype=torch.float64)
+    xt = torch.zeros(4, N, device="cuda", dtype=torch.float64).t()
+    d64 = torch.as_tensor(dia_np, device="cuda")
+    for what, call, exc in (
+            ("a wrong dtype", lambda: D.dia_matvec_f32(d64, offsets, xf),
+             TypeError),
+            ("a non-contiguous operand",
+             lambda: D.dia_matvec_f64(d64, offsets, xt), ValueError),
+            ("a CPU tensor", lambda: D._launch(
+                D.dia_matvec_f64, d64.cpu(), offsets, xf.cpu(), False),
+             ValueError)):
+        try:
+            call()
+        except exc:
+            print(f"  ok: a CUDA entry refuses {what}", flush=True)
+        else:
+            raise AssertionError(f"a CUDA entry accepted {what}")
+    return out
+
+
+def _sync():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def group_max(g):
+    """FEAST_GROUP_MAX for the block (None: unset), then restore."""
+    saved = os.environ.pop("FEAST_GROUP_MAX", None)
+    if g is not None:
+        os.environ["FEAST_GROUP_MAX"] = str(g)
+    try:
+        yield
+    finally:
+        os.environ.pop("FEAST_GROUP_MAX", None)
+        if saved is not None:
+            os.environ["FEAST_GROUP_MAX"] = saved
+
+
+def _krylov_solve(A, B, Emin, Emax, M0, fpm, device="cuda", **kw):
+    import feastkit_tpu_torch as ft
+    _sync()
+    t0 = time.perf_counter()
+    r = ft.feast(A, B, (Emin, Emax), M0, fpm, device=device, **kw)
+    _sync()
+    return r, time.perf_counter() - t0
+
+
+def _krylov_counted(A, B, Emin, Emax, M0, fpm, label, device="cuda", **kw):
+    """One Krylov solve with the DIA launch counts set to 0 just before and
+    read just after, held to the counts the solve's own record implies."""
+    from feastkit_tpu_torch.ops import dia as D
+    from feastkit_tpu_torch.solvers.sparse import krylov_dia_launches
+    D.reset_launch_counts()
+    r, seconds = _krylov_solve(A, B, Emin, Emax, M0, fpm, device, **kw)
+    counts = D.launch_counts()
+    want = krylov_dia_launches(r.krylov)
+    ev = r.krylov["events"]
+    trips = sum(e.get("trips", 0) for e in ev if e["op"] == "gmres")
+    calls = sum(1 for e in ev if e["op"] == "gmres")
+    print(f"   {label}: {seconds:.2f} s, {calls} GMRES calls, {trips} "
+          f"restart cycles; DIA launches {counts}", flush=True)
+    if device == "cuda":
+        check(counts == want, f"{label}: DIA launches equal the count the "
+              f"solve's Krylov record implies {want}")
+    return r, seconds, counts, want
+
+
+def _krylov_breakdown(A, B, Emin, Emax, M0, fpm, dia_ms, device="cuda",
+                      **kw):
+    """One more warm Krylov solve with its stages timed (the device
+    synchronised at each stage's edges): the filter (all shifted solves),
+    within it the inner Krylov calls and within those the V-cycles, the
+    Gram-Schmidt and the Hessenberg least squares; the refinement (the
+    filter outside its Krylov calls); Rayleigh-Ritz; host set-up; Q0; and
+    the DIA launches times their phase-3c time per launch."""
+    from feastkit_tpu_torch.kernel import hermitian
+    from feastkit_tpu_torch.ops import dia as D
+    from feastkit_tpu_torch.ops import gmres
+    from feastkit_tpu_torch.solvers import sparse
+    times = {}
+    saved = []
+
+    def add(key, dt):
+        times[key] = times.get(key, 0.0) + dt
+
+    def timed_fn(fn, key, sync=True):
+        def wrapper(*a, **k):
+            if sync:
+                _sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                _sync()
+            add(key, time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def patch(mod, name, make):
+        orig = getattr(mod, name)
+        saved.append((mod, name, orig))
+        setattr(mod, name, make(orig))
+
+    patch(sparse, "gmres_block", lambda f: timed_fn(f, "krylov"))
+    patch(sparse, "bicgstab_block", lambda f: timed_fn(f, "krylov"))
+    patch(gmres, "_gram_schmidt", lambda f: timed_fn(f, "gram_schmidt"))
+    patch(gmres, "_hessenberg_lstsq", lambda f: timed_fn(f, "lstsq"))
+    patch(sparse, "make_shifted_vcycle",
+          lambda f: lambda *a, **k: timed_fn(f(*a, **k), "vcycle"))
+    patch(sparse, "_make_sparse_solve_all",
+          lambda f: lambda *a, **k: timed_fn(f(*a, **k), "filter"))
+    patch(hermitian, "make_rayleigh_ritz_update",
+          lambda f: lambda *a, **k: timed_fn(f(*a, **k), "rayleigh_ritz"))
+    for name in ("sparse_coo_arrays", "_structured_forms", "_plan_mg",
+                 "feast_contour"):
+        patch(sparse, name, lambda f: timed_fn(f, "host_setup", sync=False))
+    patch(sparse, "initial_subspace",
+          lambda f: timed_fn(f, "host_q0", sync=False))
+    D.reset_launch_counts()
+    try:
+        _, wall = _krylov_solve(A, B, Emin, Emax, M0, fpm, device, **kw)
+    finally:
+        for mod, name, orig in reversed(saved):
+            setattr(mod, name, orig)
+    counts = D.launch_counts()
+    times["refinement"] = times.get("filter", 0.0) - times.get("krylov", 0.0)
+    times["dia_launches_x_ms"] = sum(counts[n] * dia_ms.get(n, 0.0)
+                                     for n in counts) / 1e3
+    times = {k: round(v, 4) for k, v in sorted(times.items())}
+    outside = wall - times.get("filter", 0.0) - times.get(
+        "rayleigh_ritz", 0.0) - times.get("host_setup", 0.0) - times.get(
+        "host_q0", 0.0)
+    print(f"   breakdown of a warm Krylov solve ({wall:.2f} s): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+          + f"; outside filter, Rayleigh-Ritz and host {outside:.3f} s "
+          "(nested: krylov within filter; vcycle, gram_schmidt and lstsq "
+          "within krylov)", flush=True)
+    return dict(wall_s=wall, other_s=outside, launches=counts, **times)
+
+
+def phase_krylov(dia_kernels, nx=256, device="cuda"):
+    """Phase 8: the Krylov contour engine on the 2D Laplacian at P = 8 with
+    solver="gmres": once cold, then warm solves (the first counted), a
+    staged one, and one with FEAST_GROUP_MAX=1 (the unbatched entries carry
+    every apply) that must agree with the default node groups."""
+    import torch
+    print(f"== 8. Krylov path: feast(lap2d({nx}), solver='gmres') with "
+          "multigrid", flush=True)
+    A = lap2d(nx)
+    Emin, Emax, exp = interval_lowest(lap2d_eigs(nx))
+    M0 = int(-(-int(len(exp) * 1.3) // 8) * 8)
+    if nx == 256:
+        check(len(exp) == 52 and M0 == 72, "fixture: 52 pairs, M0 = 72")
+    import feastkit_tpu_torch as ft
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    fpm[1] = 1
+    kw = dict(solver="gmres", solver_maxiter=250)
+    print(f"   N={nx * nx} interval=({Emin:.6e}, {Emax:.6e}) M0={M0}",
+          flush=True)
+    r, cold_s = _krylov_solve(A, None, Emin, Emax, M0, fpm, device, **kw)
+    print(f"   cold solve {cold_s:.2f} s", flush=True)
+    _check_result(r, exp, 1e-8, f"P={int(np.log2(nx))} Krylov cold")
+    levels = {256: 4}.get(nx)
+    print(f"   preconditioner {r.krylov['precond']} with "
+          f"{r.krylov['mg_levels']} levels", flush=True)
+    check(r.krylov["precond"] == "mg"
+          and (levels is None or r.krylov["mg_levels"] == levels),
+          f"multigrid preconditioner{f' with {levels} levels' if levels else ''}")
+    del r
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    r, warm_s, counts, _ = _krylov_counted(A, None, Emin, Emax, M0, fpm,
+                                           "Krylov warm", device, **kw)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    print(f"   warm solve {warm_s:.2f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    _check_result(r, exp, 1e-8, "Krylov warm")
+    lam_default = np.sort(r.lam)
+    groups = sorted({e["nodes"] for e in r.krylov["events"]
+                     if e["op"] == "gmres"})
+    print(f"   node groups {groups}, loops {r.loop}", flush=True)
+    del r
+    warm = [warm_s]
+    for _ in range(1):
+        r, s = _krylov_solve(A, None, Emin, Emax, M0, fpm, device, **kw)
+        check(r.M == len(exp) and int(r.info) == 0,
+              "repeat warm Krylov solve agrees")
+        warm.append(s)
+        del r
+    print(f"   warm solves {[round(s, 3) for s in warm]} s, median "
+          f"{float(np.median(warm)):.3f} s", flush=True)
+    dia_ms = {n: k["ms"] for n, k in dia_kernels.items()}
+    breakdown = _krylov_breakdown(A, None, Emin, Emax, M0, fpm, dia_ms,
+                                  device, **kw)
+    with group_max(1):
+        r1, g1_s, counts1, _ = _krylov_counted(
+            A, None, Emin, Emax, M0, fpm, "Krylov FEAST_GROUP_MAX=1",
+            device, **kw)
+    _check_result(r1, exp, 1e-8, "Krylov FEAST_GROUP_MAX=1")
+    gap = float(np.abs(np.sort(r1.lam) - lam_default).max())
+    print(f"   FEAST_GROUP_MAX=1 vs default groups: eigenvalues {gap:.3e} "
+          "apart", flush=True)
+    check(gap <= 1e-8, "the group-1 solve agrees with the default groups")
+    total = {n: counts[n] + counts1[n] for n in counts}
+    if device == "cuda":
+        for name in DIA_KERNELS:
+            check(total[name] > 0, f"{name} launched on the Krylov path "
+                  f"({total[name]})")
+        check(counts1["dia_matvec_batched_f32"] == 0
+              and counts1["dia_matvec_batched_f64"] == 0,
+              "FEAST_GROUP_MAX=1: the unbatched entries carry every apply")
+    return dict(cold_s=cold_s, warm_s=warm,
+                warm_median_s=float(np.median(warm)), group1_s=g1_s,
+                peak_bytes=peak, counts=counts, counts_group1=counts1,
+                launches=total, breakdown=breakdown)
+
+
+def phase_gen_krylov(nx_p=7, device="cuda"):
+    """Phase 9: the consistent-mass pencil of scripts/scale_sparse_gen.py at
+    P = 7 through solver="gmres" with grid=(nx, nx): multigrid with a B
+    stencil, against the analytic eigenvalues."""
+    import feastkit_tpu_torch as ft
+    print(f"== 9. generalized Krylov path: the consistent-mass pencil, "
+          f"P={nx_p}", flush=True)
+    A, B, w = consistent_mass_pencil(nx_p)
+    nx = 2 ** nx_p
+    gaps = np.nonzero(np.diff(w) > 1e-12)[0]
+    hi = gaps[np.searchsorted(gaps, 50)]
+    Emax = float(0.5 * (w[hi] + w[hi + 1]))
+    exp = w[w <= Emax]
+    M0 = 72
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    fpm[1] = 1
+    r, secs, counts, _ = _krylov_counted(
+        A, B, 0.0, Emax, M0, fpm, f"P={nx_p} consistent mass (gmres)",
+        device, solver="gmres", grid=(nx, nx))
+    print(f"   preconditioner {r.krylov['precond']} with "
+          f"{r.krylov['mg_levels']} levels", flush=True)
+    _check_result(r, exp, 1e-8, f"P={nx_p} consistent mass Krylov")
+    check(r.krylov["precond"] == "mg", "multigrid with the B stencil")
+    return dict(seconds=secs, launches=counts,
+                mg_levels=r.krylov["mg_levels"], loops=r.loop)
+
+
+def krylov_scale(p):
+    """One Krylov solve of the 2D Laplacian at P = p (N = 4^p), the first
+    in its process, with its peak device memory and its DIA launches held
+    to its record: the size ladder beyond the smoke run's P = 8
+    (``--krylov-solve P``)."""
+    import torch
+    import feastkit_tpu_torch as ft
+    nx = 2 ** p
+    print(f"== Krylov solve at P={p}: feast(lap2d({nx}), solver='gmres')",
+          flush=True)
+    A = lap2d(nx)
+    Emin, Emax, exp = interval_lowest(lap2d_eigs(nx))
+    M0 = int(-(-int(len(exp) * 1.3) // 8) * 8)
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    fpm[1] = 1
+    kw = dict(solver="gmres", solver_maxiter=250)
+    torch.cuda.reset_peak_memory_stats()
+    r, seconds, counts, _ = _krylov_counted(A, None, Emin, Emax, M0, fpm,
+                                            f"P={p} Krylov", **kw)
+    peak = torch.cuda.max_memory_allocated()
+    _check_result(r, exp, 1e-8, f"P={p} Krylov")
+    ev = r.krylov["events"]
+    out = dict(p=p, N=nx * nx, M0=M0, M=r.M, seconds=seconds,
+               peak_bytes=peak, loops=r.loop, epsout=r.epsout,
+               precond=r.krylov["precond"], mg_levels=r.krylov["mg_levels"],
+               gmres_calls=sum(1 for e in ev if e["op"] == "gmres"),
+               restart_cycles=sum(e.get("trips", 0) for e in ev
+                                  if e["op"] == "gmres"),
+               launches=counts)
+    print(f"   P={p}: {seconds:.2f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    print(json.dumps({"krylov_scale": out}), flush=True)
+    return out
+
+
 def sp_awkward(nx, ny):
     """A 2D five-point operator with random coefficients on an nx-by-ny
     grid (offsets -nx, -1, 0, 1, nx)."""
@@ -1042,18 +1490,27 @@ def main(argv):
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_card()
     phase_build()
+    if "--krylov-solve" in argv:
+        krylov_scale(int(argv[argv.index("--krylov-solve") + 1]))
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     kernels = phase_kernels(smi.split(",")[0])
     gen_kernels = phase_gen_kernels(smi.split(",")[0])
     nd9 = {k: gen_kernels.pop(k) for k in list(gen_kernels)
            if k.endswith("_nd9")}
     kernels.update(gen_kernels)
+    dia_kernels = phase_dia_kernels(smi.split(",")[0])
     rr_ms = phase_rayleigh_ritz()
-    counts = {name: None for name in KERNELS}
+    counts = {name: None for name in (*KERNELS, *DIA_KERNELS)}
     if not quick:
         main_path = phase_main_path(kernels)
         p9 = phase_p9()
         # each kernel's launches on its own path: the main path for the
-        # kernels it runs, the SPD-B path for the composite's own
+        # kernels it runs, the SPD-B path for the composite's own, the
+        # Krylov path (phase 8) for the DIA matvec kernels
         ms9 = dict(kernels)
         ms9.update({k[:-4]: v["nd9"] for k, v in nd9.items()})
         spd_b = phase_consistent_mass(ms9)
@@ -1061,6 +1518,11 @@ def main(argv):
         counts.update({n: spd_b["counts"][n] for n in SPD_B_KERNELS})
         print(json.dumps({"main_path": main_path, "p9": p9,
                           "spd_b": spd_b}), flush=True)
+        krylov = phase_krylov(dia_kernels)
+        gen_krylov = phase_gen_krylov()
+        counts.update(krylov["launches"])
+        print(json.dumps({"krylov": krylov, "gen_krylov": gen_krylov}),
+              flush=True)
     rows = []
     copy_tbs = kernels.pop("copy_tbs")
     for name, k in kernels.items():
@@ -1074,6 +1536,16 @@ def main(argv):
             bound_by=k["bound_by"], library_ms=None,
             steps_per_launch=steps, ms_per_step=k["ms_per_step"],
             csr_spmm_ms=k["csr_spmm_ms"]))
+    for name, k in dia_kernels.items():
+        rows.append(dict(
+            name=name, route="cuda",
+            source="feastkit_tpu_torch/ops/csrc/dia_matvec.cu",
+            replaces=DIA_KERNELS[name][2], launches=counts[name],
+            max_abs_err=k["max_abs_err"], max_rel_err=k["max_rel_err"],
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"],
+            steps_per_launch=0, ms_per_step=k["ms"], csr_spmm_ms=None,
+            shape=k["shape"]))
     print(json.dumps({"rayleigh_ritz_ms": rr_ms, "copy_tbs": copy_tbs,
                       "multistep_nine_diagonals": nd9}), flush=True)
     print(smi, flush=True)

@@ -15,9 +15,11 @@ import torch
 from .core.backend import resolve_device
 from .core.parameters import FeastParameters
 from .kernel.hermitian import HermitianState
+from .ops.multigrid import GridStencil
 
 __all__ = ["fpm_from_reference", "dia_from_reference",
-           "state_from_reference", "carry_from_reference_packed"]
+           "state_from_reference", "carry_from_reference_packed",
+           "stencil_from_reference"]
 
 
 def fpm_from_reference(fpm) -> FeastParameters:
@@ -72,3 +74,10 @@ def carry_from_reference_packed(planes, plan, N, M, *, device=None):
                          f"{len(planes)}")
     return tuple(torch.as_tensor(np.ascontiguousarray(x), device=device)
                  for x in out)
+
+
+def stencil_from_reference(st) -> GridStencil:
+    """A reference ``GridStencil`` (displacements, coefficients, grid) ->
+    the port's (host numpy, as in the JAX package)."""
+    return GridStencil(np.array(st.disps, np.int64), np.array(st.coeffs),
+                       tuple(int(g) for g in st.grid))

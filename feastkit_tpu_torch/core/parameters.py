@@ -12,6 +12,8 @@ half-contour node count, exactly as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import os
+
 import numpy as np
 
 FEAST_UNINITIALIZED = -111
@@ -291,6 +293,20 @@ def feast_tolerance(fpm: FeastParameters, dtype=None) -> float:
     return tol
 
 
+def ifeast_solver_options(fpm: FeastParameters) -> dict | None:
+    """IFEAST inner-solver knobs -> driver kwargs (fpm[43]=1 switches to
+    IFEAST interfaces; fpm[44] solver type 0=BiCGstab, fpm[45] inner accuracy
+    10^-fpm[45], fpm[46] max inner iterations; feast_parameters.jl:321-339).
+    Returns None when fpm[43]=0 (direct-FEAST semantics)."""
+    if fpm[43] != 1:
+        return None
+    return {
+        "solver": "bicgstab" if fpm[44] == 0 else "gmres",
+        "solver_tol": 10.0 ** (-max(fpm[45], 0)),
+        "solver_maxiter": max(fpm[46], 1),
+    }
+
+
 def _ensure_fpm(fpm) -> FeastParameters:
     """nothing / list / ndarray / FeastParameters -> defaulted FeastParameters
     (feast_interfaces.jl:6-18 `_ensure_feast_parameters`)."""
@@ -307,18 +323,40 @@ def _ensure_fpm(fpm) -> FeastParameters:
 @dataclasses.dataclass(frozen=True)
 class FeastConfig:
     """Typed veneer over fpm with the fields the port's solvers read (the
-    JAX package's config also carries contour, Krylov, multigrid and
-    dispatch fields for engines not ported yet)."""
+    JAX package's config also carries contour and dispatch fields for
+    engines not ported yet). The environment overrides are the JAX
+    package's, read when the config is built."""
 
     tol: float = 1e-12           # 10^-fpm[3], dtype-floored
     max_loops: int = 20          # fpm[4]
     convergence_criterion: int = 1      # fpm[6]: 0 trace, 1 residual
     print_level: int = 0         # fpm[1]
     mode: int = 0                # fpm[14]
-    mixed: int = 1               # fpm[42]: mixed-precision recurrence.
+    mixed: int = 1               # fpm[42]: mixed precision (the f32 rung of
+    #   the polynomial filter; c64 Krylov inside a double-precision
+    #   iterative refinement in the Krylov engine).
     #   0 = off, 1 = auto (on for CUDA tensors, where the f32 rung halves
     #   the bytes of the bandwidth-bound recurrence; off on the CPU),
     #   2 = force everywhere
+    ir_max: int = 5              # max mixed-precision iterative-refinement
+    #   steps per contour node (FEAST_IR_MAX); each multiplies the accuracy
+    #   by the c64 floor (~2e-5)
+    mg_nu_pre: int = 2           # multigrid V-cycle: damped-Jacobi pre-
+    mg_nu_post: int = 2          #   and post-smoothing steps, damping and
+    mg_omega: float = 0.8        #   V-cycles per preconditioner application
+    mg_cycles: int = 1           #   (FEAST_MG_NU_PRE / _NU_POST / _OMEGA /
+    #   _CYCLES)
+    warm_start: int = 1          # Ritz warm starts of the Krylov solves
+    #   (FEAST_WARM_START): X0 = Q diag(1/(z - lam)), kept per column only
+    #   where it beats the zero iterate
+    adaptive_inner_tol: int = 1  # inexact-FEAST inner tolerances
+    #   (FEAST_ADAPTIVE_TOL): loop solves aim at clip(0.1 epsout^2,
+    #   solver_tol, 3e-5), the verify pass at 2e-3
+    cheb_degree: int = 0         # polynomial-filter degree (FEAST_CHEB_DEGREE):
+    #   0 = auto; > 0 fixes the indicator's degree and caps the rational
+    #   realization's
+    group_max: int = 2           # contour nodes solved together in one
+    #   batched Krylov solve (FEAST_GROUP_MAX)
 
     @staticmethod
     def from_fpm(fpm: FeastParameters, dtype=None) -> "FeastConfig":
@@ -329,4 +367,13 @@ class FeastConfig:
             print_level=fpm[1],
             mode=fpm[14],
             mixed=int(fpm[42]),
+            ir_max=int(os.environ.get("FEAST_IR_MAX", 5)),
+            mg_nu_pre=int(os.environ.get("FEAST_MG_NU_PRE", 2)),
+            mg_nu_post=int(os.environ.get("FEAST_MG_NU_POST", 2)),
+            mg_omega=float(os.environ.get("FEAST_MG_OMEGA", 0.8)),
+            mg_cycles=int(os.environ.get("FEAST_MG_CYCLES", 1)),
+            warm_start=int(os.environ.get("FEAST_WARM_START", 1)),
+            adaptive_inner_tol=int(os.environ.get("FEAST_ADAPTIVE_TOL", 1)),
+            cheb_degree=int(os.environ.get("FEAST_CHEB_DEGREE", 0)),
+            group_max=int(os.environ.get("FEAST_GROUP_MAX", 2)),
         )

@@ -15,7 +15,7 @@ import torch
 
 __all__ = ["seeded_subspace", "initial_subspace", "residuals",
            "inside_first_order", "eigh_polished", "reduced_hermitian_gevp",
-           "thin_svd"]
+           "thin_svd", "orthonormalize"]
 
 
 def seeded_subspace(N: int, M0: int, dtype, *, general: bool = False) -> np.ndarray:
@@ -79,6 +79,18 @@ def thin_svd(Q):
     Qq, R = torch.linalg.qr(Q, mode="reduced")
     Ur, s, _ = torch.linalg.svd(R)
     return Qq @ Ur, s
+
+
+def orthonormalize(Q, rtol=None):
+    """Orthonormal basis of span(Q) with rank detection (the JAX package's
+    replacement of the reference's pivoted-QR compression): (U with all M0
+    orthonormal columns, rank, s) from the thin SVD; singular values at or
+    below rtol * s_max (default sqrt(eps) of Q's precision) are counted out
+    of the rank."""
+    U, s = thin_svd(Q)
+    if rtol is None:
+        rtol = float(np.sqrt(torch.finfo(s.dtype).eps))
+    return U, (s > rtol * s[0]).sum(), s
 
 
 def eigh_polished(C):

@@ -61,6 +61,8 @@ class FeastResult:
     res_full: Any = None
     inside: Any = None
     inner_converged: bool = True
+    krylov: Any = None   # Krylov engine only: its solver, preconditioner
+    #   and the record of its inner solves (``_make_sparse_solve_all``)
 
     @property
     def converged(self) -> bool:

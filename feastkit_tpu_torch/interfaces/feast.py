@@ -23,7 +23,8 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
     """All eigenpairs of A x = lam B x with lam in [Emin, Emax] for a
     sparse real symmetric A and B None, a positive diagonal (lumped mass)
     or a sparse symmetric positive-definite matrix (consistent mass,
-    solved through the polynomial-inverse composite q(B) A).
+    solved through the polynomial-inverse composite q(B) A), or through
+    the Krylov contour engine (``solver="gmres"`` / ``"bicgstab"``).
 
     Args:
       A, B: sparse operands (B=None for the standard problem).
@@ -32,7 +33,10 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
       fpm: the 64-slot FEAST parameters (None: defaults).
       backend: None, "auto" or "serial" (the sharded backend is not ported).
       device: torch device; None means "cuda" (raises without CUDA).
-      kw: passed to the sparse driver (``solver=``, ``hermitian=``).
+      kw: passed to the sparse driver (``solver=`` "cheb",
+        "contour_poly", "gmres" or "bicgstab"; ``hermitian=``; for the
+        Krylov engine ``solver_tol=``, ``solver_maxiter=``,
+        ``solver_restart=``, ``precond=`` and ``grid=``).
     """
     if interval is None:
         raise ValueError("interval=(Emin, Emax) is required")

@@ -1,13 +1,20 @@
-"""The Rayleigh-Ritz half of a FEAST refinement loop, on torch tensors.
+"""The FEAST subspace-iteration core for symmetric problems, on torch
+tensors.
 
-Counterpart of ``feastkit_tpu/kernel/hermitian.py`` for host-driven
-loops: ``make_rayleigh_ritz_update`` turns a filtered subspace into the
-next state (orthonormalize with rank deflation, reduced pencil, Ritz
-pairs, residuals, inside mask, convergence), and ``verify_spurious_from``
-is the final projector-norm test. The orthonormalization is the thin-SVD
-route the JAX package takes off the TPU (computed as QR + SVD of the small
-factor); its Gram + Newton-Schulz route exists only for the TPU's weak f64
-matrix products and is not ported.
+Counterpart of ``feastkit_tpu/kernel/hermitian.py``:
+``make_rayleigh_ritz_update`` turns a filtered subspace into the next
+state (orthonormalize with rank deflation, reduced pencil, Ritz pairs,
+residuals, inside mask, convergence), ``verify_spurious_from`` is the
+final projector-norm test, and ``feast_hermitian_core`` drives the whole
+refinement around a ``filter_apply`` callable (the Krylov contour engine's
+``_sparse_ops``), with ``make_hermitian_body``, ``verify_spurious`` and the
+warm-start and tolerance-hint protocols of ``_filter_with_ok``. The JAX
+package's core is one fused ``while_loop``; here it is a host loop that
+reads the convergence flag (with epsout, for the next hint) once per loop.
+The orthonormalization is the thin-SVD route the JAX package takes off
+the TPU (computed as QR + SVD of the small factor); its Gram +
+Newton-Schulz route exists only for the TPU's weak f64 matrix products and
+is not ported.
 """
 from __future__ import annotations
 
@@ -15,24 +22,26 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..core.tools import (inside_first_order, reduced_hermitian_gevp,
-                          residuals, thin_svd)
+from ..core.tools import (inside_first_order, orthonormalize,
+                          reduced_hermitian_gevp, residuals, thin_svd)
 
 __all__ = ["HermitianState", "make_rayleigh_ritz_update",
            "verify_spurious_from", "init_hermitian_state", "SPURIOUS_RES",
-           "VERIFY_FILTER_TOL", "LOOP_TOL_CAP"]
+           "VERIFY_FILTER_TOL", "LOOP_TOL_CAP", "feast_hermitian_core",
+           "make_hermitian_body", "verify_spurious"]
 
 # In-loop plausibility cut: Ritz pairs with O(1) residual are never counted
 # toward convergence (counterpart of fpm[38] spurious detection).
 SPURIOUS_RES = 0.1
 
 # Inner accuracy the spurious-verification filter pass needs (it feeds only
-# the projector-norm test rho > 0.25); kept for the contract of iterative
-# filters, which the port does not have yet.
+# the projector-norm test rho > 0.25): the hint the core passes to an
+# iterative filter's verify application.
 VERIFY_FILTER_TOL = 2e-3
 
-# Cap on the inner accuracy hints of loop filter applications (iterative
-# filters only; kept for the same contract).
+# Cap on the inner accuracy hints of loop filter applications: inner errors
+# must stay a decade below the rank-deflation cut (eps^(1/4) ~ 1.2e-4 in
+# f64).
 LOOP_TOL_CAP = 3e-5
 
 
@@ -129,3 +138,82 @@ def verify_spurious_from(state: HermitianState, Qproj,
         epsout=torch.where(genuine, state.res, zero).max(),
         inner_ok=torch.as_tensor(state.inner_ok, device=Qproj.device)
         & torch.as_tensor(ok, device=Qproj.device))
+
+
+def _filter_with_ok(filter_apply, Q, lam=None, tol_hint=None):
+    """filter_apply may return Qproj or (Qproj, ok): iterative filters
+    report whether every inner solve converged (ok True otherwise).
+
+    Ritz warm-start protocol: a filter_apply carrying ``takes_ritz=True``
+    gets the current Ritz values (``lam=``) and starts each node's inner
+    solves from X0 = Q diag(1/(z - lam)). Adaptive-tolerance protocol: a
+    ``takes_tol=True`` filter gets ``tol_hint=``, the inner accuracy this
+    application needs (a host float)."""
+    kwargs = {}
+    if lam is not None and getattr(filter_apply, "takes_ritz", False):
+        kwargs["lam"] = lam
+    if tol_hint is not None and getattr(filter_apply, "takes_tol", False):
+        kwargs["tol_hint"] = tol_hint
+    out = filter_apply(Q, **kwargs)
+    if isinstance(out, tuple):
+        Qproj, ok = out
+        return Qproj, torch.as_tensor(ok, device=Qproj.device)
+    return out, torch.tensor(True, device=out.device)
+
+
+def make_hermitian_body(apply_A: Callable, apply_B: Callable,
+                        filter_apply: Callable, Emin, Emax, *, tol: float,
+                        convergence_criterion: int = 1) -> Callable:
+    """One FEAST refinement iteration, (state, epsout) -> state, epsout the
+    previous loop's as a host float."""
+    update = make_rayleigh_ritz_update(
+        apply_A, apply_B, Emin, Emax, tol=tol,
+        convergence_criterion=convergence_criterion)
+
+    def body(state: HermitianState, epsout: float) -> HermitianState:
+        # inexact-FEAST inner target 0.1 epsout^2, capped (epsout = inf on
+        # loop 0 -> exactly the cap)
+        hint = min(0.1 * epsout * epsout, LOOP_TOL_CAP)
+        Qproj, solves_ok = _filter_with_ok(filter_apply, state.Q, state.lam,
+                                           hint)
+        return update(state, Qproj, solves_ok)
+
+    return body
+
+
+def verify_spurious(state: HermitianState, filter_apply: Callable
+                    ) -> HermitianState:
+    """Final spurious verification with one more filter application (at
+    the verify hint VERIFY_FILTER_TOL): see :func:`verify_spurious_from`."""
+    Qproj, ok = _filter_with_ok(filter_apply, state.Q, state.lam,
+                                VERIFY_FILTER_TOL)
+    return verify_spurious_from(state, Qproj, ok)
+
+
+def feast_hermitian_core(apply_A: Callable, apply_B: Callable,
+                         filter_apply: Callable, Q0, Emin, Emax, *,
+                         tol: float, max_loops: int,
+                         convergence_criterion: int = 1,
+                         subspace_only: bool = False) -> HermitianState:
+    """The FEAST refinement around ``filter_apply`` (counterpart of the JAX
+    package's fused core): at most max_loops + 1 loops, stopping once the
+    state converges, then the spurious verification. subspace_only
+    (fpm[14]=1): return the first filtered subspace, orthonormalized, with
+    loop = 1."""
+    init = init_hermitian_state(Q0)
+    if subspace_only:
+        Qproj, ok = _filter_with_ok(filter_apply, init.Q)
+        U, _, _ = orthonormalize(Qproj)
+        return init._replace(Q=U, loop=1, inner_ok=ok)
+    body = make_hermitian_body(apply_A, apply_B, filter_apply, Emin, Emax,
+                               tol=tol,
+                               convergence_criterion=convergence_criterion)
+    state, epsout = init, float("inf")
+    while state.loop < max_loops + 1:
+        state = body(state, epsout)
+        # one host read per loop: the flag and epsout (the next hint)
+        conv, epsout = torch.stack([state.converged.to(state.epsout.dtype),
+                                    state.epsout]).tolist()
+        if conv:
+            break
+    return verify_spurious(state, filter_apply)

@@ -71,7 +71,7 @@ import functools
 
 import torch
 
-from .dia import dia_matvec
+from .dia import dia_matvec_plain
 
 __all__ = ["cheb_step_f32", "cheb_step_f64", "cheb_step_plain",
            "cheb_step_cm_f32", "cheb_step_cm_f64", "cheb_step_cm_plain",
@@ -95,7 +95,7 @@ _TILE_ALIGN = 32
 def cheb_step_plain(diags, offsets, t0, t1, acc, sc, sh, ck):
     """The plain PyTorch version of one fused step (same in-place contract
     as the kernels; dtype-generic, so it is the plain version of both)."""
-    y = dia_matvec(diags, offsets, t1)
+    y = dia_matvec_plain(diags, offsets, t1)
     t2 = 2.0 * (sc * y - sh * t1) - t0
     t0.copy_(t2)
     acc.add_(t2, alpha=ck)

@@ -1,6 +1,7 @@
-"""Sparse symmetric interval FEAST: the polynomial-filter path (PyTorch).
+"""Sparse symmetric interval FEAST: the polynomial-filter path and the
+Krylov contour engine (PyTorch).
 
-Counterpart of the main-path slice of ``feastkit_tpu/solvers/sparse.py``:
+Counterpart of the real-symmetric half of ``feastkit_tpu/solvers/sparse.py``:
 the auto route of ``sparse_feast_interval`` (the rational-contour filter
 realized as one Chebyshev polynomial, or the Jackson indicator when that is
 cheaper), ``solver="cheb"`` / ``"contour_poly"``, and the host-driven
@@ -28,31 +29,45 @@ the composite q(B~) A~ with q a Chebyshev polynomial inverse of B~
 (``ops/cheb_gen.py``: per outer step one A pass, the inner recurrence in B
 and one combine kernel), while Rayleigh-Ritz and the residuals use the
 exact pencil. An indefinite or nonsymmetric B is refused with the JAX
-package's message (a ValueError; on the auto route its Krylov fallback is
-not ported, item 10).
+package's message (a ValueError; on the auto route the Krylov engine takes
+it).
+
+The Krylov contour engine (``solver="gmres"`` / ``"bicgstab"``, fpm[43]=1,
+``FEAST_CONTOUR_POLY=0``, or the auto route's fallback when no polynomial
+filter resolves the interval at N > ``FEAST_SPARSE_DENSE_N``) is the JAX
+package's off-TPU path ``_sparse_hermitian_jit``: ``_sparse_ops`` builds
+the operators (the DIA kernels of ``ops/dia.py``, or a CSR product for more
+than 32 diagonals) and the half-contour filter of ``_make_sparse_solve_all``
+(per node group one batched GMRES / BiCGStab solve, multigrid or Jacobi
+preconditioned, complex64 Krylov inside a complex128 refinement under
+mixed precision), and ``kernel/hermitian.feast_hermitian_core`` refines
+around it.
 
 Paths the JAX package has and this port does not yet (each raises
 ``NotImplementedError`` naming its ROADMAP.md queue 1 item): complex
-Hermitian operators, and operators (A or a sparse B) with more than 32
-diagonals (item 6), pencils that leave the polynomial route for the dense
-engine (item 9) or the Krylov contour engine (item 10), the narrow-band
-BCR delegation (item 11) and the stochastic count fpm[14]=2 (item 16).
-Sharded meshes (item 15) are refused by ``feast()``.
+Hermitian operators, and the polynomial path for operators (A or a sparse
+B) with more than 32 diagonals (item 6), small pencils that leave the
+polynomial route for the dense engine (item 9), the narrow-band BCR
+delegation (item 11) and the stochastic count fpm[14]=2 (item 16). Sharded
+meshes (item 15) are refused by ``feast()``.
 """
 from __future__ import annotations
 
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from ..core.backend import resolve_device
 from ..core.contour import feast_contour
-from ..core.parameters import FeastConfig, _ensure_fpm
+from ..core.parameters import (FeastConfig, _ensure_fpm,
+                               ifeast_solver_options)
 from ..core.tools import initial_subspace, thin_svd
 from ..core.types import FeastError, FeastResult, _trim
-from ..kernel.hermitian import (SPURIOUS_RES, init_hermitian_state,
+from ..kernel.hermitian import (SPURIOUS_RES, VERIFY_FILTER_TOL,
+                                feast_hermitian_core, init_hermitian_state,
                                 make_rayleigh_ritz_update,
                                 verify_spurious_from)
 from ..ops.cheb_gen import cheb_gen_chunk, cheb_gen_init
@@ -64,7 +79,10 @@ from ..ops.chebfilter import (ChebInfeasible, binva_enclosure,
                               build_cheb_filter_coeffs, cheb_inverse_coeffs,
                               gershgorin_interval, make_apply_binv_a,
                               rational_filter_cheb_coeffs)
-from ..ops.dia import bcoo_to_dia, dia_matvec
+from ..ops.dia import bcoo_to_dia, dia_matvec, dia_matvec_any
+from ..ops.gmres import bicgstab_block, gmres_block
+from ..ops.multigrid import (GridStencil, detect_grid_stencil,
+                             make_shifted_vcycle, plan_mg_levels)
 
 __all__ = ["feast_scsrev", "feast_scsrgv", "sparse_coo_arrays",
            "sparse_feast_interval"]
@@ -539,24 +557,28 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
     ladder_scale = (1.5 if (_mixed_enabled(config, device, f64)
                             and config.tol <= 1e-6 and b_kind != "spd")
                     else 1.0)
+    # FEAST_CHEB_DEGREE (config.cheb_degree > 0) fixes the indicator's
+    # degree and caps the rational realization's
+    user_cap = int(config.cheb_degree or 0)
+    cap_kw = {"cap": user_cap} if user_cap > 0 else {}
     if contour is not None:
         if route:
             # Cost model: rational vs indicator, work = degree x expected
             # loops (~3 rational, ~5 indicator), on the UNSCALED indicator
-            # degree; a cap-bound indicator that barely decays outside is
-            # refused.
+            # degree (a pinned degree is never scaled); a cap-bound
+            # indicator that barely decays outside is refused.
             rat = ind = None
             rat_err = None
             try:
                 rat = rational_filter_cheb_coeffs(
                     contour.Zne, contour.Wne, lo, hi,
-                    float(Emin), float(Emax))
+                    float(Emin), float(Emax), **cap_kw)
             except ChebInfeasible as e:
                 rat_err = e
             try:
                 ind = build_cheb_filter_coeffs(
                     lo, hi, float(Emin), float(Emax),
-                    degree_scale=ladder_scale)
+                    degree=user_cap or None, degree_scale=ladder_scale)
                 if ind[1]["outside_at_1w"] > 0.25 * ind[1]["inside_min"]:
                     ind = None
             except ValueError:
@@ -565,20 +587,22 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                 raise ChebInfeasible(
                     f"neither polynomial filter resolves this "
                     f"configuration ({rat_err})")
+            ind_div = 1.0 if user_cap else ladder_scale
             if rat is not None and (ind is None
                                     or 3 * rat[1]["degree"]
-                                    <= 5 * ind[1]["degree"] / ladder_scale):
+                                    <= 5 * ind[1]["degree"] / ind_div):
                 coeffs, cinfo = rat
             else:
                 coeffs, cinfo = ind
         else:
             coeffs, cinfo = rational_filter_cheb_coeffs(
                 contour.Zne, contour.Wne, lo, hi, float(Emin),
-                float(Emax))
+                float(Emax), **cap_kw)
     else:
         try:
             coeffs, cinfo = build_cheb_filter_coeffs(
-                lo, hi, float(Emin), float(Emax), degree_scale=ladder_scale)
+                lo, hi, float(Emin), float(Emax), degree=user_cap or None,
+                degree_scale=ladder_scale)
         except ValueError as _e:
             if route:
                 raise ChebInfeasible(str(_e)) from _e
@@ -732,12 +756,637 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                  int(state.loop) - 1, inner_ok=bool(state.inner_ok))
 
 
+# --------------------------------------------------------------------------
+# The Krylov contour engine: batched GMRES / BiCGStab shifted solves per
+# contour node, multigrid or Jacobi preconditioned, inside the fused FEAST
+# core (the JAX package's off-TPU path, ``_sparse_hermitian_jit``).
+# --------------------------------------------------------------------------
+
+def _solver_fn(name):
+    if name in ("gmres", ":gmres", None):
+        return "gmres"
+    if name in ("bicgstab", ":bicgstab"):
+        return "bicgstab"
+    if name in ("cg", ":cg"):
+        raise ValueError(
+            "CG is not valid for FEAST shifted systems (z B - A is never "
+            "Hermitian positive definite for complex z); use gmres/bicgstab")
+    raise ValueError(f"Unknown iterative solver {name!r}")
+
+
+def _csr_matvec(A, X):
+    """A @ X for a torch CSR matrix and (N, K) or (g, N, K) X, real or
+    complex (through its real view): one sparse product on an (N, cols)
+    operand."""
+    shape = X.shape
+    Xr = torch.view_as_real(X.contiguous()) if X.is_complex() else X
+    Xr = Xr.reshape(*shape[:-1], -1)
+    if Xr.dim() == 3:
+        g, N, c = Xr.shape
+        Y = (A @ Xr.permute(1, 0, 2).reshape(N, g * c)).reshape(N, g, c)
+        Y = Y.permute(1, 0, 2).contiguous()
+    else:
+        Y = A @ Xr.contiguous()
+    if X.is_complex():
+        return torch.view_as_complex(Y.reshape(*shape, 2))
+    return Y
+
+
+def _make_apply(csr, dia, offsets):
+    """Matvec closure on (N, K) or (g, N, K) operands, real or complex
+    (counterpart of ``_make_apply``). An operator on at most 32 diagonals
+    applies through the DIA kernels (``ops/dia.py``; real diagonals times a
+    complex operand as one launch on its real view), a node group of one
+    through the unbatched entry; a wider one through a torch CSR product,
+    the counterpart of the JAX package's BCOO product."""
+    if offsets is None:
+        return lambda X: _csr_matvec(csr, X)
+
+    def apply(X):
+        X = X.contiguous()
+        if X.dim() == 3 and X.shape[0] == 1:
+            return dia_matvec_any(dia, offsets, X[0]).unsqueeze(0)
+        return dia_matvec_any(dia, offsets, X)
+    return apply
+
+
+def _unpack_stencil(mg):
+    """Hashable tuple -> GridStencil (see _pack_stencil); a packed tuple may
+    carry the planned V-cycle level count as a 4th element."""
+    if mg is None:
+        return None
+    disps, coeffs, grid = mg[:3]
+    return GridStencil(np.asarray(disps, np.int64), np.asarray(coeffs), grid)
+
+
+def _plan_mg(mg_A, mg_B, re_max, precond_base, user_precond):
+    """The multigrid decision (needs the search region's real upper edge
+    re_max): (precond, mg_A', mg_B') with the planned level count appended
+    to mg_A'. Falls back, with the JAX package's warning, to the
+    diagonal-dominance-based preconditioner when no feasible V-cycle
+    exists."""
+    if user_precond not in (None, "mg"):
+        return user_precond, None, None
+    if mg_A is not None:
+        n_lv = plan_mg_levels(_unpack_stencil(mg_A), _unpack_stencil(mg_B),
+                              re_max)
+        if n_lv is not None:
+            return "mg", mg_A + (int(n_lv),), mg_B
+    if user_precond == "mg":
+        warnings.warn(
+            "precond='mg' requested but no feasible multigrid hierarchy "
+            "exists for this operator/search region (operator is not a "
+            "constant tensor-grid stencil, or the shifted problem is too "
+            "indefinite for the coarse-grid budget); falling back",
+            RuntimeWarning)
+    return precond_base, None, None
+
+
+def _pack_stencil(st):
+    """GridStencil -> hashable nested tuples."""
+    if st is None:
+        return None
+    return (tuple(tuple(int(x) for x in d) for d in st.disps),
+            tuple(complex(c) if np.iscomplexobj(st.coeffs) else float(c)
+                  for c in st.coeffs),
+            tuple(st.grid))
+
+
+def _guess_grid(offsets, N):
+    """Candidate tensor-grid shapes for a DIA offset pattern (row-major),
+    largest dimension first; detect_grid_stencil validates."""
+    if offsets is None:
+        return []
+    pos = sorted({int(d) for d in offsets if d > 1})
+    cands = []
+    for s2 in pos:                                     # 3D: strides (s2*?, s2, s1)
+        for s1 in pos:
+            if s1 < s2 and s2 % s1 == 0 and N % s2 == 0 \
+                    and s2 // s1 >= 3 and N // s2 >= 3 and s1 >= 3:
+                cands.append((N // s2, s2 // s1, s1))
+    for s in pos:                                      # 2D: strides (s, 1)
+        if N % s == 0 and N // s >= 3 and s >= 3:
+            cands.append((N // s, s))
+    if not pos and all(abs(int(d)) <= 1 for d in offsets):
+        cands.append((N,))                             # 1D tridiagonal
+    return cands
+
+
+def _structured_forms(A_data, A_idx, B_data, B_idx, N, standard, dtype,
+                      grid=None):
+    """DIA structure, diagonals and preconditioner choice (host numpy):
+    (A_dia, offsets_A, B_dia, offsets_B, diagA, diagB, precond, mg_A,
+    mg_B), DIA arrays (nd, N) or (0, N) dummies with offsets None when
+    unstructured. precond is "jacobi" when A is diagonally dominant, else
+    "none"; constant stencils on a tensor grid (``grid`` given, or guessed
+    from the offsets) make multigrid available as packed stencils, which
+    ``_plan_mg`` then accepts or refuses for the search region."""
+    outA = bcoo_to_dia(A_data, A_idx, N)
+    A_dia, offsets_A = outA if outA else (np.zeros((0, N), dtype), None)
+    if standard:
+        B_dia, offsets_B = np.zeros((0, N), dtype), None
+    else:
+        outB = bcoo_to_dia(B_data, B_idx, N)
+        B_dia, offsets_B = outB if outB else (np.zeros((0, N), dtype), None)
+    maskA = A_idx[:, 0] == A_idx[:, 1]
+    diagA = np.zeros(N, dtype)
+    np.add.at(diagA, A_idx[maskA, 0], A_data[maskA])
+    if standard:
+        diagB = np.ones(N, dtype)
+    else:
+        maskB = B_idx[:, 0] == B_idx[:, 1]
+        diagB = np.zeros(N, dtype)
+        np.add.at(diagB, B_idx[maskB, 0], B_data[maskB])
+    # Jacobi only helps a diagonally dominant pencil (the shift only adds
+    # to the diagonal)
+    rowsum = np.zeros(N, np.float64)
+    np.add.at(rowsum, A_idx[:, 0], np.abs(A_data))
+    offdiag = rowsum - np.abs(diagA)
+    dominant = np.mean(np.abs(diagA) >= 0.5 * offdiag) > 0.9
+    precond = "jacobi" if dominant else "none"
+    mg_A = mg_B = None
+    if offsets_A is not None and (standard or offsets_B is not None):
+        cands = [tuple(int(g) for g in grid)] if grid is not None \
+            else _guess_grid(offsets_A, N)
+        for cand in cands:
+            stA = detect_grid_stencil(A_dia, offsets_A, cand)
+            if stA is None:
+                continue
+            if standard:
+                mg_A, mg_B = _pack_stencil(stA), None
+                break
+            stB = detect_grid_stencil(B_dia, offsets_B, cand)
+            if stB is not None:
+                mg_A, mg_B = _pack_stencil(stA), _pack_stencil(stB)
+                break
+    return (A_dia.astype(dtype), offsets_A, B_dia.astype(dtype), offsets_B,
+            diagA, diagB, precond, mg_A, mg_B)
+
+
+def _narrow_band(offsets, N, max_half_bw=16, max_n=16384):
+    """(kl, ku) when a DIA offset pattern fits the narrow band the JAX
+    package leaves to its banded direct engine, else None."""
+    if offsets is None or len(offsets) == 0:
+        return None
+    kl = max((-d for d in offsets if d < 0), default=0)
+    ku = max((d for d in offsets if d > 0), default=0)
+    if max(kl, ku) > max_half_bw or N > max_n:
+        return None
+    return int(kl), int(ku)
+
+
+def _contour_poly_default():
+    """The auto route's polynomial realization (FEAST_CONTOUR_POLY=0
+    restores the always-Krylov contour engine)."""
+    return os.environ.get("FEAST_CONTOUR_POLY", "1") not in ("0", "")
+
+
+def _col_sq(X):
+    return torch.linalg.vector_norm(X, dim=-2).square()
+
+
+def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
+                           solver_tol, solver_maxiter, solver_restart,
+                           diagA=None, diagB=None, precond="jacobi",
+                           col_block=None, flag_tol=None, mg_A=None,
+                           mg_B=None, mixed=False, apply_A_lo=None,
+                           apply_B_lo=None, ir_max=5, mg_opts=(2, 2, 0.8, 1),
+                           group_max=2, device="cpu", record=None):
+    """filter_partial(Z, W, rhs, Q, lam, tol_hint) -> (sum_e Re(W_e X_e),
+    conv) with X_e = (z_e B - A)^-1 rhs (counterpart of
+    ``_make_sparse_solve_all``).
+
+    The nodes are solved in groups of g = min(ne, group_max), each group
+    one batched solve on a (g, N, cols) carry (a group of one runs the
+    unbatched kernels: the JAX package's scan over nodes; a larger group is
+    its node-vmapped dispatch); the columns in chunks of ``col_block``,
+    zero-padded (the Krylov basis is (m+1) g N cols). Preconditioner
+    "mg" (a V-cycle per node from the packed stencils), "jacobi" or
+    "none". Mixed precision (``mixed``): complex64 Krylov on the
+    column-normalised residual inside an iterative refinement of the
+    complex128 iterate, a correction kept per column only where the true
+    residual fell, stopping after ``ir_max`` steps, at the target, or
+    after two consecutive steps with no column halving its residual (the
+    JAX package carries that iterate as (re, im) float64 pairs for the
+    TPU; the math is the same).
+
+    ``record`` (a list) receives one dict per Krylov call (op "gmres" or
+    "bicgstab", nodes, dtype, trips, restart) and per batch of shifted
+    applications outside one (op "shift", nodes, dtype, count): the
+    solve's accounting of its operator applications
+    (:func:`krylov_dia_launches`)."""
+
+    def note(**ev):
+        if record is not None:
+            record.append(ev)
+
+    def apply_shift(z, X):
+        BX = X if standard else apply_B_c(X)
+        return z[:, None, None] * BX - apply_A_c(X)
+
+    def apply_shift_lo(z_lo, X):
+        BX = X if standard else apply_B_lo(X)
+        return z_lo[:, None, None] * BX - apply_A_lo(X)
+
+    # the attainable c64 GMRES floor is ~eps_c64 kappa ~ 1e-5: aim there
+    # and let the refinement steps multiply the accuracy
+    lo_tol = max(float(solver_tol), 2e-5) if mixed else float(solver_tol)
+
+    def _eff_tol(tol_hint):
+        """The hint clamped to [solver_tol, max(solver_tol,
+        VERIFY_FILTER_TOL)]."""
+        if tol_hint is None:
+            return float(solver_tol)
+        hi = max(float(solver_tol), VERIFY_FILTER_TOL)
+        return float(min(max(float(tol_hint), float(solver_tol)), hi))
+
+    # the refinement's inner solves keep their restart within the
+    # iteration budget (the JAX package's pair path does the same)
+    restart = min(int(solver_restart), int(solver_maxiter)) if mixed \
+        else int(solver_restart)
+
+    def krylov(apply_op, rhs, tol, prec, x0=None):
+        if solver == "gmres":
+            X, info = gmres_block(apply_op, rhs, tol=tol, restart=restart,
+                                  maxiter=solver_maxiter, apply_prec=prec,
+                                  x0=x0, flag_tol=flag_tol)
+        else:
+            X, info = bicgstab_block(apply_op, rhs, tol=tol,
+                                     maxiter=solver_maxiter,
+                                     apply_prec=prec, x0=x0,
+                                     flag_tol=flag_tol)
+        note(op=solver, nodes=rhs.shape[0], dtype=str(rhs.dtype),
+             trips=info.trips, restart=restart)
+        return X, info
+
+    def _guard_guess(X0g, rhs, apply_fn):
+        """Keep a warm-start guess per column only where it beats the zero
+        iterate (one operator application)."""
+        R0 = rhs - apply_fn(X0g)
+        note(op="shift", nodes=X0g.shape[0], dtype=str(X0g.dtype), count=1)
+        n_g2, n_b2 = _col_sq(R0), _col_sq(rhs)
+        good = n_g2 < n_b2
+        return (torch.where(good[:, None, :], X0g, 0.0),
+                torch.sqrt(torch.minimum(n_g2, n_b2)))
+
+    def solve_cols(z, rhs, prec, X0g=None, tol_hint=None):
+        """The g nodes' shifted solves on one column chunk: (X (g, N, K),
+        conv (g, K))."""
+        g = z.shape[0]
+        rhs = rhs.expand(g, *rhs.shape)
+        tol_eff = _eff_tol(tol_hint)
+        if not mixed:
+            x0 = None
+            if X0g is not None:
+                x0, _ = _guard_guess(X0g, rhs, lambda V: apply_shift(z, V))
+            X, info = krylov(lambda V: apply_shift(z, V), rhs, tol_eff,
+                             prec, x0=x0)
+            return X, info.converged
+        hi, lo = rhs.dtype, torch.complex64
+        z_lo = z.to(lo)
+        nrm = torch.sqrt(_col_sq(rhs))
+        scale = torch.clamp(nrm, min=1.0)
+        target = tol_eff * scale
+        lo_eff = lo_tol if tol_hint is None else max(tol_eff, 2e-5)
+        X, rn = torch.zeros_like(rhs), nrm
+        if X0g is not None:
+            X, rn = _guard_guess(X0g, rhs, lambda V: apply_shift(z, V))
+        stall = torch.zeros(g, dtype=torch.int64, device=rhs.device)
+        go = torch.any(rn > target, dim=-1) & (ir_max > 0)
+        it = 0
+        while bool(go.any()):
+            R = rhs - apply_shift(z, X)
+            safe = torch.where(rn > 0, rn, 1.0)[:, None, :]
+            dX, _ = krylov(lambda V: apply_shift_lo(z_lo, V),
+                           (R / safe).to(lo), lo_eff, prec)
+            del R
+            X_new = X + dX.to(hi) * safe
+            del dX
+            rn_new = torch.sqrt(_col_sq(rhs - apply_shift(z, X_new)))
+            note(op="shift", nodes=g, dtype=str(hi), count=2)
+            improved = rn_new < rn
+            X_upd = torch.where(improved[:, None, :], X_new, X)
+            rn_best = torch.minimum(rn_new, rn)
+            # two consecutive < 2x steps before giving up (one is legal
+            # near-breakdown behaviour of the c64 inner solve)
+            stalled = ~torch.any(rn_new < 0.5 * rn, dim=-1)
+            stall_new = torch.where(stalled, stall + 1, 0)
+            go_new = ((it + 1 < ir_max) & torch.any(rn_best > target, dim=-1)
+                      & (stall_new < 2))
+            X = torch.where(go[:, None, None], X_upd, X)
+            rn = torch.where(go[:, None], rn_best, rn)
+            stall = torch.where(go, stall_new, stall)
+            go = go & go_new
+            it += 1
+        cert = max(tol_eff, flag_tol) if flag_tol is not None else tol_eff
+        return X, rn <= 10.0 * cert * scale
+
+    stA, stB = _unpack_stencil(mg_A), _unpack_stencil(mg_B)
+    mg_n_levels = mg_A[3] if (mg_A is not None and len(mg_A) > 3) else None
+    nu_pre, nu_post, mg_omega, mg_cycles = mg_opts
+    dA_t = None if diagA is None else torch.as_tensor(diagA).to(device)
+    dB_t = None if (diagB is None or standard) else \
+        torch.as_tensor(diagB).to(device)
+
+    def node_prec(z):
+        """The preconditioner of the g nodes of shifts z (g,)."""
+        dt = torch.complex64 if mixed else z.dtype
+        if precond == "mg" and stA is not None:
+            return make_shifted_vcycle(
+                stA, stB, z.to(dt), dtype=dt, n_levels=mg_n_levels,
+                nu_pre=nu_pre, nu_post=nu_post, omega=mg_omega,
+                n_cycles=mg_cycles, device=device)
+        if precond == "jacobi" and dA_t is not None:
+            zc = z.to(dt)[:, None]
+            dshift = (zc - dA_t.to(dt)) if dB_t is None \
+                else (zc * dB_t.to(dt) - dA_t.to(dt))
+            dsafe = torch.where(dshift.abs() > 1e-30, dshift, 1.0)[:, :, None]
+            return lambda X: X / dsafe
+        return None
+
+    def _chunked(solve_fn, rhs, aux=None):
+        """solve_fn over column chunks of rhs (N, K) (and of aux (g, N, K),
+        the warm-start guesses), the last chunk zero-padded to col_block
+        (a zero column is done at once under the per-column flags)."""
+        K = rhs.shape[1]
+        cb = col_block if (col_block and col_block < K) else None
+        if cb is None:
+            return solve_fn(rhs, aux)
+        outs, convs = [], []
+        for c0 in range(0, K, cb):
+            w = min(cb, K - c0)
+            r = torch.zeros((rhs.shape[0], cb), dtype=rhs.dtype,
+                            device=rhs.device)
+            r[:, :w] = rhs[:, c0:c0 + w]
+            a = None
+            if aux is not None:
+                a = torch.zeros(aux.shape[:-1] + (cb,), dtype=aux.dtype,
+                                device=aux.device)
+                a[..., :w] = aux[..., c0:c0 + w]
+            X, conv = solve_fn(r, a)
+            outs.append(X[..., :w])
+            convs.append(conv[..., :w])
+            del X, r, a
+        return torch.cat(outs, dim=-1), torch.cat(convs, dim=-1)
+
+    def filter_partial(Z, W, rhs, Q=None, lam=None, tol_hint=None):
+        """Z, W: (ne,) complex node and weight tensors; rhs (N, K) complex.
+        Q, lam: optional Ritz warm-start data (per node the guess is
+        Q diag(1/(z - lam)), guarded per column); tol_hint: optional
+        adaptive inner tolerance for every node's solve."""
+        warm = Q is not None and lam is not None
+        ne = Z.shape[0]
+        g = max(1, min(ne, int(group_max)))
+        acc = torch.zeros(rhs.shape, dtype=rhs.real.dtype, device=rhs.device)
+        convs = []
+        for b0 in range(0, ne, g):
+            zg, wg = Z[b0:b0 + g], W[b0:b0 + g]
+            prec = node_prec(zg)
+            X0g = None
+            if warm:
+                s = 1.0 / (zg[:, None] - lam.to(rhs.dtype)[None, :])
+                X0g = Q.to(rhs.dtype)[None] * s[:, None, :]
+            X, conv = _chunked(
+                lambda b, a: solve_cols(zg, b, prec, X0g=a,
+                                        tol_hint=tol_hint), rhs, X0g)
+            del X0g
+            for i in range(zg.shape[0]):        # the JAX package's order
+                acc += (wg[i] * X[i]).real
+            convs.append(conv.reshape(-1))
+            del X
+        return acc, torch.all(torch.cat(convs))
+
+    return filter_partial
+
+
+def _sparse_ops(A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
+                Zne, Wne, *, N, config, standard, solver, solver_tol,
+                solver_maxiter, solver_restart, offsets_A, offsets_B,
+                precond, mg_A=None, mg_B=None, device, f64, record=None):
+    """(apply_A, apply_B, filter_apply) of the Krylov engine for a real
+    symmetric pencil (counterpart of ``_sparse_ops``): the operators on the
+    solve's device (DIA kernels or CSR), the half-contour filter
+    filter_apply(Q, lam, tol_hint) = (Re sum_e 2 W_e (z_e B - A)^-1 B Q,
+    all inner solves converged), with the Ritz warm start and the adaptive
+    inner tolerance as ``FeastConfig`` has them."""
+    rdt = torch.float64 if f64 else torch.float32
+    cdt = torch.complex128 if f64 else torch.complex64
+    mixed = _mixed_enabled(config, device, f64)
+
+    def operator(data, idx, dia, offsets, dtype):
+        if offsets is not None:
+            return _make_apply(None, torch.as_tensor(dia).to(
+                device=device, dtype=dtype), offsets)
+        with warnings.catch_warnings():    # "CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            idx = np.asarray(idx, np.int64)
+            csr = torch.sparse_coo_tensor(
+                torch.as_tensor(idx.T), torch.as_tensor(data, dtype=dtype),
+                (N, N)).coalesce().to_sparse_csr().to(device)
+        return _make_apply(csr, None, None)
+
+    def counted(apply, name):
+        """The real operator, its applications noted in ``record`` (the
+        Rayleigh-Ritz, residual and right-hand-side products)."""
+        if record is None:
+            return apply
+
+        def apply_counted(X):
+            record.append(dict(op="apply", operator=name, nodes=1,
+                               dtype=str(X.dtype), count=1))
+            return apply(X)
+        return apply_counted
+
+    # the shifted solves take the operators as they are (their Krylov
+    # calls are recorded as a whole); the core and the filter's right-hand
+    # side take the counted ones
+    apply_A_c = operator(A_data, A_idx, A_dia, offsets_A, rdt)
+    apply_A = counted(apply_A_c, "A")
+    apply_A_lo = (operator(A_data, A_idx, A_dia, offsets_A, torch.float32)
+                  if mixed else None)
+    apply_B_c = apply_B_lo = None
+    if standard:
+        def apply_B(X):
+            return X
+    else:
+        apply_B_c = operator(B_data, B_idx, B_dia, offsets_B, rdt)
+        apply_B = counted(apply_B_c, "B")
+        if mixed:
+            apply_B_lo = operator(B_data, B_idx, B_dia, offsets_B,
+                                  torch.float32)
+    # bound the Krylov memory: (restart+1) N cols at the Krylov itemsize
+    # (complex64 under mixed precision), <= ~1.5 GB (the JAX package's
+    # rule, per node)
+    itemsize = 8 if mixed else (16 if f64 else 8)
+    budget_cols = max(1, int(1.5e9 / (itemsize * (solver_restart + 1) * N)))
+    col_block = max(8, 1 << int(np.log2(budget_cols))) \
+        if budget_cols < 4096 else None
+    filter_partial = _make_sparse_solve_all(
+        apply_A_c, apply_B_c, standard, solver=solver,
+        solver_tol=solver_tol, solver_maxiter=solver_maxiter,
+        solver_restart=solver_restart, diagA=diagA,
+        diagB=None if standard else diagB, precond=precond,
+        col_block=col_block, flag_tol=config.tol, mg_A=mg_A, mg_B=mg_B,
+        mixed=mixed, apply_A_lo=apply_A_lo, apply_B_lo=apply_B_lo,
+        ir_max=config.ir_max,
+        mg_opts=(config.mg_nu_pre, config.mg_nu_post, config.mg_omega,
+                 config.mg_cycles),
+        group_max=config.group_max, device=device, record=record)
+    Z = torch.as_tensor(np.asarray(Zne), dtype=cdt, device=device)
+    W2 = 2.0 * torch.as_tensor(np.asarray(Wne), dtype=cdt, device=device)
+
+    def filter_apply(Q, lam=None, tol_hint=None):
+        acc, ok = filter_partial(Z, W2, apply_B(Q).to(cdt), Q=Q, lam=lam,
+                                 tol_hint=tol_hint)
+        return acc.to(Q.dtype), ok
+
+    filter_apply.takes_ritz = bool(config.warm_start)
+    filter_apply.takes_tol = bool(config.adaptive_inner_tol)
+    filter_apply.col_block = col_block
+    return apply_A, apply_B, filter_apply
+
+
+def _sparse_krylov_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
+                            solver, solver_tol, solver_maxiter,
+                            solver_restart, Q0, grid, precond, auto_inner,
+                            device) -> FeastResult:
+    """The Krylov tail of ``sparse_feast_interval`` for real symmetric
+    pencils: structure detection, the preconditioner plan, the inner
+    tolerance default (0.02 tol, floored at 10 eps), the contour, the
+    seeded subspace and the FEAST core around the Krylov filter."""
+    is_complex = np.iscomplexobj(_peek_dtype(A)) or (
+        B is not None and np.iscomplexobj(_peek_dtype(B)))
+    if is_complex and hermitian is not False:
+        raise _not_ported("the complex Hermitian sparse path", 6)
+    # real data declared Hermitian is the same math on the real path (as
+    # the JAX package runs it where complex128 is unavailable)
+    f64 = _is_double(_peek_dtype(A).dtype)
+    rdtype = np.float64 if f64 else np.float32
+    cdtype = np.complex128 if f64 else np.complex64
+    A_data, A_idx, shape = sparse_coo_arrays(A, rdtype)
+    N = shape[0]
+    standard = B is None
+    if standard:
+        B_data, B_idx = A_data, A_idx
+    else:
+        B_data, B_idx, _ = sparse_coo_arrays(B, rdtype)
+    if not 0 < M0 <= N:
+        raise ValueError(f"M0 must be in 1..N={N}, got {M0}")
+    if not Emax > Emin:
+        raise ValueError(f"Emin={Emin} must be < Emax={Emax}")
+    (A_dia, offsets_A, B_dia, offsets_B, diagA, diagB, precond_auto, mg_A,
+     mg_B) = _structured_forms(A_data, A_idx, B_data, B_idx, N, standard,
+                               rdtype, grid=grid)
+    if auto_inner and grid is None:
+        bwA = _narrow_band(offsets_A, N)
+        bwB = (0, 0) if standard else _narrow_band(offsets_B, N)
+        if bwA is not None and bwB is not None:
+            raise _not_ported("the narrow-band pencil delegation to the "
+                              "banded BCR engine", 11)
+    precond, mg_A, mg_B = _plan_mg(mg_A, mg_B, float(Emax), precond_auto,
+                                   precond)
+    config = FeastConfig.from_fpm(fpm, dtype=cdtype)
+    if solver_tol is None:
+        # the refinement floor sits ~10x above the inner target; 0.02x
+        # leaves the converged residual safely below tol
+        solver_tol = max(config.tol * 0.02,
+                         10 * float(np.finfo(rdtype).eps))
+    from ..core.aux import feast_get_custom_contour
+    contour = feast_get_custom_contour(fpm) or feast_contour(Emin, Emax, fpm)
+    q0_np = initial_subspace(fpm, Q0, N, M0, rdtype)
+    if config.mode == 2:
+        raise _not_ported("the stochastic eigenvalue count fpm[14]=2", 16)
+    record = []
+    apply_A, apply_B, filter_apply = _sparse_ops(
+        A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
+        contour.Zne, contour.Wne, N=N, config=config, standard=standard,
+        solver=solver, solver_tol=float(solver_tol),
+        solver_maxiter=int(solver_maxiter),
+        solver_restart=int(solver_restart), offsets_A=offsets_A,
+        offsets_B=offsets_B, precond=precond, mg_A=mg_A, mg_B=mg_B,
+        device=device, f64=f64, record=record)
+    if config.print_level >= 1:
+        print(f"feast krylov: solver={solver} precond={precond}"
+              + (f" ({mg_A[3]} levels)" if precond == "mg" else "")
+              + f" solver_tol={float(solver_tol):.2e} "
+              f"restart={int(solver_restart)} "
+              f"maxiter={int(solver_maxiter)} "
+              f"col_block={filter_apply.col_block} "
+              f"group={max(1, min(contour.ne, config.group_max))} "
+              f"mixed={_mixed_enabled(config, device, f64)}", flush=True)
+    state = feast_hermitian_core(
+        apply_A, apply_B, filter_apply,
+        torch.as_tensor(q0_np).to(device), float(Emin), float(Emax),
+        tol=config.tol, max_loops=config.max_loops,
+        convergence_criterion=config.convergence_criterion,
+        subspace_only=(config.mode == 1))
+    info = FeastError.SUCCESS if bool(state.converged) \
+        else FeastError.NO_CONVERGENCE
+    result = _trim(FeastResult, state.lam.cpu().numpy(), state.Q,
+                   state.res.cpu().numpy(), state.inside.cpu().numpy(),
+                   int(info), float(state.epsout), int(state.loop) - 1,
+                   inner_ok=bool(state.inner_ok))
+    result.krylov = dict(solver=solver, precond=precond,
+                         mg_levels=mg_A[3] if precond == "mg" else None,
+                         restart=int(solver_restart), standard=standard,
+                         a_dia=offsets_A is not None,
+                         b_dia=offsets_B is not None, events=record)
+    return result
+
+
+DIA_ENTRIES = ("dia_matvec_f32", "dia_matvec_f64", "dia_matvec_batched_f32",
+               "dia_matvec_batched_f64")
+
+
+def krylov_dia_launches(krylov) -> dict:
+    """The DIA kernel launches per entry that a Krylov solve's own record
+    (``FeastResult.krylov``) implies: a GMRES call of t restart cycles of
+    length m applies its shifted operator 2 + t (m + 2) times (the initial
+    residual, per cycle the cycle's residual, m Arnoldi steps and the
+    candidate's residual, then the re-verification), a BiCGStab call of t
+    steps 2 + 2 t times; a shifted application is one launch per operator
+    on the DIA kernels (A, and B for a generalized pencil), on the batched
+    entry for a node group and on the unbatched one for a single node, in
+    the Krylov call's precision (complex64 -> the f32 entry, complex128 ->
+    fp64). The operators' applications outside the filter (Rayleigh-Ritz,
+    residuals, B times the subspace) are one unbatched launch each."""
+    want = dict.fromkeys(DIA_ENTRIES, 0)
+    on_dia = {"A": int(krylov["a_dia"]), "B": int(krylov["b_dia"])}
+    per_shift = on_dia["A"] + (0 if krylov["standard"] else on_dia["B"])
+    for ev in krylov["events"]:
+        single = ev["dtype"] in ("torch.complex64", "torch.float32")
+        name = ("dia_matvec_batched_" if ev["nodes"] > 1 else "dia_matvec_") \
+            + ("f32" if single else "f64")
+        if ev["op"] == "gmres":
+            n = per_shift * (2 + ev["trips"] * (ev["restart"] + 2))
+        elif ev["op"] == "bicgstab":
+            n = per_shift * (2 + 2 * ev["trips"])
+        elif ev["op"] == "shift":
+            n = per_shift * ev["count"]
+        else:
+            n = on_dia[ev["operator"]] * ev["count"]
+        want[name] += n
+    return want
+
+
 def sparse_feast_interval(A, B, Emin, Emax, M0, fpm=None, *, hermitian=None,
-                          solver=None, Q0=None, device=None) -> FeastResult:
+                          solver=None, solver_tol=None, solver_maxiter=None,
+                          solver_restart=30, Q0=None, grid=None,
+                          precond=None, device=None) -> FeastResult:
     """Sparse symmetric interval driver (counterpart of the JAX package's
-    ``sparse_feast_interval``): ``solver=None`` takes the auto route,
-    ``"cheb"`` the indicator filter, ``"contour_poly"`` the rational
-    contour filter as a polynomial. ``device=None`` means CUDA."""
+    ``sparse_feast_interval``). ``solver=None`` takes the auto route: the
+    polynomial realization of the contour filter (or the indicator when
+    cheaper); a configuration it cannot resolve falls back, for
+    N > FEAST_SPARSE_DENSE_N (default 2048), to the Krylov contour engine.
+    ``"cheb"`` runs the indicator filter, ``"contour_poly"`` the rational
+    contour filter as a polynomial, ``"gmres"`` / ``"bicgstab"`` the Krylov
+    contour engine (as do fpm[43] = 1, the IFEAST options, and
+    ``FEAST_CONTOUR_POLY=0``), with ``solver_tol`` (default 0.02 tol),
+    ``solver_maxiter`` (default 500), ``solver_restart``, ``precond``
+    ("mg", "jacobi", "none"; default: multigrid where the operands are
+    grid stencils and a V-cycle is feasible) and ``grid`` (the tensor grid
+    of the stencil, else guessed from the offsets). ``device=None`` means
+    CUDA."""
     device = resolve_device(device)
     fpm = _ensure_fpm(fpm)
     from ..core.aux import feast_get_custom_contour
@@ -751,22 +1400,39 @@ def sparse_feast_interval(A, B, Emin, Emax, M0, fpm=None, *, hermitian=None,
         return _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm,
                                      hermitian=hermitian, Q0=Q0,
                                      device=device, contour=contour_r)
-    if solver is not None:
-        raise _not_ported(f"solver={solver!r} (the Krylov contour engine)",
-                          10)
-    if _quick_narrow_band(A, B):
-        raise _not_ported("the narrow-band pencil delegation to the banded "
-                          "BCR engine", 11)
-    contour_r = (feast_get_custom_contour(fpm)
-                 or feast_contour(Emin, Emax, fpm))
-    try:
-        return _sparse_cheb_interval(
-            A, B, Emin, Emax, M0, fpm, hermitian=hermitian, Q0=Q0,
-            device=device, contour=contour_r, route=True)
-    except ChebInfeasible as e:
-        raise _not_ported(
-            f"this configuration leaves the polynomial route ({e}); its "
-            "dense-engine (item 9) or Krylov-engine fallback", 10) from e
+    iopts = ifeast_solver_options(fpm) or {}
+    # nothing pinned the inner solve to an iterative method: the narrow-
+    # band delegation stays available
+    auto_inner = (solver is None and not iopts and solver_tol is None
+                  and solver_maxiter is None and precond is None)
+    if auto_inner and grid is None and _contour_poly_default() \
+            and not _quick_narrow_band(A, B):
+        contour_r = (feast_get_custom_contour(fpm)
+                     or feast_contour(Emin, Emax, fpm))
+        try:
+            return _sparse_cheb_interval(
+                A, B, Emin, Emax, M0, fpm, hermitian=hermitian, Q0=Q0,
+                device=device, contour=contour_r, route=True)
+        except ChebInfeasible as e:
+            n = A.shape[0]
+            if n <= int(os.environ.get("FEAST_SPARSE_DENSE_N", "2048")):
+                raise _not_ported(
+                    f"this configuration leaves the polynomial route ({e}) "
+                    f"at N={n} <= FEAST_SPARSE_DENSE_N; its densified "
+                    "dense-engine fallback", 9) from e
+            if int(fpm[1]) >= 1:
+                print(f"feast sparse: contour-polynomial route "
+                      f"unavailable ({e}); using the Krylov contour "
+                      f"engine", flush=True)
+    return _sparse_krylov_interval(
+        A, B, Emin, Emax, M0, fpm, hermitian=hermitian,
+        solver=_solver_fn(solver or iopts.get("solver", "gmres")),
+        solver_tol=(solver_tol if solver_tol is not None
+                    else iopts.get("solver_tol")),
+        solver_maxiter=(solver_maxiter if solver_maxiter is not None
+                        else iopts.get("solver_maxiter", 500)),
+        solver_restart=solver_restart, Q0=Q0, grid=grid, precond=precond,
+        auto_inner=auto_inner, device=device)
 
 
 def feast_scsrev(A, Emin, Emax, M0, fpm=None, **kw) -> FeastResult:

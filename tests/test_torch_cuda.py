@@ -1,9 +1,10 @@
 """PyTorch port on the card: CUDA kernels against their plain versions.
 
-The Chebyshev step kernels (row-major, column-major, 2- and 4-step) and the
-combine of the SPD-B composite, each against its plain version at small
-shapes, and a standard and a consistent-mass solve on the card against the
-same solve on the CPU. Needs a CUDA device and nvcc; elsewhere every test
+The Chebyshev step kernels (row-major, column-major, 2- and 4-step), the
+combine of the SPD-B composite and the DIA matvec entries, each against its
+plain version at small shapes; what a CUDA entry refuses; and a standard, a
+consistent-mass and a Krylov (GMRES with multigrid) solve on the card
+against the same solve on the CPU. Needs a CUDA device and nvcc; elsewhere every test
 here skips. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda.py`` (this file imports no
 JAX, so it runs where only the port is installed). The full device check,
@@ -225,5 +226,106 @@ def test_consistent_mass_on_cuda_matches_cpu():
                  "cheb_combine_f64", "cheb_step4_f32", "cheb_step4_f64"):
         assert counts[name] > 0, name
     assert counts["cheb_step_f32"] == counts["cheb_step_f64"] == 0
+    assert np.abs(np.sort(rg.lam) - np.sort(rc.lam)).max() <= 1e-8
+    assert rg.res.max() <= 1e-8
+
+
+_DIA = [("dia_matvec_f32", torch.float32, 1e-5, False),
+        ("dia_matvec_f64", torch.float64, 1e-13, False),
+        ("dia_matvec_batched_f32", torch.float32, 1e-5, True),
+        ("dia_matvec_batched_f64", torch.float64, 1e-13, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,tol,batched", _DIA)
+@pytest.mark.parametrize("N,offs,M,g", [
+    (1073, (-37, -1, 0, 1, 37), 11, 2), (100, (-60, -1, 0, 1, 60), 1, 3),
+    (1089, (-40, -33, -7, -2, -1, 0, 1, 2, 7, 33, 40), 7, 1),
+    (64, (0,), 128, 2)])
+def test_dia_matvec_matches_plain(name, dtype, tol, batched, N, offs, M, g):
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    rng = np.random.default_rng(N + M)
+    d = np.zeros((len(offs), N))
+    for k, o in enumerate(offs):
+        d[k, max(0, -o):N - max(0, o)] = rng.random(N - abs(o)) - 0.5
+    d = torch.as_tensor(d, dtype=dtype).cuda()
+    x = torch.as_tensor(rng.standard_normal((g, N, M) if batched
+                                            else (N, M)), dtype=dtype).cuda()
+    wrapper = getattr(D, name)
+    before = wrapper.launches
+    y = wrapper(d, offs, x)
+    yp = D.dia_matvec_plain(d, offs, x)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape and y.is_cuda
+    assert float((y - yp).abs().max() / yp.abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_dia_matvec_any_complex_is_one_launch():
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    N, offs = 1073, (-37, -1, 0, 1, 37)
+    rng = np.random.default_rng(1)
+    d = torch.as_tensor(rng.random((5, N)), dtype=torch.float32).cuda()
+    x = torch.as_tensor(rng.standard_normal((2, N, 6))
+                        + 1j * rng.standard_normal((2, N, 6)),
+                        dtype=torch.complex64).cuda()
+    before = D.launch_counts()
+    y = D.dia_matvec_any(d, offs, x)
+    after = D.launch_counts()
+    assert after["dia_matvec_batched_f32"] == \
+        before["dia_matvec_batched_f32"] + 1
+    yp = torch.complex(D.dia_matvec_plain(d, offs, x.real.contiguous()),
+                       D.dia_matvec_plain(d, offs, x.imag.contiguous()))
+    assert float((y - yp).abs().max() / yp.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dtype", "non_contiguous", "cpu_tensor"])
+def test_dia_cuda_entry_refuses(case):
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    N, offs = 50, (-1, 0, 1)
+    d = torch.ones(3, N, dtype=torch.float64).cuda()
+    x = torch.zeros(N, 3, dtype=torch.float64).cuda()
+    before = D.dia_matvec_f64.launches
+    if case == "dtype":
+        with pytest.raises(TypeError):
+            D.dia_matvec_f32(d, offs, x)
+    elif case == "non_contiguous":
+        with pytest.raises(ValueError, match="contiguous"):
+            D.dia_matvec_f64(d, offs, torch.zeros(3, N, dtype=torch.float64)
+                             .cuda().t())
+    else:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            D._launch(D.dia_matvec_f64, d.cpu(), offs, x.cpu(), False)
+    assert D.dia_matvec_f64.launches == before
+
+
+@pytest.mark.cuda
+def test_krylov_feast_on_cuda_matches_cpu():
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    from feastkit_tpu_torch.solvers.sparse import krylov_dia_launches
+    nx = 32
+    Dx = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    A = (sp.kron(Dx, sp.eye(nx)) + sp.kron(sp.eye(nx), Dx)).tocsr()
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    D.reset_launch_counts()
+    rg = ft.feast(A, None, (0.001, 0.2), 24, fpm, solver="gmres")
+    counts = D.launch_counts()
+    rc = ft.feast(A, None, (0.001, 0.2), 24, fpm, solver="gmres",
+                  device="cpu")
+    assert rg.q.is_cuda and rg.info == 0 and rg.M == rc.M > 0
+    assert rg.krylov["precond"] == "mg"
+    # mixed precision on CUDA: the c64 Krylov on the batched f32 entry,
+    # the refinement on the fp64 one, Rayleigh-Ritz on the unbatched fp64
+    assert counts == krylov_dia_launches(rg.krylov)
+    for name in ("dia_matvec_batched_f32", "dia_matvec_batched_f64",
+                 "dia_matvec_f64"):
+        assert counts[name] > 0, name
     assert np.abs(np.sort(rg.lam) - np.sort(rc.lam)).max() <= 1e-8
     assert rg.res.max() <= 1e-8

@@ -552,15 +552,25 @@ def test_refusals_carry_the_reference_message(case, match):
 
 
 @pytest.mark.parametrize("case", ["indefinite", "nonsymmetric"])
-def test_auto_route_refusal_names_the_krylov_item(case):
+def test_auto_route_refusal_names_the_krylov_item(case, monkeypatch):
     A, B, _ = _refusal_case(case)
     # a 2D-width band keeps the pencil off the narrow-band delegation
     A = sp.kron(sp.eye(2), A).tocsr() + sp.diags(
         [np.ones(50), np.ones(50)], [-50, 50], shape=(100, 100))
     B = sp.kron(sp.eye(2), B).tocsr()
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    # at N <= FEAST_SPARSE_DENSE_N the JAX package densifies onto its dense
+    # engine, which is not ported (item 9)
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         ft.sparse_feast_interval(A, B, 0.0, 1.0, 8, ft.feastinit(),
                                  device="cpu")
+    # above it the route falls back to the Krylov contour engine (item 10)
+    monkeypatch.setenv("FEAST_SPARSE_DENSE_N", "50")
+    seen = []
+    monkeypatch.setattr(port_sparse, "_sparse_krylov_interval",
+                        lambda *a, **k: seen.append(k["solver"]) or "krylov")
+    assert ft.sparse_feast_interval(A, B, 0.0, 1.0, 8, ft.feastinit(),
+                                    device="cpu") == "krylov"
+    assert seen == ["gmres"]
 
 
 # ------------------------------------------------- (h) determinism
