@@ -5,32 +5,41 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py           # every phase (about a few minutes)
     python3 chip_smoke.py --quick   # phases 1-3c: build and check kernels
     python3 chip_smoke.py --krylov-solve 9   # one Krylov solve at P = 9
+    python3 chip_smoke.py --stream-sweep     # block shapes and bodies of the
+                                             # streamed 4-step kernel, timed
 
 Phases, each printed before the last line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of every kernel from feastkit_tpu_torch/ops/csrc with nvcc
      (sm_90a), one nvcc per source, all started together, and its time
-     (with cheb_multistep.cu built a second time with the run-time
-     diagonal count only, for phase 3b);
+     (with cheb_multistep.cu and cheb_stream4.cu built a second time with
+     the run-time diagonal count only, for phase 3b);
   3. each of the six kernels against its plain PyTorch version on the card,
      at the main path's shapes (2D Laplacian P=10: N = 1,048,576, M = 72,
      five diagonals; 8 steps for the 1-step kernels, two consecutive passes
      for the 2- and 4-step kernels, so their output pair is read back as
      the next input pair) and at awkward shapes (M = 11, 1, 40; N not a
      multiple of any tile; |offset| = nx; one operator whose S max|offset|
-     exceeds N, so every halo is clipped at both ends; operators with 3
-     and with 11 diagonals); T outputs and acc,
+     exceeds N, so every halo is clipped at both ends; operators with 3,
+     7 and 11 diagonals); T outputs and acc,
      tolerance relative to max|acc|: f32 1e-5, fp64 1e-13. Then each
      kernel's time per launch and per step, its plain version's time, the
-     bound, and a torch.sparse.mm (CSR) matvec for scale; and the
-     Rayleigh-Ritz update's time at the main path's shapes;
+     bound, and a torch.sparse.mm (CSR) matvec for scale; the streamed
+     cheb_step4_f32 (cheb_stream4.cu) and the tiled body of the same pass
+     (cheb_step4_f32_tiled, cheb_multistep.cu; checked against the plain
+     version too) timed in turns (streamed, tiled, tiled, streamed) at the
+     main shapes, with the bound and each plan's reckoned L2 bytes per
+     element; and the Rayleigh-Ritz update's time at the main path's
+     shapes;
   3b. the SPD-B composite's kernels (the column-major one-step entries
      cheb_step_cm_f32/f64 and the combine cheb_combine_f32/f64) against
      their plain versions at the P=8 consistent-mass shapes (N = 65,536,
      M = 72, the nine-diagonal B~) and at awkward shapes, same
      tolerances, and their times; and the 2- and 4-step kernels on the
      nine-diagonal operator with the ND = 9 instantiation and with the
-     run-time-count body, each checked and timed;
+     run-time-count body, each checked and timed (the four-step f32 pass
+     also through the tiled body and its run-time-count body, timed for
+     comparison);
   3c. the DIA matvec kernels of ops/csrc/dia_matvec.cu (dia_matvec_f32/f64
      and dia_matvec_batched_f32/f64) against their plain version at the
      Krylov path's P=8 shapes (N = 65,536, five diagonals: fp64 M = 72,
@@ -93,6 +102,7 @@ exits nonzero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -226,6 +236,7 @@ def phase_card():
 
 
 RUNTIME_COUNT_ONLY = ("-DCHEB_RUNTIME_COUNT_ONLY",)
+MULTISTEP_SOURCES = ("cheb_multistep", "cheb_stream4")
 
 
 def phase_build():
@@ -233,15 +244,15 @@ def phase_build():
     sources = sorted(p.stem for p in cuda_build.SRC_DIR.glob("*.cu"))
     # every source, and the multi-step kernels with the run-time diagonal
     # count only (timed against the nine-diagonal instantiation, phase 3)
-    builds = [(name, ()) for name in sources] + [("cheb_multistep",
-                                                  RUNTIME_COUNT_ONLY)]
+    builds = [(name, ()) for name in sources] + [
+        (name, RUNTIME_COUNT_ONLY) for name in MULTISTEP_SOURCES]
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:    # one nvcc per build
         list(pool.map(lambda b: cuda_build.build(*b), builds))
     dt = time.perf_counter() - t0
-    print(f"== 2. built {sources} and cheb_multistep {RUNTIME_COUNT_ONLY} "
-          f"for sm_90a in {dt:.2f} s", flush=True)
+    print(f"== 2. built {sources} and {MULTISTEP_SOURCES} with "
+          f"{RUNTIME_COUNT_ONLY} for sm_90a in {dt:.2f} s", flush=True)
     return dt
 
 
@@ -258,7 +269,7 @@ KERNELS = {   # name -> (steps per launch, source, TPU kernel it replaces)
                          "feastkit_tpu/ops/cheb_pallas.py:990"),
     "cheb_step2_f32": (2, "cheb_multistep.cu",
                        "feastkit_tpu/ops/cheb_pallas.py:749"),
-    "cheb_step4_f32": (4, "cheb_multistep.cu",
+    "cheb_step4_f32": (4, "cheb_stream4.cu",
                        "feastkit_tpu/ops/cheb_pallas.py:847"),
     "cheb_step2_f64": (2, "cheb_multistep.cu",
                        "feastkit_tpu/ops/cheb_pallas.py:370"),
@@ -314,9 +325,10 @@ def _compare_multi(torch, wrapper, plain, S, dia, offsets, carry, sc, sh,
 
 def _awkward_operators():
     """(diags, offsets, N, M): three five-point operators with M = 11, 1,
-    40 and N = 1073, 1073, 1089; one whose 2 max|offset| exceeds N; and a
+    40 and N = 1073, 1073, 1089; one whose 2 max|offset| exceeds N; a
     3-diagonal and an 11-diagonal operator (the multi-step kernels have a
-    body for five diagonals and one for any other count)."""
+    body for five diagonals and one for any other count); and a 7-point 3D
+    stencil on a 20 x 17 x 5 grid (cheb_step4_f32's ND = 7 body)."""
     from feastkit_tpu_torch.ops.dia import bcoo_to_dia
     from feastkit_tpu_torch.solvers.sparse import sparse_coo_arrays
     out = []
@@ -327,7 +339,8 @@ def _awkward_operators():
     rng = np.random.default_rng(60)
     for N, am, offs in ((100, 7, (-60, -1, 0, 1, 60)),
                         (1073, 5, (-1, 0, 1)),
-                        (1089, 3, (-40, -33, -7, -2, -1, 0, 1, 2, 7, 33, 40))):
+                        (1089, 3, (-40, -33, -7, -2, -1, 0, 1, 2, 7, 33, 40)),
+                        (1700, 6, (-340, -20, -1, 0, 1, 20, 340))):
         dn = np.zeros((len(offs), N))
         for k, d in enumerate(offs):
             dn[k, max(0, -d):N - max(0, d)] = rng.random(N - abs(d)) - 0.5
@@ -461,22 +474,212 @@ def phase_kernels(card_name):
             plan = (ck.multistep_plan(offsets, N, M, dtype, S)
                     if S > 1 else None)
             if plan:
+                rec = ck.reckoned_traffic(plan, offsets, N, size)
                 line += (f"\n      tile {plan['tile']} rows x {plan['tiles']}"
                          f" tiles x {M} columns, halo {plan['halo']}, "
                          f"{plan['shared_bytes']} B shared per block; "
-                         "reckoned from the tile, not measured: recompute "
-                         f"{plan['recompute']:.3f}, planes moved "
-                         f"{plan['planes_moved']:.2f} per launch")
+                         "reckoned from the plan, not measured: recompute "
+                         f"{rec['recompute']:.3f}, L2 bytes per element "
+                         f"{rec['l2_bytes_per_element']:.1f}")
             print(line, flush=True)
             out[name] = dict(
                 max_abs_err=err, max_rel_err=worst, ms=ms, ms_per_step=ms / S,
                 plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if nbytes / bw >= flops / peak
                 else "operations", csr_spmm_ms=csr_ms)
+            if name == "cheb_step4_f32":
+                out[name].update(_stream_vs_tiled(
+                    torch, ck, dia, offsets, carry, sc, sh, cs, bound_ms))
             del carry
             torch.cuda.empty_cache()
         del dia
     return out
+
+
+def _stream_vs_tiled(torch, ck, dia, offsets, carry, sc, sh, cs, bound_ms):
+    """The streamed cheb_step4_f32 and the tiled body of the same pass
+    (cheb_step4_f32_tiled) at the main shapes: the tiled body against the
+    plain version, then both timed in turns (streamed, tiled, tiled,
+    streamed) on the same carry, with each plan's reckoned L2 bytes per
+    element."""
+    M, N = carry[0].shape
+    plain = ck.cheb_step4_plain
+    _, rel = _compare_multi(torch, ck.cheb_step4_f32_tiled, plain, 4, dia,
+                            offsets, carry[:3], sc, sh, cs[:8])
+    check(rel <= 1e-5, "cheb_step4_f32_tiled agrees with its plain version "
+          "at the main path's shapes")
+    cks = [0.01] * 4
+    bodies = {"streamed": ck.cheb_step4_f32,
+              "tiled": ck.cheb_step4_f32_tiled}
+    times = {k: [] for k in bodies}
+    for body in ("streamed", "tiled", "tiled", "streamed"):
+        def step(wrapper=bodies[body]):
+            wrapper(dia, offsets, *carry, sc, sh, cks)
+            carry[:] = [carry[3], carry[4], carry[2], carry[0], carry[1]]
+        times[body].append(cuda_time_ms(step, 100))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {"streamed": ck._stream_plan(offsets, N, M, sms),
+             "tiled": ck._tiled_plan(offsets, N, M, torch.float32, 4)}
+    out = {}
+    for body, ts in times.items():
+        plan = plans[body]
+        rec = ck.reckoned_traffic(plan, offsets, N)
+        ms = float(np.mean(ts))
+        shape = (f"chunks of {plan['chunk']} rows x {plan['cols']} columns, "
+                 f"lag {plan['lag']}" if body == "streamed"
+                 else "1 column x tile")
+        print(f"   A/B {body}: {ts[0]:.4f}, {ts[1]:.4f} ms/launch (mean "
+              f"{ms:.4f}, {bound_ms / ms:.1%} of the {bound_ms:.4f} ms "
+              f"bound); {shape} {plan['tile']} rows x {plan['tiles']} "
+              f"strips/tiles, {plan['shared_bytes']} B shared per block; "
+              "reckoned from the plan, not measured: L2 bytes per element "
+              f"{rec['l2_bytes_per_element']:.1f}, recompute "
+              f"{rec['recompute']:.3f}", flush=True)
+        out[f"{body}_ab_ms"] = ts
+    out["tiled_max_rel_err"] = rel
+    return out
+
+
+def _lap3d_dia(nx):
+    """The 7-point 3D Laplacian on an nx^3 grid in DIA form (offsets +-1,
+    +-nx, +-nx^2), as scripts/scale_sparse_3d.py builds it."""
+    import scipy.sparse as sp
+    from feastkit_tpu_torch.ops.dia import bcoo_to_dia
+    D = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    eye = sp.eye(nx)
+    A = (sp.kron(sp.kron(D, eye), eye) + sp.kron(sp.kron(eye, D), eye)
+         + sp.kron(sp.kron(eye, eye), D)).tocoo()
+    return bcoo_to_dia(A.data, np.stack([A.row, A.col], axis=1), nx ** 3)
+
+
+def stream_sweep(card_name):
+    """``--stream-sweep``: cheb_step4_f32 (the streamed kernel) under
+    block shapes and bodies the plan does not take, M = 72, each checked
+    against the plain version and timed between two timings of what it is
+    compared with:
+    - the main shapes (five diagonals, N = 1,048,576) and the nine-diagonal
+      P=8 shapes (N = 65,536) with 4, 2 and 1 columns per block (the
+      plan's default is 4), against the tiled body;
+    - the same shapes with 4 columns and T1, T0 and acc brought in with
+      cp.async, 1 iteration in flight at the main shapes (no more fits
+      the shared memory) and 1, 2, 4 and 7 at nine diagonals, against the
+      register prefetch the plan takes;
+    - wider halos: the 2D Laplacian on a 2048^2 grid (halo 2048: two
+      columns per block, one block per SM) and the 7-point 3D Laplacian
+      on 32^3 and 64^3 grids (halos 1024 and 4096,
+      scripts/scale_sparse_3d.py): the plan's body (ND = 7 in 3D) against
+      the run-time-count body (3D), the tiled body where its plan takes
+      the shape, and two passes of cheb_step2_f32 (the route where the
+      streamed plan refuses the shape, as it does 64^3: there the sweep
+      times the one column per block it would take, in one and in two
+      strips)."""
+    import torch
+    from feastkit_tpu_torch.ops import cheb_kernels as ck
+    from feastkit_tpu_torch.ops.dia import bcoo_to_dia
+    from feastkit_tpu_torch.solvers.sparse import sparse_coo_arrays
+    bw, _, _ = _card_rates(card_name)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"== sweep: block shapes and bodies of the streamed 4-step kernel "
+          f"({sms} SMs)", flush=True)
+    data, idx, _ = sparse_coo_arrays(lap2d(1024), np.float64)
+    d5, o5 = bcoo_to_dia(data, idx, 1024 * 1024)
+    A, B, _ = consistent_mass_pencil(8)
+    (_, _), (d9, o9) = congruenced_dia(A, B)
+    M, f32 = 72, torch.float32
+    cks = [0.01] * 4
+    sh = np.float32(1.0)
+    rows = []
+    data, idx, _ = sparse_coo_arrays(lap2d(2048), np.float64)
+    d5w, o5w = bcoo_to_dia(data, idx, 2048 * 2048)
+    operators = [("nd5", d5, o5), ("nd9", d9, o9), ("lap2d_2048", d5w, o5w),
+                 ("lap3d_32", *_lap3d_dia(32)), ("lap3d_64", *_lap3d_dia(64))]
+    for label, dia_np, offsets in operators:
+        # sc maps the spectrum ([0, 8] in 2D, [0, 12] in 3D) into [-1, 1],
+        # so the carry stays bounded over the timed passes
+        sc = np.float32(1 / 6 if label.startswith("lap3d") else 0.25)
+        N = dia_np.shape[1]
+        halo = max(abs(d) for d in offsets if abs(d) < N)
+        dia = torch.as_tensor(dia_np, device="cuda").to(f32)
+        bound_ms = (6 * N * M + len(offsets) * N) * 4 / bw * 1e3
+        carry = _planes(torch, f32, (M, N), 5, 21)
+
+        def streamed(plan=None, defines=()):
+            def run(planes):
+                ck._multistep(ck.cheb_step4_f32, 4, f32, dia, offsets,
+                              *planes, sc, sh, cks, defines=defines,
+                              plan=plan)
+            return run
+
+        def tiled(planes):
+            ck.cheb_step4_f32_tiled(dia, offsets, *planes, sc, sh, cks)
+
+        def two_step_twice(planes):
+            for i in (0, 2):
+                ck.cheb_step2_f32(dia, offsets, *planes, sc, sh,
+                                  cks[i:i + 2])
+                planes[:] = [planes[3], planes[4], planes[2], planes[0],
+                             planes[1]]
+            planes[:] = [planes[3], planes[4], planes[2], planes[0],
+                         planes[1]]      # undone by the caller's rotation
+
+        # (variant, its function, baseline, its function)
+        if label in ("nd5", "nd9"):
+            pairs = [(f"{cols} column" + "s" * (cols > 1), streamed(
+                ck._stream_shape(halo, N, M, cols, sms=sms)), "tiled", tiled)
+                for cols in (4, 2, 1)]
+            pairs += [(f"cp.async {depth} in flight", streamed(
+                ck._stream_shape(halo, N, M, 4, depth=depth, sms=sms)),
+                "register prefetch", streamed())
+                for depth in ((1,) if label == "nd5" else (1, 2, 4, 7))]
+        else:
+            # the plan's body, or where the plan refuses the shape, the
+            # one column per block it would otherwise take
+            plan = ck._stream_plan(offsets, N, M, sms)
+            shape = plan or ck._stream_shape(halo, N, M, 1, sms=sms)
+            name = (f"plan, {plan['cols']} columns" if plan else
+                    "1 column, refused by the plan")
+            pairs = []
+            if len(offsets) == 7:
+                pairs.append((name, streamed(shape), "run-time count",
+                              streamed(shape, RUNTIME_COUNT_ONLY)))
+            if ck._tiled_plan(offsets, N, M, f32, 4) is not None:
+                pairs.append((name, streamed(shape), "tiled", tiled))
+            pairs.append((name, streamed(shape), "2 x cheb_step2_f32",
+                          two_step_twice))
+            if plan is None:
+                pairs.append(("1 column, 2 strips", streamed(
+                    ck._stream_shape(halo, N, M, 1, 2)),
+                    "2 x cheb_step2_f32", two_step_twice))
+
+        def timed(fn):
+            def step():
+                fn(carry)
+                carry[:] = [carry[3], carry[4], carry[2], carry[0], carry[1]]
+            return cuda_time_ms(step, 50 if N > 10**6 else 200)
+
+        for name, fn, base_name, base in pairs:
+            k = [t.clone() for t in carry]
+            p_ = [t.clone() for t in carry]
+            fn(k)
+            ck._multistep_plain(4, dia, offsets, *p_, sc, sh, cks)
+            torch.cuda.synchronize()
+            _, rel = _errors([k[3], k[4], k[2]], [p_[3], p_[4], p_[2]])
+            check(rel <= 1e-5, f"{label} {name} agrees with the plain "
+                  "version")
+            del k, p_
+            t_a = timed(base)
+            ms = timed(fn)
+            t_b = timed(base)
+            print(f"   {label} (N={N}, halo {halo}) {name}: {ms:.4f} ms "
+                  f"({bound_ms / ms:.1%} of the {bound_ms:.4f} ms bound); "
+                  f"{base_name} {t_a:.4f} / {t_b:.4f} ms", flush=True)
+            rows.append(dict(operator=label, variant=name, ms=ms,
+                             baseline=base_name, baseline_ms=[t_a, t_b],
+                             bound_ms=bound_ms, max_rel_err=rel))
+        del dia, carry
+        torch.cuda.empty_cache()
+    print(json.dumps({"stream_sweep": rows}), flush=True)
+    return rows
 
 
 def phase_gen_kernels(card_name):
@@ -598,10 +801,15 @@ def phase_gen_kernels(card_name):
             wrapper = getattr(ck, name)
             plan = ck.multistep_plan(offs, N, M, dtype, S)
             row = {}
-            for body, defines in (("nd9", ()),
-                                  ("runtime_count", RUNTIME_COUNT_ONLY)):
-                def kern(planes, cks, defines=defines):
-                    ck._multistep(wrapper, S, dtype, dia, offs, *planes,
+            bodies = [("nd9", wrapper, ()),
+                      ("runtime_count", wrapper, RUNTIME_COUNT_ONLY)]
+            if name == "cheb_step4_f32":
+                bodies += [("tiled", ck.cheb_step4_f32_tiled, ()),
+                           ("tiled_runtime_count", ck.cheb_step4_f32_tiled,
+                            RUNTIME_COUNT_ONLY)]
+            for body, w, defines in bodies:
+                def kern(planes, cks, w=w, defines=defines):
+                    ck._multistep(w, S, dtype, dia, offs, *planes,
                                   npd(scB), npd(shB), cks, defines=defines)
                 k = _planes(torch, dtype, (M, N), 5, 5)
                 p_ = [t.clone() for t in k]
@@ -621,7 +829,11 @@ def phase_gen_kernels(card_name):
                 del k, p_
             print(f"   {name} nd={nd} (tile {plan['tile']}): ND=9 body "
                   f"{row['nd9']['ms']:.4f} ms/launch, run-time-count body "
-                  f"{row['runtime_count']['ms']:.4f} ms/launch", flush=True)
+                  f"{row['runtime_count']['ms']:.4f} ms/launch"
+                  + (f", tiled body {row['tiled']['ms']:.4f} ms/launch, its "
+                     "run-time-count body "
+                     f"{row['tiled_runtime_count']['ms']:.4f} ms/launch"
+                     if "tiled" in row else ""), flush=True)
             out[f"{name}_nd9"] = row
         del dia
         torch.cuda.empty_cache()
@@ -938,6 +1150,7 @@ def phase_krylov(dia_kernels, nx=256, device="cuda"):
     del r
     if device == "cuda":
         torch.cuda.empty_cache()
+        gc.collect()    # no earlier phase's cyclic garbage in this peak
         torch.cuda.reset_peak_memory_stats()
     r, warm_s, counts, _ = _krylov_counted(A, None, Emin, Emax, M0, fpm,
                                            "Krylov warm", device, **kw)
@@ -1030,6 +1243,7 @@ def krylov_scale(p):
     fpm[3] = 8
     fpm[1] = 1
     kw = dict(solver="gmres", solver_maxiter=250)
+    gc.collect()    # no earlier phase's cyclic garbage in this peak
     torch.cuda.reset_peak_memory_stats()
     r, seconds, counts, _ = _krylov_counted(A, None, Emin, Emax, M0, fpm,
                                             f"P={p} Krylov", **kw)
@@ -1238,6 +1452,7 @@ def phase_main_path(kernels):
     _check_result(r, exp, 1e-8, "P=10 cold")
     del r
     torch.cuda.empty_cache()
+    gc.collect()    # no earlier phase's cyclic garbage in this peak
     torch.cuda.reset_peak_memory_stats()
     with switches():
         r, warm_s, counts, seen = _counted_solve(A, None, Emin, Emax, M0,
@@ -1437,6 +1652,7 @@ def phase_consistent_mass(kernels):
     _check_result(r, exp, 1e-8, "P=8 consistent mass cold")
     del r
     torch.cuda.empty_cache()
+    gc.collect()    # no earlier phase's cyclic garbage in this peak
     torch.cuda.reset_peak_memory_stats()
     with switches():
         r, warm_s, counts, seen = _counted_solve(
@@ -1490,6 +1706,13 @@ def main(argv):
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_card()
     phase_build()
+    if "--stream-sweep" in argv:
+        stream_sweep(smi.split(",")[0])
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--krylov-solve" in argv:
         krylov_scale(int(argv[argv.index("--krylov-solve") + 1]))
         print(smi, flush=True)
@@ -1535,7 +1758,10 @@ def main(argv):
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None,
             steps_per_launch=steps, ms_per_step=k["ms_per_step"],
-            csr_spmm_ms=k["csr_spmm_ms"]))
+            csr_spmm_ms=k["csr_spmm_ms"],
+            **{key: v for key, v in k.items()
+               if key in ("streamed_ab_ms", "tiled_ab_ms",
+                          "tiled_max_rel_err")}))
     for name, k in dia_kernels.items():
         rows.append(dict(
             name=name, route="cuda",

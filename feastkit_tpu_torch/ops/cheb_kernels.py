@@ -40,13 +40,19 @@ and return T_S, T_{S+1} and acc, the next pass's carry:
 
 Their carry is COLUMN-major: contiguous (M, N) tensors, one contiguous
 N-vector per subspace column (:func:`transpose_planes` converts). The
-stencil couples rows only, so a thread block works on a tile of rows of
-one column and keeps the intermediate levels of that tile, with their
-halos, in shared memory; :func:`multistep_plan` sizes the tile against the
-card's shared memory and says whether a shape fits. A block reads T0 and
-T1 in its neighbours' rows, so T_S and T_{S+1} are written to two separate
-output buffers (the chunk functions ping-pong two pairs); only acc is
-updated in place. On a CPU tensor the wrappers run
+stencil couples rows only. ``cheb_step4_f32`` (``csrc/cheb_stream4.cu``)
+streams: a thread block walks down a strip of rows for a group of columns
+in chunks, the four levels trailing one another by the stencil's reach,
+each level in a shared-memory ring. The other multi-step kernels
+(``csrc/cheb_multistep.cu``) tile: a block works on a tile of rows of one
+column and keeps the intermediate levels of that tile, with their halos,
+in shared memory; that body of the f32 four-step pass stays callable as
+``cheb_step4_f32_tiled`` for timing the two against each other (the solver
+does not call it). :func:`multistep_plan` sizes the strip or the tile
+against the card's shared memory and says whether a shape fits. A block
+reads T0 and T1 in its neighbours' rows, so T_S and T_{S+1} are written to
+two separate output buffers (the chunk functions ping-pong two pairs);
+only acc is updated in place. On a CPU tensor the wrappers run
 :func:`cheb_step2_plain` / :func:`cheb_step4_plain`, which are S
 applications of :func:`cheb_step_plain`.
 
@@ -76,20 +82,31 @@ from .dia import dia_matvec_plain
 __all__ = ["cheb_step_f32", "cheb_step_f64", "cheb_step_plain",
            "cheb_step_cm_f32", "cheb_step_cm_f64", "cheb_step_cm_plain",
            "cheb_step2_f32", "cheb_step4_f32", "cheb_step2_f64",
-           "cheb_step4_f64", "cheb_step2_plain", "cheb_step4_plain",
+           "cheb_step4_f64", "cheb_step4_f32_tiled", "cheb_step2_plain",
+           "cheb_step4_plain",
            "cheb_combine_f32", "cheb_combine_f64", "cheb_combine_plain",
            "cheb_f32_chunk", "cheb_f64_chunk", "cheb_f32_cm_chunk",
            "cheb_f64_cm_chunk", "cheb_f32_2_chunk",
            "cheb_f32_4_chunk", "cheb_f64_2_chunk", "cheb_f64_4_chunk",
-           "multistep_plan", "transpose_planes", "SHARED_BYTES_PER_BLOCK",
+           "multistep_plan", "reckoned_traffic", "transpose_planes",
+           "SHARED_BYTES_PER_BLOCK",
            "reset_launch_counts", "launch_counts"]
 
 # dynamic shared memory one thread block may use on sm_90 (227 KB), and
 # what each of two blocks resident on one SM may use (the SM has 228 KB and
 # keeps 1 KB per block for itself)
 SHARED_BYTES_PER_BLOCK = 232448
-_SHARED_BYTES_TWO_BLOCKS = (233472 - 2 * 1024) // 2
+_SM_SHARED_BYTES = 233472
+_SHARED_BYTES_TWO_BLOCKS = (_SM_SHARED_BYTES - 2 * 1024) // 2
 _TILE_ALIGN = 32
+# the streamed four-step kernel (csrc/cheb_stream4.cu): chunks of 256 rows
+# (its compile-time block of threads) and 1, 2 or 4 columns per block, 4 by
+# default (the fastest chip_smoke.py --stream-sweep times at the main
+# shapes, PERF.md); the streaming multiprocessors of an H100 SXM, the strip
+# count's default target
+_STREAM_CHUNK = 256
+_STREAM_COLS = (1, 2, 4)
+_SMS = 132
 
 
 def cheb_step_plain(diags, offsets, t0, t1, acc, sc, sh, ck):
@@ -293,8 +310,29 @@ def cheb_combine_f64(z, x, t0, f, sc, sh, ck):
 # --------------------------------------------------------- multi-step
 
 def multistep_plan(offsets, N, M, dtype, steps):
-    """Tile plan of the ``steps``-step kernel (2 or 4) for an (M, N) carry
-    of ``dtype``, or None when the shape does not fit this card.
+    """Plan of the ``steps``-step kernel (2 or 4) for an (M, N) carry of
+    ``dtype``, or None when the shape does not fit this card: the streamed
+    plan (:func:`_stream_plan`) for the f32 four-step kernel, the tile plan
+    (:func:`_tiled_plan`) for the others. Both give ``steps``, ``tile``
+    (rows a block owns), ``tiles``, ``halo`` and ``shared_bytes``. Raises
+    if the streamed plan refuses a shape the tile plan of the same pass
+    takes. Pure function of its arguments: the routing among the 4-, 2-
+    and 1-step kernels is decided from it before any launch."""
+    if steps not in (2, 4):
+        raise ValueError(f"steps must be 2 or 4, got {steps}")
+    if dtype != torch.float32 or steps != 4:
+        return _tiled_plan(offsets, N, M, dtype, steps)
+    plan = _stream_plan(offsets, N, M)
+    if plan is None and _tiled_plan(offsets, N, M, dtype, steps) is not None:
+        raise RuntimeError(
+            f"the streamed plan refuses N={N}, M={M}, offsets="
+            f"{tuple(offsets)}, which the tile plan takes")
+    return plan
+
+
+def _tiled_plan(offsets, N, M, dtype, steps):
+    """Tile plan of the tiled ``steps``-step body (``csrc/cheb_multistep.cu``)
+    for an (M, N) carry of ``dtype``, or None when the shape does not fit.
 
     A block of the kernel owns ``tile`` rows of one column and holds in
     shared memory, with halo = max |offset|: level T2 on tile + 2 (S-1)
@@ -311,8 +349,7 @@ def multistep_plan(offsets, N, M, dtype, steps):
     measured faster for the 2-step kernels at the main shapes, PERF.md);
     the rows are then split into equal tiles. ``recompute`` and
     ``planes_moved`` are reckoned from the tile and the halo, not read
-    from the card. Pure function of its arguments: the routing among the
-    4-, 2- and 1-step kernels is decided from it before any launch."""
+    from the card."""
     if steps not in (2, 4):
         raise ValueError(f"steps must be 2 or 4, got {steps}")
     N, M = int(N), int(M)
@@ -344,6 +381,120 @@ def multistep_plan(offsets, N, M, dtype, steps):
                 # T1 on tile + 2 S halo, T0 on tile + 2 (S-1) halo, acc
                 # read; T_S, T_{S+1}, acc written
                 planes_moved=6.0 + (4 * steps - 2) * halo / tile)
+
+
+def _stream_plan(offsets, N, M, sms=_SMS):
+    """Plan of the streamed four-step kernel (``csrc/cheb_stream4.cu``),
+    or None when the shape does not fit.
+
+    A block of ``chunk`` = 256 threads walks down a strip of ``tile`` rows
+    for a group of ``cols`` columns, ``chunk`` rows at a time, one thread
+    per row. With halo = max |offset|, level s trails level s-1 by ``lag``
+    = 1 + ceil(halo / chunk) chunks, and each column keeps rings of
+    2 lag + 1, 3 lag + 1, 2 lag + 1 and 2 lag chunks (T1..T4) in shared
+    memory: 9 lag + 3 chunks per column, within ``SHARED_BYTES_PER_BLOCK``.
+    The group takes 4 columns (the fastest chip_smoke.py --stream-sweep
+    times at the main shapes, PERF.md), no more than M needs; where their
+    rings do not fit, 2 or 1. The shape fits when a multiprocessor holds
+    at least two columns' blocks (``blocks_per_sm`` x ``cols``), or one
+    where M = 1: halo up to 2816 rows. One column per block alone on its
+    multiprocessor is latency-bound, slower than two 2-step passes (the
+    sweep's 64^3 Laplacian, PERF.md), which the solver then takes. The
+    strips fill one wave of resident blocks over the ``sms``
+    multiprocessors (default 132, an H100 SXM's), but no strip is shorter
+    than 6 halo rows (the rows the levels recompute beside it)."""
+    N, M = int(N), int(M)
+    if N <= 0 or M <= 0 or len(offsets) > 32:
+        return None
+    halo = max((abs(int(d)) for d in offsets if abs(int(d)) < N), default=0)
+    cols = 4
+    while cols > 1 and cols // 2 >= M:
+        cols //= 2
+    while _stream_ring_bytes(halo, cols) > SHARED_BYTES_PER_BLOCK:
+        if cols == 1:
+            return None
+        cols //= 2
+    plan = _stream_shape(halo, N, M, cols, sms=sms)
+    if plan is None or plan["blocks_per_sm"] * cols < min(M, 2):
+        return None
+    return plan
+
+
+def _stream_ring_bytes(halo, cols, depth=0, itemsize=4):
+    lag = 1 + -(-halo // _STREAM_CHUNK)
+    stage = 3 * (depth + 1) if depth else 0
+    return cols * (9 * lag + 3 + stage) * _STREAM_CHUNK * itemsize
+
+
+def _stream_shape(halo, N, M, cols, strips=None, depth=0, sms=_SMS,
+                  itemsize=4):
+    """The streamed kernel's plan for a given block shape: ``cols`` columns
+    per block (1, 2 or 4), the rows in ``strips`` equal chunk-aligned
+    strips, and ``depth`` iterations of ``cp.async`` copies in flight (0:
+    the loads go through registers one iteration ahead, as
+    :func:`_stream_plan` takes them). None where it does not fit.
+    ``blocks_per_sm`` is how many such blocks a multiprocessor holds at
+    once (its 228 KB of shared memory, 2048 threads, and 64 K registers at
+    the kernel's budget of 64 cols registers a thread). ``strips``
+    defaults to one wave of resident blocks over ``sms`` multiprocessors,
+    with no strip shorter than 6 halo rows."""
+    R = _STREAM_CHUNK
+    if cols not in _STREAM_COLS:
+        raise ValueError(f"cols={cols}: one of {_STREAM_COLS}")
+    shared = _stream_ring_bytes(halo, cols, depth, itemsize)
+    lag = 1 + -(-halo // R)
+    groups = -(-M // cols)
+    per_sm = max(1, min(_SM_SHARED_BYTES // (shared + 1024), 2048 // R,
+                        65536 // (R * 64 * cols)))
+    if strips is None:
+        strips = max(1, min(per_sm * sms // groups, N // max(6 * halo, R)))
+    tile = -(-(-(-N // strips)) // R) * R
+    tiles = -(-N // tile)
+    if (shared > SHARED_BYTES_PER_BLOCK or N + tile > 2**31 - 1
+            or 2 * N + (8 * lag + 4) * R > 2**31 - 1
+            or tiles * groups > 2**31 - 1):
+        return None
+    return dict(steps=4, tile=tile, tiles=tiles, halo=halo, chunk=R,
+                cols=cols, groups=groups, lag=lag, depth=depth,
+                blocks_per_sm=per_sm, shared_bytes=shared)
+
+
+def reckoned_traffic(plan, offsets, N, itemsize=4):
+    """What a multi-step pass under ``plan`` (streamed or tiled, for
+    ``offsets`` and N rows) requests, reckoned from the plan and not read
+    from the card: ``recompute`` (rows the levels compute over four times
+    the own rows) and ``l2_bytes_per_element`` (bytes requested from L2
+    per element of the carry). Streamed: T1 with its halo chunks, T0, acc
+    read and written, T4 and T5 written, and each level's diagonals once
+    per block for its columns. Tiled: per own row of a column, every load
+    of a diagonal, of T1's neighbours and of T0 on the rows each level
+    computes (halos unclipped), acc read and written, T_S and T_{S+1}
+    written."""
+    nd, halo, tile, S = len(offsets), plan["halo"], plan["tile"], plan[
+        "steps"]
+    if "chunk" not in plan:
+        return dict(recompute=plan["recompute"],
+                    l2_bytes_per_element=itemsize * (4 + sum(
+                        (2 * nd + 2 if s == 0 else nd + 1 if s == 1 else nd)
+                        * (tile + 2 * (S - 1 - s) * halo)
+                        for s in range(S)) / tile))
+    # per strip, as the kernel walks it: the own chunks and, per level s,
+    # the chunks [lo[s], hi[s]) it computes (the own ones and (3-s) H more
+    # each side, clipped to the matrix)
+    R, H = plan["chunk"], plan["lag"] - 1
+    own = comp = t1 = t0 = 0
+    for s0 in range(0, N, tile):
+        k_own = -(-(min(s0 + tile, N) - s0) // R)
+        k_max = -(-(N - s0) // R)
+        lo = [max(-(3 - s) * H, -(s0 // R)) for s in range(4)]
+        hi = [min(k_own + (3 - s) * H, k_max) for s in range(4)]
+        own += k_own
+        comp += sum(h - l for l, h in zip(lo, hi))
+        t1 += hi[0] - lo[0] + 2 * H
+        t0 += hi[0] - lo[0]
+    return dict(recompute=comp / (4 * own),
+                l2_bytes_per_element=itemsize * (
+                    t1 + t0 + 4 * own + nd * comp / plan["cols"]) / own)
 
 
 def transpose_planes(planes: list) -> None:
@@ -388,7 +539,7 @@ def _multistep_library(*defines):
     from .cuda_build import load
     lib = load("cheb_multistep", *defines)
     for name, scalar, S in (("cheb_step2_f32", ctypes.c_float, 2),
-                            ("cheb_step4_f32", ctypes.c_float, 4),
+                            ("cheb_step4_f32_tiled", ctypes.c_float, 4),
                             ("cheb_step2_f64", ctypes.c_double, 2),
                             ("cheb_step4_f64", ctypes.c_double, 4)):
         fn = getattr(lib, name)
@@ -400,6 +551,42 @@ def _multistep_library(*defines):
     lib.cheb_multistep_error_string.argtypes = [ctypes.c_int]
     lib.cheb_multistep_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _stream_library(*defines):
+    from .cuda_build import load
+    lib = load("cheb_stream4", *defines)
+    lib.cheb_step4_f32.argtypes = (
+        [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
+        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+    lib.cheb_step4_f32.restype = ctypes.c_int
+    lib.cheb_stream4_error_string.argtypes = [ctypes.c_int]
+    lib.cheb_stream4_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# how _multistep launches a multi-step entry, by the wrapper's name: its
+# plan (of offsets, N, M, dtype, steps and the device), its library, the
+# library's error-string function and the plan's fields the C entry takes
+# after N and M; the entries not named take the tiled body's
+_ENTRIES = {
+    "cheb_step4_f32": (
+        lambda offsets, N, M, dtype, S, device: _stream_plan(
+            offsets, N, M, _sm_count(device)),
+        _stream_library, "cheb_stream4_error_string",
+        ("chunk", "cols", "tile", "depth")),
+}
+_TILED_ENTRY = (
+    lambda offsets, N, M, dtype, S, device: _tiled_plan(offsets, N, M, dtype,
+                                                        S),
+    _multistep_library, "cheb_multistep_error_string", ("tile",))
 
 
 def _check_multistep(diags, offsets, planes, dtype):
@@ -428,7 +615,12 @@ def _check_multistep(diags, offsets, planes, dtype):
 
 
 def _multistep(wrapper, S, dtype, diags, offsets, t0, t1, acc, out0, out1,
-               sc, sh, cs, defines=()):
+               sc, sh, cs, defines=(), plan=None):
+    """Check the operands, then launch ``wrapper``'s kernel on CUDA tensors
+    (its plain version on CPU tensors). ``defines``: build flags of the
+    kernel's library; ``plan``: a plan to launch with instead of the
+    entry's own (the streamed kernel's from :func:`_stream_shape`, a tiled
+    kernel's from :func:`_tiled_plan`)."""
     planes = (t0, t1, acc, out0, out1)
     _check_multistep(diags, offsets, planes, dtype)
     cs = [float(c) for c in cs]
@@ -441,23 +633,27 @@ def _multistep(wrapper, S, dtype, diags, offsets, t0, t1, acc, out0, out1,
     if not t0.is_cuda:
         raise ValueError(f"unsupported device {t0.device}")
     M, N = t0.shape
-    plan = multistep_plan(offsets, N, M, dtype, S)
+    plan_of, library, error_name, fields = _ENTRIES.get(wrapper.__name__,
+                                                        _TILED_ENTRY)
+    if plan is None:
+        plan = plan_of(offsets, N, M, dtype, S, t0.device)
     if plan is None:
         raise ValueError(
             f"{wrapper.__name__}: N={N}, M={M}, offsets={tuple(offsets)} "
-            "does not fit the kernel's shared-memory tile (multistep_plan)")
-    lib = _multistep_library(*defines)
+            "does not fit the kernel's shared memory (multistep_plan)")
+    lib = library(*defines)
     offs = (ctypes.c_int64 * max(len(offsets), 1))(*offsets)
     with torch.cuda.device(t0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, wrapper.__name__)(
             diags.data_ptr(), offs, len(offsets),
-            *(t.data_ptr() for t in planes), N, M, plan["tile"],
+            *(t.data_ptr() for t in planes), N, M,
+            *(plan[f] for f in fields),
             float(sc), float(sh), *cs, stream)
     if err != 0:
         raise RuntimeError(
             f"{wrapper.__name__} launch failed: CUDA error {err} "
-            f"({lib.cheb_multistep_error_string(err).decode()})")
+            f"({getattr(lib, error_name)(err).decode()})")
     wrapper.launches += 1
 
 
@@ -470,9 +666,18 @@ def cheb_step2_f32(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
 
 def cheb_step4_f32(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
     """Four fused f32 steps: out0 <- T4, out1 <- T5, acc += sum cs[i]
-    T_{2+i} in place."""
+    T_{2+i} in place (the streamed kernel, ``csrc/cheb_stream4.cu``)."""
     _multistep(cheb_step4_f32, 4, torch.float32, diags, offsets, t0, t1,
                acc, out0, out1, sc, sh, cs)
+
+
+def cheb_step4_f32_tiled(diags, offsets, t0, t1, acc, out0, out1, sc, sh,
+                         cs):
+    """The same four f32 steps through the tiled body of
+    ``csrc/cheb_multistep.cu``, kept to be timed against
+    :func:`cheb_step4_f32`; the solver does not call it."""
+    _multistep(cheb_step4_f32_tiled, 4, torch.float32, diags, offsets, t0,
+               t1, acc, out0, out1, sc, sh, cs)
 
 
 def cheb_step2_f64(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
@@ -497,7 +702,7 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for w in _WRAPPERS:
+    for w in (*_WRAPPERS, cheb_step4_f32_tiled):
         w.launches = 0
 
 

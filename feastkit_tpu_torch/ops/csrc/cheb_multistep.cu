@@ -4,7 +4,11 @@
 // Replaces four Pallas TPU kernels of feastkit_tpu/ops/cheb_pallas.py:
 //   cheb_step2_f32 <- _cheb_f32_2_kernel   cheb_step4_f32 <- _cheb_f32_4_kernel
 //   cheb_step2_f64 <- _cheb_ds2_kernel     cheb_step4_f64 <- _cheb_ds4_kernel
-// (the double-single kernels become native fp64, as in cheb_step.cu).
+// (the double-single kernels become native fp64, as in cheb_step.cu). The
+// f32 four-step pass of the solver runs the streamed-strip body of
+// cheb_stream4.cu; this source's f32 four-step instantiation stays
+// exported as cheb_step4_f32_tiled, for timing the two bodies against each
+// other (chip_smoke.py), and is not called by the solver.
 //
 // One launch computes, for S in {2, 4}, column-major carries (M, N) (each
 // of the M columns one contiguous N-vector), row-aligned DIA diagonals
@@ -240,11 +244,11 @@ int cheb_step2_f32(const float* diags, const long long* offsets, int nd,
                           stream);
 }
 
-int cheb_step4_f32(const float* diags, const long long* offsets, int nd,
-                   const float* t0, const float* t1, float* acc, float* out0,
-                   float* out1, long long n, long long m, long long tile,
-                   float sc, float sh, float c0, float c1, float c2, float c3,
-                   void* stream) {
+int cheb_step4_f32_tiled(const float* diags, const long long* offsets,
+                         int nd, const float* t0, const float* t1, float* acc,
+                         float* out0, float* out1, long long n, long long m,
+                         long long tile, float sc, float sh, float c0,
+                         float c1, float c2, float c3, void* stream) {
   return launch<float, 4>(diags, offsets, nd, t0, t1, acc, out0, out1, n, m,
                           tile, sc, sh, Coeffs<float>{{c0, c1, c2, c3}},
                           stream);

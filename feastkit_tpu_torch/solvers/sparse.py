@@ -4,9 +4,11 @@ Krylov contour engine (PyTorch).
 Counterpart of the real-symmetric half of ``feastkit_tpu/solvers/sparse.py``:
 the auto route of ``sparse_feast_interval`` (the rational-contour filter
 realized as one Chebyshev polynomial, or the Jackson indicator when that is
-cheaper), ``solver="cheb"`` / ``"contour_poly"``, and the host-driven
-refinement loop of ``_sparse_cheb_interval`` for standard,
-positive-diagonal-B and sparse-SPD-B (consistent-mass) pencils.
+cheaper), ``solver="cheb"`` / ``"contour_poly"``, and the refinement of
+``_sparse_cheb_interval`` for standard, positive-diagonal-B and
+sparse-SPD-B (consistent-mass) pencils: the host-driven ladder loop under
+mixed precision, else ``kernel/hermitian.feast_hermitian_core`` (the JAX
+package's fused run, ``_sparse_cheb_jit``: no stall exit, no best state).
 
 Every filter application runs the fused Chebyshev-step kernels of
 ``ops/cheb_kernels.py`` on CUDA tensors (their plain versions on CPU
@@ -64,7 +66,7 @@ from ..core.backend import resolve_device
 from ..core.contour import feast_contour
 from ..core.parameters import (FeastConfig, _ensure_fpm,
                                ifeast_solver_options)
-from ..core.tools import initial_subspace, thin_svd
+from ..core.tools import initial_subspace
 from ..core.types import FeastError, FeastResult, _trim
 from ..kernel.hermitian import (SPURIOUS_RES, VERIFY_FILTER_TOL,
                                 feast_hermitian_core, init_hermitian_state,
@@ -640,9 +642,6 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         def apply_B(X):      # identity: a diagonal B is congruenced away
             return X
 
-    update = make_rayleigh_ritz_update(
-        apply_A, apply_B, float(Emin), float(Emax), tol=config.tol,
-        convergence_criterion=config.convergence_criterion)
     # rung-truncated series for the f32 rung (rational filters only)
     n_lo = (int(cinfo["degree_lo"]) + 1
             if cinfo.get("degree_lo") else None)
@@ -664,16 +663,28 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         # f32 bits, widened (Gaussian noise has no information in its f64
         # mantissa tail, and both packages then start from one subspace)
         q0_np = q0_np.astype(np.float32)
-    state = init_hermitian_state(
-        torch.as_tensor(q0_np).to(device=device, dtype=tdtype))
+    Q0_t = torch.as_tensor(q0_np).to(device=device, dtype=tdtype)
     del q0_np
 
-    if config.mode == 1:
-        # subspace only: one filter application, orthonormalized
-        Qp = filt(ctx, state.Q, rung=rung_top)
-        U, _ = thin_svd(Qp)
-        state = state._replace(Q=U, loop=1)
+    if config.mode == 1 or not use_lp:
+        # mixed precision off, and the subspace-only mode: the JAX
+        # package's fused run (``_sparse_cheb_jit``), i.e. the core's
+        # semantics: no stall exit and no best state, at most fpm[4] + 1
+        # loops, then the spurious verification on the same filter
+        state = feast_hermitian_core(
+            apply_A, apply_B, lambda Q: filt(ctx, Q, rung=rung_top), Q0_t,
+            float(Emin), float(Emax), tol=config.tol,
+            max_loops=config.max_loops,
+            convergence_criterion=config.convergence_criterion,
+            subspace_only=(config.mode == 1))
+        del Q0_t
     else:
+        # the precision ladder's host loop (mixed precision on)
+        update = make_rayleigh_ritz_update(
+            apply_A, apply_B, float(Emin), float(Emax), tol=config.tol,
+            convergence_criterion=config.convergence_criterion)
+        state = init_hermitian_state(Q0_t)
+        del Q0_t
         eps_best, eps_prev, best_state, stall_loops = np.inf, np.inf, None, 0
         gm_prev = np.inf
         for _loop in range(config.max_loops + 1):

@@ -1,0 +1,372 @@
+"""PyTorch port: a CPU rehearsal of the streamed four-step kernel's schedule.
+
+``csrc/cheb_stream4.cu`` (``cheb_step4_f32``) runs only on the card. Its
+schedule is emulated here in numpy, block by block, iteration by
+iteration, exactly as the CUDA source walks it: a block owns a strip of
+rows for a group of columns; level s (T_{s+2}) computes chunk c0 - s L at
+the iteration whose level-0 chunk is c0, over the range [lo[s], hi[s]) of
+its strip (the own chunks and (3-s) H halo chunks each side, clipped to
+the matrix); T1..T4 live in rings of 2L+1, 3L+1, 2L+1 and 2L chunks, a
+chunk c in slot (c - base) mod length; T1 is preloaded for the first
+iteration and stored one chunk ahead at the end of each iteration (zeros
+past the chunks level 0 needs); T0, acc and the diagonals come from
+device memory; loads are masked to the matrix's rows and terms whose
+neighbour row lies outside it are dropped. Every ring read checks that
+its slot holds the chunk the row needs and was not written in the same
+iteration, and every ring write that its slot was not read in the same
+iteration (the kernel has one barrier per iteration, so either would be a
+race between its threads). The result is held against
+``cheb_step4_plain`` (fp64 at 1e-12 and f32 at 1e-5 relative to max|acc|)
+at small shapes chosen to reach every edge of the schedule: N not a
+multiple of the chunk or of the strip, |offset| = nx, halos over one and
+over several chunks, 1, 3, 5, 7, 9 and 11 diagonals, an offset outside the
+matrix, and M = 1, 7, 11 and 40 against column groups that do not divide
+it. The plan's fields are checked too. The kernel itself is held to the
+same plain version on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from feastkit_tpu_torch.ops import cheb_kernels as ck  # noqa: E402
+
+_NEVER = -(2**62)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # The suite runs files in parallel worker processes on a few cores;
+    # torch's default intra-op pool (one spinning thread per core) then
+    # starves its neighbours. The port's CPU tensors here are small.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+class _Ring:
+    """One level's ring in one block: values (columns, length * R), and per
+    slot the chunk it holds, the iteration that wrote it and the last
+    iteration that read it."""
+
+    def __init__(self, cols, length, R):
+        self.v = np.full((cols, length * R), np.nan)
+        self.R = R
+        self.chunk = np.full(length, _NEVER)
+        self.wrote = np.full(length, _NEVER)
+        self.read_at = np.full(length, _NEVER)
+
+    def read(self, idx, chunks, mask, it):
+        slots = idx[mask] // self.R
+        assert np.all(self.chunk[slots] == chunks[mask]), "stale ring slot"
+        assert np.all(self.wrote[slots] != it), "slot written this iteration"
+        self.read_at[slots] = it
+        return self.v[:, idx]
+
+    def write(self, c, idx, values, it):
+        slot = idx[0] // self.R
+        assert np.all(idx // self.R == slot)
+        assert self.read_at[slot] != it, "slot read this iteration"
+        self.chunk[slot], self.wrote[slot] = c, it
+        self.v[:, idx] = values
+
+
+def _emulate(diags, offsets, t0, t1, acc, sc, sh, cs, plan):
+    """(out0, out1, acc) of one pass of the streamed kernel, walked as the
+    CUDA source walks it; numpy (M, N) planes of one dtype."""
+    m, n = t0.shape
+    dt = t0.dtype.type
+    sc, sh = dt(sc), dt(sh)
+    cs = [dt(c) for c in cs]
+    R, L, tile, C = plan["chunk"], plan["lag"], plan["tile"], plan["cols"]
+    H = L - 1
+    lens = (2 * L + 1, 3 * L + 1, 2 * L + 1, 2 * L)
+    offs = [o if abs(o) < n else (n if o > 0 else -n) for o in offsets]
+    acc_in = acc.copy()
+    out0 = np.full_like(t0, np.nan)
+    out1 = np.full_like(t0, np.nan)
+    acc = np.full_like(t0, np.nan)
+    p = np.arange(R)
+
+    def load(plane, cols, rows):
+        live = (rows >= 0) & (rows < n)
+        v = np.zeros((len(cols), R), t0.dtype)
+        v[:, live] = plane[np.ix_(cols, rows[live])]
+        return v
+
+    strips = -(-n // tile)
+    for strip in range(strips):
+        s0 = strip * tile
+        k_own = -(-(min(s0 + tile, n) - s0) // R)
+        k_max = -(-(n - s0) // R)
+        lo = [max(-(3 - s) * H, -(s0 // R)) for s in range(4)]
+        hi = [min(k_own + (3 - s) * H, k_max) for s in range(4)]
+        base = lo[0] - H
+        for group in range(-(-m // C)):
+            cols = np.arange(group * C, min(group * C + C, m))
+            rings = [_Ring(len(cols), ln, R) for ln in lens]
+
+            def slot_rows(r, c):
+                return ((c - base) % lens[r]) * R + p
+
+            def t1_chunk(c):
+                # zeros past the chunks level 0 needs
+                if c < hi[0] + H:
+                    return load(t1, cols, s0 + c * R + p)
+                return np.zeros((len(cols), R), t0.dtype)
+
+            for c in range(lo[0] - H, lo[0] + H + 1):
+                rings[0].write(c, slot_rows(0, c), t1_chunk(c), lo[0] - 1)
+            for c0 in range(lo[0], hi[3] + 3 * L):
+                for s in range(4):
+                    c = c0 - s * L
+                    if c < lo[s] or c >= hi[s]:
+                        continue
+                    rows = s0 + c * R + p
+                    live = rows < n
+                    src = rings[s]
+                    pos = slot_rows(s, c)
+                    span = lens[s] * R
+                    everyone = np.ones(R, bool)
+                    own_chunk = np.full(R, c)
+                    center = src.read(pos, own_chunk, everyone, c0)
+                    y = np.zeros((len(cols), R), t0.dtype)
+                    for k, off in enumerate(offs):
+                        ok = (rows + off >= 0) & (rows + off < n)
+                        q = pos + off
+                        q = np.where(q < 0, q + span, q)
+                        q = np.where(q >= span, q - span, q)
+                        idx = np.where(ok, q, pos)
+                        x = src.read(idx, (rows + off - s0) // R, ok, c0)
+                        d = np.where(live, diags[k, np.minimum(rows, n - 1)],
+                                     dt(0))
+                        y = y + np.where(ok, d * x, dt(0))
+                    prev = (load(t0, cols, rows) if s == 0 else
+                            rings[s - 1].read(slot_rows(s - 1, c), own_chunk,
+                                              everyone, c0))
+                    v = dt(2) * (sc * y - sh * center) - prev
+                    if s < 3:
+                        rings[s + 1].write(c, slot_rows(s + 1, c), v, c0)
+                    if s == 2 and 0 <= c < k_own:
+                        out0[np.ix_(cols, rows[live])] = v[:, live]
+                    if s == 3:
+                        t2 = rings[1].read(slot_rows(1, c), own_chunk,
+                                           everyone, c0)
+                        a = (((load(acc_in, cols, rows) + cs[0] * t2)
+                              + cs[1] * prev) + cs[2] * center) + cs[3] * v
+                        acc[np.ix_(cols, rows[live])] = a[:, live]
+                        out1[np.ix_(cols, rows[live])] = v[:, live]
+                rings[0].write(c0 + L, slot_rows(0, c0 + L),
+                               t1_chunk(c0 + L), c0)
+    return out0, out1, acc
+
+
+def _lap2d(nx, ny, seed=0):
+    rng = np.random.default_rng(seed)
+    n = nx * ny
+    dia = np.zeros((5, n))
+    dia[2] = 4.0 + rng.random(n)
+    dia[1, 1:] = -rng.random(n - 1)
+    dia[1, ::nx] = 0.0
+    dia[3, :-1] = -rng.random(n - 1)
+    dia[3, nx - 1::nx] = 0.0
+    dia[0, nx:] = -rng.random(n - nx)
+    dia[4, :-nx] = -rng.random(n - nx)
+    return dia, (-nx, -1, 0, 1, nx), n
+
+
+def _banded(offs, n, seed=3):
+    rng = np.random.default_rng(seed)
+    dia = np.zeros((len(offs), n))
+    for k, d in enumerate(offs):
+        if abs(d) < n:
+            dia[k, max(0, -d):n - max(0, d)] = rng.random(n - abs(d)) - 0.5
+    return dia, tuple(offs), n
+
+
+OPERATORS = {
+    # |offset| = nx = 37: N = 1073 rows in 5 chunks of 256
+    "lap2d_37x29": lambda: _lap2d(37, 29),
+    # nx = 300 and 600 over 256-row chunks: halos over two and three chunks
+    "lap2d_300x9": lambda: _lap2d(300, 9),
+    "lap2d_600x5": lambda: _lap2d(600, 5),
+    "lap2d_33x33": lambda: _lap2d(33, 33),
+    "3diags": lambda: _banded((-1, 0, 1), 1073),
+    "9diags": lambda: _banded((-34, -33, -32, -1, 0, 1, 32, 33, 34), 1089),
+    "9diags_wide": lambda: _banded(
+        (-514, -513, -512, -1, 0, 1, 512, 513, 514), 3072),
+    "11diags": lambda: _banded((-40, -33, -7, -2, -1, 0, 1, 2, 7, 33, 40),
+                               1089),
+    # 2 x 60 > N: every level's range is clipped at both ends
+    "wide_small": lambda: _banded((-60, -1, 0, 1, 60), 100),
+    # a diagonal wholly outside the matrix (its terms are all skipped)
+    "outside": lambda: _banded((-1, 0, 1, 150), 130),
+    # a 7-point 3D stencil on a 20 x 17 x 5 grid: |offset| = nx ny = 340,
+    # a halo over two chunks
+    "lap3d_20x17x5": lambda: _banded((-340, -20, -1, 0, 1, 20, 340), 1700),
+}
+
+# (operator, M, plan: None for the solver's own, else the columns per block
+#  and the strips)
+CASES = [
+    ("lap2d_37x29", 11, (4, 3)),
+    ("lap2d_37x29", 7, (2, 2)),
+    ("lap2d_300x9", 7, (4, 2)),
+    ("lap2d_600x5", 1, (1, 3)),
+    ("lap2d_600x5", 11, (4, 1)),
+    ("lap2d_33x33", 40, None),
+    ("3diags", 7, (2, 4)),
+    ("9diags", 1, (1, 2)),
+    ("9diags", 11, (4, 3)),
+    ("9diags_wide", 7, (4, 2)),
+    ("11diags", 11, (4, 4)),
+    ("11diags", 7, None),
+    ("wide_small", 7, (2, 2)),
+    ("outside", 5, (4, 3)),
+    ("lap3d_20x17x5", 7, (4, 2)),
+    ("lap3d_20x17x5", 11, None),
+]
+
+
+def _halo(offs, n):
+    return max((abs(d) for d in offs if abs(d) < n), default=0)
+
+
+def _plan(offs, n, M, shape):
+    if shape is None:
+        return ck.multistep_plan(offs, n, M, torch.float32, 4)
+    cols, strips = shape
+    return ck._stream_shape(_halo(offs, n), n, M, cols, strips)
+
+
+def _carry(n, M, dtype, seed=1):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((M, n)).astype(dtype) for _ in range(3)]
+
+
+def _plain(dia, offs, carry, sc, sh, cs, dtype):
+    tdtype = torch.float64 if dtype == np.float64 else torch.float32
+    t0, t1, acc = (torch.as_tensor(x.copy()) for x in carry)
+    out0, out1 = torch.empty_like(t0), torch.empty_like(t0)
+    ck.cheb_step4_plain(torch.as_tensor(dia, dtype=tdtype), offs, t0, t1,
+                        acc, out0, out1, sc, sh, cs)
+    return out0.numpy(), out1.numpy(), acc.numpy()
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("op,M,shape", CASES,
+                         ids=[f"{o}-M{m}-{s if s else 'plan'}"
+                              for o, m, s in CASES])
+def test_schedule_matches_plain(op, M, shape, dtype, tol):
+    dia, offs, n = OPERATORS[op]()
+    plan = _plan(offs, n, M, shape)
+    assert plan is not None
+    carry = _carry(n, M, dtype)
+    sc, sh = dtype(0.37), dtype(0.61)
+    cs = [dtype(c) for c in
+          np.random.default_rng(2).standard_normal(4) * 0.1]
+    got = _emulate(dia.astype(dtype), offs, *carry, sc, sh, cs, plan)
+    want = _plain(dia.astype(dtype), offs, carry, float(sc), float(sh),
+                  [float(c) for c in cs], dtype)
+    scale = float(np.abs(want[2]).max())
+    for g, w in zip(got, want):
+        assert not np.isnan(g).any()
+        assert float(np.abs(g - w).max()) / scale <= tol
+
+
+@pytest.mark.parametrize("offs,N,M", [
+    ((-1024, -1, 0, 1, 1024), 1024 ** 2, 72),
+    ((-2048, -1, 0, 1, 2048), 2048 ** 2, 72),
+    ((-257, -256, -255, -1, 0, 1, 255, 256, 257), 65536, 72),
+    ((-37, -1, 0, 1, 37), 1073, 11),
+    ((-60, -1, 0, 1, 60), 100, 1),
+    ((-1, 0, 1), 1073, 7)])
+def test_stream_plan_fields(offs, N, M):
+    plan = ck.multistep_plan(offs, N, M, torch.float32, 4)
+    R, L, C = plan["chunk"], plan["lag"], plan["cols"]
+    assert C in (1, 2, 4) and R == 256
+    assert 1 <= plan["blocks_per_sm"] <= 4 // C
+    assert plan["groups"] * C >= M > (plan["groups"] - 1) * C
+    assert (L - 1) * R >= plan["halo"] > (L - 2) * R
+    # the rings: 9 L + 3 chunks per column, within the block's budget
+    assert plan["shared_bytes"] == C * (9 * L + 3) * R * 4
+    assert plan["shared_bytes"] <= ck.SHARED_BYTES_PER_BLOCK
+    assert plan["tile"] % R == 0 and plan["depth"] == 0
+    assert plan["tiles"] * plan["tile"] >= N > (plan["tiles"] - 1) * plan[
+        "tile"]
+    reckoned = ck.reckoned_traffic(plan, offs, N)
+    assert reckoned["recompute"] >= 1.0
+    assert reckoned["l2_bytes_per_element"] > 24.0
+
+
+def test_stream_plan_at_the_main_shapes():
+    # 18 groups of 4 columns x 7 strips: one block per multiprocessor of
+    # the 132, one wave; a pass requests ~45 B per element from L2 (24 B
+    # of planes), the tiled body ~155 B
+    offs, N = (-1024, -1, 0, 1, 1024), 1024 ** 2
+    plan = ck.multistep_plan(offs, N, 72, torch.float32, 4)
+    assert (plan["chunk"], plan["cols"], plan["lag"]) == (256, 4, 5)
+    assert plan["groups"] * plan["tiles"] == 126
+    streamed = ck.reckoned_traffic(plan, offs, N)
+    assert streamed["recompute"] < 1.02
+    assert 44 < streamed["l2_bytes_per_element"] < 46
+    tiled = ck.reckoned_traffic(
+        ck._tiled_plan(offs, N, 72, torch.float32, 4), offs, N)
+    assert tiled["l2_bytes_per_element"] > 3 * streamed[
+        "l2_bytes_per_element"]
+
+
+def test_stream_plan_refuses_bad_block_shapes():
+    offs = (-1, 0, 1)
+    with pytest.raises(ValueError, match="cols"):
+        ck._stream_shape(1, 1000, 4, 3, 1)
+    # a halo the rings of one column cannot hold
+    assert ck._stream_plan((-6000, 0, 6000), 10**6, 4) is None
+    # only the f32 four-step kernel streams; the others keep their tiles
+    for dtype, steps in ((torch.float64, 4), (torch.float32, 2)):
+        plan = ck.multistep_plan(offs, 1000, 4, dtype, steps)
+        assert "chunk" not in plan and plan == ck._tiled_plan(
+            offs, 1000, 4, dtype, steps)
+
+
+@pytest.mark.parametrize("halo,cols,depth,fits", [
+    (1024, 4, 1, True),      # the main shapes: one iteration in flight
+    (1024, 4, 2, False),     # three stage slots do not fit beside the rings
+    (257, 4, 7, True),       # nine diagonals at P=8: up to 7 in flight
+    (257, 4, 8, False)])
+def test_stream_plan_stage_slots(halo, cols, depth, fits):
+    # the cp.async variant adds depth + 1 slots of T1, T0 and acc chunks
+    # after the rings
+    plan = ck._stream_shape(halo, 1024 ** 2, 72, cols, depth=depth)
+    assert (plan is not None) == fits
+    if fits:
+        L = plan["lag"]
+        assert plan["shared_bytes"] == cols * (
+            9 * L + 3 + 3 * (depth + 1)) * 256 * 4
+        assert plan["shared_bytes"] <= ck.SHARED_BYTES_PER_BLOCK
+
+
+@pytest.mark.parametrize("offs,N,M,cols", [
+    # the 7-point stencil on a 32^3 grid: 4 columns per block
+    ((-1024, -32, -1, 0, 1, 32, 1024), 32 ** 3, 72, 4),
+    # a 2048^2 grid (the tile plan's too): 2 columns, one block per SM
+    ((-2048, -1, 0, 1, 2048), 2048 ** 2, 72, 2),
+    # the widest halo two columns' rings hold
+    ((-2816, -1, 0, 1, 2816), 3000 ** 2, 72, 2),
+    # 64^3 (halo 4096, beyond the tile plan's reach): one column alone on
+    # its multiprocessor, refused (the solver takes 2-step passes) ...
+    ((-4096, -64, -1, 0, 1, 64, 4096), 64 ** 3, 72, None),
+    ((-2817, -1, 0, 1, 2817), 3000 ** 2, 72, None),
+    # ... but taken for a single column, where the strips fill the card
+    ((-4096, -64, -1, 0, 1, 64, 4096), 64 ** 3, 1, 1)])
+def test_stream_plan_columns_in_flight(offs, N, M, cols):
+    plan = ck.multistep_plan(offs, N, M, torch.float32, 4)
+    assert (plan and plan["cols"]) == cols
+    if plan is None:
+        assert ck._tiled_plan(offs, N, M, torch.float32, 4) is None
+        assert ck.multistep_plan(offs, N, M, torch.float32, 2) is not None
+    else:
+        assert plan["blocks_per_sm"] * plan["cols"] >= min(M, 2)

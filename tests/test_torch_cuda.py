@@ -129,6 +129,70 @@ def test_multistep_kernel_other_diagonal_counts(name, plain, S, dtype, tol,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,M,shape", [
+    (37, 29, 11, (4, 3)),    # ragged column groups and strips
+    (300, 9, 7, (4, 2)),     # a halo over two chunks
+    (600, 5, 1, (1, 3)),     # a halo over three chunks
+    (33, 33, 40, None),      # the solver's own plan
+    (40, 3, 5, (2, 2))],     # 2 max|offset| > N
+    ids=["nx37", "nx300", "nx600-M1", "plan", "wide"])
+def test_streamed_kernel_block_shapes(nx, ny, M, shape):
+    # the streamed four-step kernel under column groups and strip counts
+    # that reach the edges of its schedule (tests/test_torch_cheb_stream.py
+    # rehearses the same cases on the CPU): two passes against the plain
+    # version
+    _need_cuda()
+    dia, offs = _operator(nx, ny)
+    N = nx * ny
+    plan = None
+    if shape is not None:
+        cols, strips = shape
+        halo = max(abs(d) for d in offs if abs(d) < N)
+        plan = ck._stream_shape(halo, N, M, cols, strips)
+    _streamed_two_passes(dia, offs, N, M, plan)
+
+
+def _streamed_two_passes(dia, offs, N, M, plan):
+    g = torch.Generator().manual_seed(1)
+    d = torch.as_tensor(dia, dtype=torch.float32).cuda()
+    k = [torch.randn(M, N, generator=g).cuda() for _ in range(5)]
+    p = [t.clone() for t in k]
+    before = ck.cheb_step4_f32.launches
+    coeffs = np.random.default_rng(2).standard_normal(8) * 0.1
+    for i in (0, 4):
+        ck._multistep(ck.cheb_step4_f32, 4, torch.float32, d, offs, *k, 0.3,
+                      0.6, coeffs[i:i + 4], plan=plan)
+        ck.cheb_step4_plain(d, offs, *p, 0.3, 0.6, coeffs[i:i + 4])
+        k = [k[3], k[4], k[2], k[0], k[1]]
+        p = [p[3], p[4], p[2], p[0], p[1]]
+    torch.cuda.synchronize()
+    assert ck.cheb_step4_f32.launches == before + 2
+    scale = p[2].abs().max()
+    for a, b in zip(k[:3], p[:3]):
+        assert float((a - b).abs().max() / scale) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offs,N,M,depth", [
+    ((-340, -20, -1, 0, 1, 20, 340), 1700, 11, 0),    # the ND = 7 body
+    ((-37, -1, 0, 1, 37), 1073, 7, 1),                # cp.async, in flight:
+    ((-300, -1, 0, 1, 300), 2700, 4, 3),              # 1, 3 and 7
+    ((-34, -33, -32, -1, 0, 1, 32, 33, 34), 1089, 12, 7)],
+    ids=["7diags", "async1", "async3", "async7-9diags"])
+def test_streamed_kernel_variants(offs, N, M, depth):
+    # the seven-diagonal body and the cp.async variant (four columns, five
+    # or nine diagonals) against the plain version
+    _need_cuda()
+    rng = np.random.default_rng(3)
+    dia = np.zeros((len(offs), N))
+    for k, d in enumerate(offs):
+        dia[k, max(0, -d):N - max(0, d)] = rng.random(N - abs(d)) - 0.5
+    halo = max(abs(d) for d in offs)
+    _streamed_two_passes(dia, offs, N, M,
+                         ck._stream_shape(halo, N, M, 4, 3, depth=depth))
+
+
+@pytest.mark.cuda
 def test_feast_on_cuda_matches_cpu():
     _need_cuda()
     nx = 40
