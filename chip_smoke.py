@@ -24,22 +24,16 @@ Phases, each printed before the last line:
      7 and 11 diagonals); T outputs and acc,
      tolerance relative to max|acc|: f32 1e-5, fp64 1e-13. Then each
      kernel's time per launch and per step, its plain version's time, the
-     bound, and a torch.sparse.mm (CSR) matvec for scale; the streamed
-     cheb_step4_f32 (cheb_stream4.cu) and the tiled body of the same pass
-     (cheb_step4_f32_tiled, cheb_multistep.cu; checked against the plain
-     version too) timed in turns (streamed, tiled, tiled, streamed) at the
-     main shapes, with the bound and each plan's reckoned L2 bytes per
-     element; and the Rayleigh-Ritz update's time at the main path's
-     shapes;
+     bound, a torch.sparse.mm (CSR) matvec for scale, and each multi-step
+     plan's block shape and reckoned L2 bytes per element; and the
+     Rayleigh-Ritz update's time at the main path's shapes;
   3b. the SPD-B composite's kernels (the column-major one-step entries
      cheb_step_cm_f32/f64 and the combine cheb_combine_f32/f64) against
      their plain versions at the P=8 consistent-mass shapes (N = 65,536,
      M = 72, the nine-diagonal B~) and at awkward shapes, same
      tolerances, and their times; and the 2- and 4-step kernels on the
      nine-diagonal operator with the ND = 9 instantiation and with the
-     run-time-count body, each checked and timed (the four-step f32 pass
-     also through the tiled body and its run-time-count body, timed for
-     comparison);
+     run-time-count body, each checked and timed;
   3c. the DIA matvec kernels of ops/csrc/dia_matvec.cu (dia_matvec_f32/f64
      and dia_matvec_batched_f32/f64) against their plain version at the
      Krylov path's P=8 shapes (N = 65,536, five diagonals: fp64 M = 72,
@@ -273,7 +267,7 @@ KERNELS = {   # name -> (steps per launch, source, TPU kernel it replaces)
                        "feastkit_tpu/ops/cheb_pallas.py:847"),
     "cheb_step2_f64": (2, "cheb_multistep.cu",
                        "feastkit_tpu/ops/cheb_pallas.py:370"),
-    "cheb_step4_f64": (4, "cheb_multistep.cu",
+    "cheb_step4_f64": (4, "cheb_stream4.cu",
                        "feastkit_tpu/ops/cheb_pallas.py:522"),
 }
 
@@ -475,8 +469,13 @@ def phase_kernels(card_name):
                     if S > 1 else None)
             if plan:
                 rec = ck.reckoned_traffic(plan, offsets, N, size)
-                line += (f"\n      tile {plan['tile']} rows x {plan['tiles']}"
-                         f" tiles x {M} columns, halo {plan['halo']}, "
+                shape = (f"strips of {plan['tile']} rows x {plan['groups']} "
+                         f"groups of {plan['cols']} columns = "
+                         f"{plan['tiles'] * plan['groups']} blocks, lag "
+                         f"{plan['lag']}" if "chunk" in plan else
+                         f"tile {plan['tile']} rows x {plan['tiles']} tiles "
+                         f"x {M} columns")
+                line += (f"\n      {shape}, halo {plan['halo']}, "
                          f"{plan['shared_bytes']} B shared per block; "
                          "reckoned from the plan, not measured: recompute "
                          f"{rec['recompute']:.3f}, L2 bytes per element "
@@ -487,56 +486,9 @@ def phase_kernels(card_name):
                 plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if nbytes / bw >= flops / peak
                 else "operations", csr_spmm_ms=csr_ms)
-            if name == "cheb_step4_f32":
-                out[name].update(_stream_vs_tiled(
-                    torch, ck, dia, offsets, carry, sc, sh, cs, bound_ms))
             del carry
             torch.cuda.empty_cache()
         del dia
-    return out
-
-
-def _stream_vs_tiled(torch, ck, dia, offsets, carry, sc, sh, cs, bound_ms):
-    """The streamed cheb_step4_f32 and the tiled body of the same pass
-    (cheb_step4_f32_tiled) at the main shapes: the tiled body against the
-    plain version, then both timed in turns (streamed, tiled, tiled,
-    streamed) on the same carry, with each plan's reckoned L2 bytes per
-    element."""
-    M, N = carry[0].shape
-    plain = ck.cheb_step4_plain
-    _, rel = _compare_multi(torch, ck.cheb_step4_f32_tiled, plain, 4, dia,
-                            offsets, carry[:3], sc, sh, cs[:8])
-    check(rel <= 1e-5, "cheb_step4_f32_tiled agrees with its plain version "
-          "at the main path's shapes")
-    cks = [0.01] * 4
-    bodies = {"streamed": ck.cheb_step4_f32,
-              "tiled": ck.cheb_step4_f32_tiled}
-    times = {k: [] for k in bodies}
-    for body in ("streamed", "tiled", "tiled", "streamed"):
-        def step(wrapper=bodies[body]):
-            wrapper(dia, offsets, *carry, sc, sh, cks)
-            carry[:] = [carry[3], carry[4], carry[2], carry[0], carry[1]]
-        times[body].append(cuda_time_ms(step, 100))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plans = {"streamed": ck._stream_plan(offsets, N, M, sms),
-             "tiled": ck._tiled_plan(offsets, N, M, torch.float32, 4)}
-    out = {}
-    for body, ts in times.items():
-        plan = plans[body]
-        rec = ck.reckoned_traffic(plan, offsets, N)
-        ms = float(np.mean(ts))
-        shape = (f"chunks of {plan['chunk']} rows x {plan['cols']} columns, "
-                 f"lag {plan['lag']}" if body == "streamed"
-                 else "1 column x tile")
-        print(f"   A/B {body}: {ts[0]:.4f}, {ts[1]:.4f} ms/launch (mean "
-              f"{ms:.4f}, {bound_ms / ms:.1%} of the {bound_ms:.4f} ms "
-              f"bound); {shape} {plan['tile']} rows x {plan['tiles']} "
-              f"strips/tiles, {plan['shared_bytes']} B shared per block; "
-              "reckoned from the plan, not measured: L2 bytes per element "
-              f"{rec['l2_bytes_per_element']:.1f}, recompute "
-              f"{rec['recompute']:.3f}", flush=True)
-        out[f"{body}_ab_ms"] = ts
-    out["tiled_max_rel_err"] = rel
     return out
 
 
@@ -552,104 +504,143 @@ def _lap3d_dia(nx):
     return bcoo_to_dia(A.data, np.stack([A.row, A.col], axis=1), nx ** 3)
 
 
+def _lap2d_rect_dia(nx, ny):
+    """The 2D Laplacian on an nx x ny grid in DIA form (offsets +-1,
+    +-nx): a halo of nx rows at N = nx ny."""
+    import scipy.sparse as sp
+    from feastkit_tpu_torch.ops.dia import bcoo_to_dia
+    def D(k):
+        return sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(k, k))
+    A = (sp.kron(D(ny), sp.eye(nx)) + sp.kron(sp.eye(ny), D(nx))).tocoo()
+    return bcoo_to_dia(A.data, np.stack([A.row, A.col], axis=1), nx * ny)
+
+
 def stream_sweep(card_name):
-    """``--stream-sweep``: cheb_step4_f32 (the streamed kernel) under
-    block shapes and bodies the plan does not take, M = 72, each checked
-    against the plain version and timed between two timings of what it is
-    compared with:
-    - the main shapes (five diagonals, N = 1,048,576) and the nine-diagonal
-      P=8 shapes (N = 65,536) with 4, 2 and 1 columns per block (the
-      plan's default is 4), against the tiled body;
-    - the same shapes with 4 columns and T1, T0 and acc brought in with
-      cp.async, 1 iteration in flight at the main shapes (no more fits
-      the shared memory) and 1, 2, 4 and 7 at nine diagonals, against the
+    """``--stream-sweep``: the streamed four-step kernels under block
+    shapes, schedules and bodies the plan does not take, M = 72, each
+    checked against the plain version and timed between two timings of
+    what it is compared with:
+    - f32 (cheb_step4_f32) at the main shapes (five diagonals,
+      N = 1,048,576) and the nine-diagonal P=8 shapes (N = 65,536): 2 and
+      1 columns per block against the plan's 4, and T1, T0 and acc brought
+      in with cp.async (1 iteration in flight at the main shapes, no more
+      fits the shared memory; 1, 2, 4 and 7 at nine diagonals) against the
       register prefetch the plan takes;
-    - wider halos: the 2D Laplacian on a 2048^2 grid (halo 2048: two
-      columns per block, one block per SM) and the 7-point 3D Laplacian
-      on 32^3 and 64^3 grids (halos 1024 and 4096,
-      scripts/scale_sparse_3d.py): the plan's body (ND = 7 in 3D) against
-      the run-time-count body (3D), the tiled body where its plan takes
-      the shape, and two passes of cheb_step2_f32 (the route where the
-      streamed plan refuses the shape, as it does 64^3: there the sweep
-      times the one column per block it would take, in one and in two
-      strips)."""
+    - fp64 (cheb_step4_f64) at the same shapes: the strips cut for 2 and
+      3 waves of resident blocks against one wave (the plan takes the cut
+      its reckoning says is least), and 1 column per block against the
+      plan's 2;
+    - wider halos: the 2D Laplacian on a 2048^2 grid (halo 2048) and the
+      7-point 3D Laplacian on 32^3 and 64^3 grids (halos 1024 and 4096,
+      scripts/scale_sparse_3d.py) in f32; in fp64 the 2D Laplacian on
+      1030^2 and 2048^2 grids; and in both the widest halo one column's
+      rings hold (a 2D grid of 5632 x 256 in f32, 2816 x 512 in fp64):
+      the plan's block shape, or one column per block, against two passes
+      of cheb_step2 (the route where the four-step plan refuses a shape),
+      the 3D grids against the run-time-count body too, and the plan's
+      strip cut against one wave where they differ.
+    Then each instantiation's registers and spills (nvcc -Xptxas -v)."""
     import torch
     from feastkit_tpu_torch.ops import cheb_kernels as ck
-    from feastkit_tpu_torch.ops.dia import bcoo_to_dia
-    from feastkit_tpu_torch.solvers.sparse import sparse_coo_arrays
     bw, _, _ = _card_rates(card_name)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"== sweep: block shapes and bodies of the streamed 4-step kernel "
           f"({sms} SMs)", flush=True)
-    data, idx, _ = sparse_coo_arrays(lap2d(1024), np.float64)
-    d5, o5 = bcoo_to_dia(data, idx, 1024 * 1024)
     A, B, _ = consistent_mass_pencil(8)
     (_, _), (d9, o9) = congruenced_dia(A, B)
-    M, f32 = 72, torch.float32
+    M = 72
     cks = [0.01] * 4
-    sh = np.float32(1.0)
     rows = []
-    data, idx, _ = sparse_coo_arrays(lap2d(2048), np.float64)
-    d5w, o5w = bcoo_to_dia(data, idx, 2048 * 2048)
-    operators = [("nd5", d5, o5), ("nd9", d9, o9), ("lap2d_2048", d5w, o5w),
-                 ("lap3d_32", *_lap3d_dia(32)), ("lap3d_64", *_lap3d_dia(64))]
-    for label, dia_np, offsets in operators:
+    f32, f64 = torch.float32, torch.float64
+    operators = [("nd5", f32, 1024, 1024), ("nd9", f32, d9, o9),
+                 ("lap2d_2048", f32, 2048, 2048), ("lap3d_32", f32, 32, None),
+                 ("lap3d_64", f32, 64, None),
+                 ("lap2d_5632x256", f32, 5632, 256),
+                 ("nd5", f64, 1024, 1024), ("nd9", f64, d9, o9),
+                 ("lap2d_1030", f64, 1030, 1030),
+                 ("lap2d_2048", f64, 2048, 2048),
+                 ("lap2d_2816x512", f64, 2816, 512)]
+    for label, dtype, a, b in operators:
+        if label == "nd9":
+            dia_np, offsets = a, b
+        elif b is None:
+            dia_np, offsets = _lap3d_dia(a)
+        else:
+            dia_np, offsets = _lap2d_rect_dia(a, b)
+        size = torch.finfo(dtype).bits // 8
+        rung = "f32" if dtype == f32 else "f64"
+        wrapper = getattr(ck, f"cheb_step4_{rung}")
         # sc maps the spectrum ([0, 8] in 2D, [0, 12] in 3D) into [-1, 1],
         # so the carry stays bounded over the timed passes
-        sc = np.float32(1 / 6 if label.startswith("lap3d") else 0.25)
+        sc = 1 / 6 if label.startswith("lap3d") else 0.25
+        sh = 1.0
+        tol = 1e-5 if dtype == f32 else 1e-13
         N = dia_np.shape[1]
         halo = max(abs(d) for d in offsets if abs(d) < N)
-        dia = torch.as_tensor(dia_np, device="cuda").to(f32)
-        bound_ms = (6 * N * M + len(offsets) * N) * 4 / bw * 1e3
-        carry = _planes(torch, f32, (M, N), 5, 21)
+        dia = torch.as_tensor(dia_np, device="cuda").to(dtype)
+        bound_ms = (6 * N * M + len(offsets) * N) * size / bw * 1e3
+        carry = _planes(torch, dtype, (M, N), 5, 21)
 
         def streamed(plan=None, defines=()):
             def run(planes):
-                ck._multistep(ck.cheb_step4_f32, 4, f32, dia, offsets,
-                              *planes, sc, sh, cks, defines=defines,
-                              plan=plan)
+                ck._multistep(wrapper, 4, dtype, dia, offsets, *planes, sc,
+                              sh, cks, defines=defines, plan=plan)
             return run
 
-        def tiled(planes):
-            ck.cheb_step4_f32_tiled(dia, offsets, *planes, sc, sh, cks)
+        def shape(cols, **kw):
+            return ck._stream_shape(halo, N, M, cols, sms=sms, itemsize=size,
+                                    **kw)
+
+        def named(plan):
+            blocks = plan["tiles"] * plan["groups"]
+            waves = -(-blocks // (plan["blocks_per_sm"] * sms))
+            return (f"{plan['cols']} column" + "s" * (plan["cols"] > 1)
+                    + f", {blocks} blocks in {waves} wave" + "s" * (waves > 1))
 
         def two_step_twice(planes):
+            step2 = getattr(ck, f"cheb_step2_{rung}")
             for i in (0, 2):
-                ck.cheb_step2_f32(dia, offsets, *planes, sc, sh,
-                                  cks[i:i + 2])
+                step2(dia, offsets, *planes, sc, sh, cks[i:i + 2])
                 planes[:] = [planes[3], planes[4], planes[2], planes[0],
                              planes[1]]
             planes[:] = [planes[3], planes[4], planes[2], planes[0],
                          planes[1]]      # undone by the caller's rotation
 
         # (variant, its function, baseline, its function)
+        plan = ck._stream_plan(offsets, N, M, sms, size)
+        pairs = []
         if label in ("nd5", "nd9"):
-            pairs = [(f"{cols} column" + "s" * (cols > 1), streamed(
-                ck._stream_shape(halo, N, M, cols, sms=sms)), "tiled", tiled)
-                for cols in (4, 2, 1)]
-            pairs += [(f"cp.async {depth} in flight", streamed(
-                ck._stream_shape(halo, N, M, 4, depth=depth, sms=sms)),
-                "register prefetch", streamed())
-                for depth in ((1,) if label == "nd5" else (1, 2, 4, 7))]
+            base = (f"plan, {named(plan)}", streamed())
+            if dtype == f32:
+                pairs += [(named(shape(c)), streamed(shape(c)), *base)
+                          for c in (2, 1)]
+                pairs += [(f"cp.async {depth} in flight", streamed(
+                    shape(4, depth=depth)), "register prefetch", streamed())
+                    for depth in ((1,) if label == "nd5" else (1, 2, 4, 7))]
+            else:
+                one = shape(plan["cols"], waves=1)
+                pairs += [(f"{w} waves, {named(shape(plan['cols'], waves=w))}",
+                           streamed(shape(plan["cols"], waves=w)),
+                           f"1 wave, {named(one)}", streamed(one))
+                          for w in (2, 3)]
+                pairs.append((named(shape(1)), streamed(shape(1)), *base))
         else:
-            # the plan's body, or where the plan refuses the shape, the
-            # one column per block it would otherwise take
-            plan = ck._stream_plan(offsets, N, M, sms)
-            shape = plan or ck._stream_shape(halo, N, M, 1, sms=sms)
-            name = (f"plan, {plan['cols']} columns" if plan else
-                    "1 column, refused by the plan")
-            pairs = []
+            shp = plan or shape(1)
+            name = (f"plan, {named(plan)}" if plan else
+                    f"{named(shp)}, refused by the plan")
+            step2 = f"2 x cheb_step2_{rung}"
+            pairs.append((name, streamed(shp), step2, two_step_twice))
+            if plan and plan["cols"] > 1 and ck._stream_ring_bytes(
+                    halo, 1, itemsize=size) <= ck.SHARED_BYTES_PER_BLOCK:
+                pairs.append((named(shape(1)), streamed(shape(1)), step2,
+                              two_step_twice))
             if len(offsets) == 7:
-                pairs.append((name, streamed(shape), "run-time count",
-                              streamed(shape, RUNTIME_COUNT_ONLY)))
-            if ck._tiled_plan(offsets, N, M, f32, 4) is not None:
-                pairs.append((name, streamed(shape), "tiled", tiled))
-            pairs.append((name, streamed(shape), "2 x cheb_step2_f32",
-                          two_step_twice))
-            if plan is None:
-                pairs.append(("1 column, 2 strips", streamed(
-                    ck._stream_shape(halo, N, M, 1, 2)),
-                    "2 x cheb_step2_f32", two_step_twice))
+                pairs.append((name, streamed(shp), "run-time count",
+                              streamed(shp, RUNTIME_COUNT_ONLY)))
+            one = shape(shp["cols"], waves=1)
+            if one["tiles"] != shp["tiles"]:
+                pairs.append((name, streamed(shp), f"1 wave, {named(one)}",
+                              streamed(one)))
 
         def timed(fn):
             def step():
@@ -664,22 +655,67 @@ def stream_sweep(card_name):
             ck._multistep_plain(4, dia, offsets, *p_, sc, sh, cks)
             torch.cuda.synchronize()
             _, rel = _errors([k[3], k[4], k[2]], [p_[3], p_[4], p_[2]])
-            check(rel <= 1e-5, f"{label} {name} agrees with the plain "
+            check(rel <= tol, f"{rung} {label} {name} agrees with the plain "
                   "version")
             del k, p_
             t_a = timed(base)
             ms = timed(fn)
             t_b = timed(base)
-            print(f"   {label} (N={N}, halo {halo}) {name}: {ms:.4f} ms "
-                  f"({bound_ms / ms:.1%} of the {bound_ms:.4f} ms bound); "
+            print(f"   {rung} {label} (N={N}, halo {halo}) {name}: {ms:.4f} "
+                  f"ms ({bound_ms / ms:.1%} of the {bound_ms:.4f} ms bound); "
                   f"{base_name} {t_a:.4f} / {t_b:.4f} ms", flush=True)
-            rows.append(dict(operator=label, variant=name, ms=ms,
+            rows.append(dict(dtype=rung, operator=label, variant=name, ms=ms,
                              baseline=base_name, baseline_ms=[t_a, t_b],
                              bound_ms=bound_ms, max_rel_err=rel))
         del dia, carry
         torch.cuda.empty_cache()
     print(json.dumps({"stream_sweep": rows}), flush=True)
+    _ptxas_report()
     return rows
+
+
+def _ptxas_report():
+    """Registers and spill bytes of every instantiation of the streamed
+    kernel, as ptxas reports them (nvcc -Xptxas -v, the build's flags)."""
+    import re
+    from feastkit_tpu_torch.ops import cuda_build
+    src = cuda_build.SRC_DIR / "cheb_stream4.cu"
+    out = cuda_build.BUILD_DIR / "cheb_stream4.ptxas.cubin"
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [cuda_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", "-o", str(out),
+         str(src)], capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, "nvcc -Xptxas -v builds cheb_stream4.cu")
+    report, name = [], None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            t = re.search(
+                r"cheb_stream4_kernelI([fd])Li(\d+)ELi(\d+)ELb([01])E", name)
+            if t:
+                report.append(dict(
+                    dtype="f32" if t.group(1) == "f" else "f64",
+                    nd=int(t.group(2)), cols=int(t.group(3)),
+                    async_copies=t.group(4) == "1",
+                    registers=int(m.group(1)), spill_stores=spill[0],
+                    spill_loads=spill[1]))
+            name = None
+    for r in sorted(report, key=lambda r: (r["dtype"], r["cols"], r["nd"])):
+        print(f"   ptxas {r['dtype']} ND={r['nd']} cols={r['cols']}"
+              f"{' cp.async' if r['async_copies'] else ''}: "
+              f"{r['registers']} registers, spill stores "
+              f"{r['spill_stores']} B, loads {r['spill_loads']} B",
+              flush=True)
+    check(len(report) > 0, "ptxas reported the streamed kernel's registers")
+    print(json.dumps({"ptxas": report}), flush=True)
 
 
 def phase_gen_kernels(card_name):
@@ -803,10 +839,6 @@ def phase_gen_kernels(card_name):
             row = {}
             bodies = [("nd9", wrapper, ()),
                       ("runtime_count", wrapper, RUNTIME_COUNT_ONLY)]
-            if name == "cheb_step4_f32":
-                bodies += [("tiled", ck.cheb_step4_f32_tiled, ()),
-                           ("tiled_runtime_count", ck.cheb_step4_f32_tiled,
-                            RUNTIME_COUNT_ONLY)]
             for body, w, defines in bodies:
                 def kern(planes, cks, w=w, defines=defines):
                     ck._multistep(w, S, dtype, dia, offs, *planes,
@@ -829,11 +861,7 @@ def phase_gen_kernels(card_name):
                 del k, p_
             print(f"   {name} nd={nd} (tile {plan['tile']}): ND=9 body "
                   f"{row['nd9']['ms']:.4f} ms/launch, run-time-count body "
-                  f"{row['runtime_count']['ms']:.4f} ms/launch"
-                  + (f", tiled body {row['tiled']['ms']:.4f} ms/launch, its "
-                     "run-time-count body "
-                     f"{row['tiled_runtime_count']['ms']:.4f} ms/launch"
-                     if "tiled" in row else ""), flush=True)
+                  f"{row['runtime_count']['ms']:.4f} ms/launch", flush=True)
             out[f"{name}_nd9"] = row
         del dia
         torch.cuda.empty_cache()
@@ -1758,10 +1786,7 @@ def main(argv):
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None,
             steps_per_launch=steps, ms_per_step=k["ms_per_step"],
-            csr_spmm_ms=k["csr_spmm_ms"],
-            **{key: v for key, v in k.items()
-               if key in ("streamed_ab_ms", "tiled_ab_ms",
-                          "tiled_max_rel_err")}))
+            csr_spmm_ms=k["csr_spmm_ms"]))
     for name, k in dia_kernels.items():
         rows.append(dict(
             name=name, route="cuda",

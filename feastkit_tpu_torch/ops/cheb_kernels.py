@@ -25,8 +25,7 @@ its kernel (``csrc/cheb_step.cu``) or raises; on a CPU tensor it runs
 :func:`cheb_step_plain`. Each wrapper counts its launches in its
 ``launches`` attribute.
 
-The multi-step kernels (``csrc/cheb_multistep.cu``) run S = 2 or 4 steps
-per pass,
+The multi-step kernels run S = 2 or 4 steps per pass,
 
     T_{s+2} = 2 (sc * A @ T_{s+1} - sh * T_{s+1}) - T_s,   s = 0..S-1,
     acc += c_0 T_2 + c_1 T_3 + ...   (added in that order),
@@ -40,19 +39,17 @@ and return T_S, T_{S+1} and acc, the next pass's carry:
 
 Their carry is COLUMN-major: contiguous (M, N) tensors, one contiguous
 N-vector per subspace column (:func:`transpose_planes` converts). The
-stencil couples rows only. ``cheb_step4_f32`` (``csrc/cheb_stream4.cu``)
-streams: a thread block walks down a strip of rows for a group of columns
+stencil couples rows only. The four-step kernels (``csrc/cheb_stream4.cu``)
+stream: a thread block walks down a strip of rows for a group of columns
 in chunks, the four levels trailing one another by the stencil's reach,
-each level in a shared-memory ring. The other multi-step kernels
+each level in a shared-memory ring. The two-step kernels
 (``csrc/cheb_multistep.cu``) tile: a block works on a tile of rows of one
-column and keeps the intermediate levels of that tile, with their halos,
-in shared memory; that body of the f32 four-step pass stays callable as
-``cheb_step4_f32_tiled`` for timing the two against each other (the solver
-does not call it). :func:`multistep_plan` sizes the strip or the tile
-against the card's shared memory and says whether a shape fits. A block
-reads T0 and T1 in its neighbours' rows, so T_S and T_{S+1} are written to
-two separate output buffers (the chunk functions ping-pong two pairs);
-only acc is updated in place. On a CPU tensor the wrappers run
+column and keeps the intermediate level of that tile, with its halos, in
+shared memory. :func:`multistep_plan` sizes the strip or the tile against
+the card's shared memory and says whether a shape fits. A block reads T0
+and T1 in its neighbours' rows, so T_S and T_{S+1} are written to two
+separate output buffers (the chunk functions ping-pong two pairs); only
+acc is updated in place. On a CPU tensor the wrappers run
 :func:`cheb_step2_plain` / :func:`cheb_step4_plain`, which are S
 applications of :func:`cheb_step_plain`.
 
@@ -82,7 +79,7 @@ from .dia import dia_matvec_plain
 __all__ = ["cheb_step_f32", "cheb_step_f64", "cheb_step_plain",
            "cheb_step_cm_f32", "cheb_step_cm_f64", "cheb_step_cm_plain",
            "cheb_step2_f32", "cheb_step4_f32", "cheb_step2_f64",
-           "cheb_step4_f64", "cheb_step4_f32_tiled", "cheb_step2_plain",
+           "cheb_step4_f64", "cheb_step2_plain",
            "cheb_step4_plain",
            "cheb_combine_f32", "cheb_combine_f64", "cheb_combine_plain",
            "cheb_f32_chunk", "cheb_f64_chunk", "cheb_f32_cm_chunk",
@@ -100,12 +97,11 @@ _SM_SHARED_BYTES = 233472
 _SHARED_BYTES_TWO_BLOCKS = (_SM_SHARED_BYTES - 2 * 1024) // 2
 _TILE_ALIGN = 32
 # the streamed four-step kernel (csrc/cheb_stream4.cu): chunks of 256 rows
-# (its compile-time block of threads) and 1, 2 or 4 columns per block, 4 by
-# default (the fastest chip_smoke.py --stream-sweep times at the main
-# shapes, PERF.md); the streaming multiprocessors of an H100 SXM, the strip
-# count's default target
+# (its compile-time block of threads) and, by the bytes of a value, the
+# columns a block may take (a ring row of at most 16 bytes); the streaming
+# multiprocessors of an H100 SXM, the strip count's default target
 _STREAM_CHUNK = 256
-_STREAM_COLS = (1, 2, 4)
+_STREAM_COLS = {4: (1, 2, 4), 8: (1, 2)}
 _SMS = 132
 
 
@@ -312,60 +308,52 @@ def cheb_combine_f64(z, x, t0, f, sc, sh, ck):
 def multistep_plan(offsets, N, M, dtype, steps):
     """Plan of the ``steps``-step kernel (2 or 4) for an (M, N) carry of
     ``dtype``, or None when the shape does not fit this card: the streamed
-    plan (:func:`_stream_plan`) for the f32 four-step kernel, the tile plan
-    (:func:`_tiled_plan`) for the others. Both give ``steps``, ``tile``
-    (rows a block owns), ``tiles``, ``halo`` and ``shared_bytes``. Raises
-    if the streamed plan refuses a shape the tile plan of the same pass
-    takes. Pure function of its arguments: the routing among the 4-, 2-
-    and 1-step kernels is decided from it before any launch."""
+    plan (:func:`_stream_plan`) for the four-step kernels, the tile plan
+    (:func:`_tiled_plan`) for the two-step ones. Both give ``steps``,
+    ``tile`` (rows a block owns), ``tiles``, ``halo`` and ``shared_bytes``.
+    Pure function of its arguments: the routing among the 4-, 2- and
+    1-step kernels is decided from it before any launch."""
     if steps not in (2, 4):
         raise ValueError(f"steps must be 2 or 4, got {steps}")
-    if dtype != torch.float32 or steps != 4:
-        return _tiled_plan(offsets, N, M, dtype, steps)
-    plan = _stream_plan(offsets, N, M)
-    if plan is None and _tiled_plan(offsets, N, M, dtype, steps) is not None:
-        raise RuntimeError(
-            f"the streamed plan refuses N={N}, M={M}, offsets="
-            f"{tuple(offsets)}, which the tile plan takes")
-    return plan
+    if steps == 2:
+        return _tiled_plan(offsets, N, M, dtype)
+    return _stream_plan(offsets, N, M, itemsize=_itemsize(dtype))
 
 
-def _tiled_plan(offsets, N, M, dtype, steps):
-    """Tile plan of the tiled ``steps``-step body (``csrc/cheb_multistep.cu``)
-    for an (M, N) carry of ``dtype``, or None when the shape does not fit.
+def _itemsize(dtype):
+    return torch.finfo(dtype).bits // 8
+
+
+def _tiled_plan(offsets, N, M, dtype):
+    """Tile plan of the two-step body (``csrc/cheb_multistep.cu``) for an
+    (M, N) carry of ``dtype``, or None when the shape does not fit.
 
     A block of the kernel owns ``tile`` rows of one column and holds in
-    shared memory, with halo = max |offset|: level T2 on tile + 2 (S-1)
-    halo rows (T4 is later written over it), for S = 4 level T3 on tile +
-    4 halo rows, and the tile's partial accumulator: 2 tile + 2 halo
-    elements for S = 2, 3 tile + 10 halo for S = 4, within
-    ``SHARED_BYTES_PER_BLOCK``. The shape fits when the largest such tile
-    is at least as long as the 2 (S-1) halo rows recomputed beside it at
-    the first level (so a pass recomputes at most half of its work). Where
-    a tile of half the SM's shared memory is still twice that long, the
-    plan takes it, so that two blocks are resident per SM (the kernel is
-    latency-bound, and it is built for the 32 registers per thread that
-    two blocks of 1024 threads may have;
-    measured faster for the 2-step kernels at the main shapes, PERF.md);
-    the rows are then split into equal tiles. ``recompute`` and
+    shared memory, with halo = max |offset|, level T2 on tile + 2 halo
+    rows and the tile's partial accumulator: 2 tile + 2 halo elements,
+    within ``SHARED_BYTES_PER_BLOCK``. The shape fits when the largest such
+    tile is at least as long as the 2 halo rows recomputed beside it (so a
+    pass recomputes at most half of its work). Where a tile of half the
+    SM's shared memory is still twice that long, the plan takes it, so
+    that two blocks are resident per SM (the kernel is latency-bound, and
+    it is built for the 32 registers per thread that two blocks of 1024
+    threads may have; measured faster at the main shapes, PERF.md); the
+    rows are then split into equal tiles. ``recompute`` and
     ``planes_moved`` are reckoned from the tile and the halo, not read
     from the card."""
-    if steps not in (2, 4):
-        raise ValueError(f"steps must be 2 or 4, got {steps}")
     N, M = int(N), int(M)
-    itemsize = torch.finfo(dtype).bits // 8
+    itemsize = _itemsize(dtype)
     halo = max((abs(int(d)) for d in offsets if abs(int(d)) < N), default=0)
-    n_tile, n_halo = (3, 10) if steps == 4 else (2, 2)
-    min_tile = max(2 * (steps - 1) * halo, _TILE_ALIGN)
+    min_tile = max(2 * halo, _TILE_ALIGN)
 
     def largest_tile(shared_bytes):
         words = shared_bytes // itemsize
-        return (words - n_halo * halo) // n_tile // _TILE_ALIGN * _TILE_ALIGN
+        return (words - 2 * halo) // 2 // _TILE_ALIGN * _TILE_ALIGN
 
     tile_max = largest_tile(SHARED_BYTES_PER_BLOCK)
     if (N <= 0 or M <= 0 or len(offsets) > 32
             or tile_max < min_tile
-            or 2 * N + tile_max + (steps + 1) * halo + 1024 > 2**31 - 1):
+            or 2 * N + tile_max + 3 * halo + 1024 > 2**31 - 1):
         return None
     if largest_tile(_SHARED_BYTES_TWO_BLOCKS) >= 2 * min_tile:
         tile_max = largest_tile(_SHARED_BYTES_TWO_BLOCKS)
@@ -373,19 +361,20 @@ def _tiled_plan(offsets, N, M, dtype, steps):
     if tiles * M > 2**31 - 1:                # one block per (tile, column)
         return None
     tile = -(-(-(-N // tiles)) // _TILE_ALIGN) * _TILE_ALIGN
-    return dict(steps=steps, tile=tile, tiles=tiles, halo=halo,
-                shared_bytes=(n_tile * tile + n_halo * halo) * itemsize,
-                # arithmetic relative to S exact steps on the own rows
-                recompute=1.0 + (steps - 1) * halo / tile,
+    return dict(steps=2, tile=tile, tiles=tiles, halo=halo,
+                shared_bytes=(2 * tile + 2 * halo) * itemsize,
+                # arithmetic relative to 2 exact steps on the own rows
+                recompute=1.0 + halo / tile,
                 # (N, M) planes a pass reads and writes through the halos:
-                # T1 on tile + 2 S halo, T0 on tile + 2 (S-1) halo, acc
-                # read; T_S, T_{S+1}, acc written
-                planes_moved=6.0 + (4 * steps - 2) * halo / tile)
+                # T1 on tile + 4 halo, T0 on tile + 2 halo, acc read; T2,
+                # T3, acc written
+                planes_moved=6.0 + 6 * halo / tile)
 
 
-def _stream_plan(offsets, N, M, sms=_SMS):
-    """Plan of the streamed four-step kernel (``csrc/cheb_stream4.cu``),
-    or None when the shape does not fit.
+def _stream_plan(offsets, N, M, sms=_SMS, itemsize=4):
+    """Plan of the streamed four-step kernel (``csrc/cheb_stream4.cu``)
+    for a carry of ``itemsize``-byte values (4: f32, 8: fp64), or None
+    when the shape does not fit.
 
     A block of ``chunk`` = 256 threads walks down a strip of ``tile`` rows
     for a group of ``cols`` columns, ``chunk`` rows at a time, one thread
@@ -393,29 +382,32 @@ def _stream_plan(offsets, N, M, sms=_SMS):
     = 1 + ceil(halo / chunk) chunks, and each column keeps rings of
     2 lag + 1, 3 lag + 1, 2 lag + 1 and 2 lag chunks (T1..T4) in shared
     memory: 9 lag + 3 chunks per column, within ``SHARED_BYTES_PER_BLOCK``.
-    The group takes 4 columns (the fastest chip_smoke.py --stream-sweep
-    times at the main shapes, PERF.md), no more than M needs; where their
-    rings do not fit, 2 or 1. The shape fits when a multiprocessor holds
+    The group takes the widest ring row of 16 bytes, 4 f32 or 2 fp64
+    columns (the fastest chip_smoke.py --stream-sweep times at the main
+    and nine-diagonal shapes, PERF.md), no more than M needs; where their
+    rings do not fit, fewer. In f32 the shape fits when a multiprocessor holds
     at least two columns' blocks (``blocks_per_sm`` x ``cols``), or one
-    where M = 1: halo up to 2816 rows. One column per block alone on its
-    multiprocessor is latency-bound, slower than two 2-step passes (the
-    sweep's 64^3 Laplacian, PERF.md), which the solver then takes. The
-    strips fill one wave of resident blocks over the ``sms``
-    multiprocessors (default 132, an H100 SXM's), but no strip is shorter
-    than 6 halo rows (the rows the levels recompute beside it)."""
+    where M = 1: halo up to 2816 rows. One f32 column per block alone on
+    its multiprocessor is slower than two 2-step passes (the sweep's 5632
+    x 256 grid, PERF.md), which the solver then takes. In fp64 one column
+    alone is taken wherever its rings fit, halo up to 2816 rows: two fp64
+    2-step passes are slower there (the sweep's 1030^2, 2048^2 and 2816 x
+    512 grids). The strips are cut as :func:`_stream_shape` says."""
     N, M = int(N), int(M)
     if N <= 0 or M <= 0 or len(offsets) > 32:
         return None
     halo = max((abs(int(d)) for d in offsets if abs(int(d)) < N), default=0)
-    cols = 4
+    cols = _STREAM_COLS[itemsize][-1]
     while cols > 1 and cols // 2 >= M:
         cols //= 2
-    while _stream_ring_bytes(halo, cols) > SHARED_BYTES_PER_BLOCK:
+    while _stream_ring_bytes(halo, cols, itemsize=itemsize) \
+            > SHARED_BYTES_PER_BLOCK:
         if cols == 1:
             return None
         cols //= 2
-    plan = _stream_shape(halo, N, M, cols, sms=sms)
-    if plan is None or plan["blocks_per_sm"] * cols < min(M, 2):
+    plan = _stream_shape(halo, N, M, cols, sms=sms, itemsize=itemsize)
+    if plan is None or plan["blocks_per_sm"] * cols < (
+            min(M, 2) if itemsize == 4 else 1):
         return None
     return plan
 
@@ -427,27 +419,42 @@ def _stream_ring_bytes(halo, cols, depth=0, itemsize=4):
 
 
 def _stream_shape(halo, N, M, cols, strips=None, depth=0, sms=_SMS,
-                  itemsize=4):
+                  itemsize=4, waves=None):
     """The streamed kernel's plan for a given block shape: ``cols`` columns
-    per block (1, 2 or 4), the rows in ``strips`` equal chunk-aligned
-    strips, and ``depth`` iterations of ``cp.async`` copies in flight (0:
-    the loads go through registers one iteration ahead, as
-    :func:`_stream_plan` takes them). None where it does not fit.
+    per block (1, 2 or 4 in f32, 1 or 2 in fp64), the rows in ``strips``
+    equal chunk-aligned strips, and ``depth`` iterations of ``cp.async``
+    copies in flight (0: the loads go through registers one iteration
+    ahead, as :func:`_stream_plan` takes them). None where it does not fit.
     ``blocks_per_sm`` is how many such blocks a multiprocessor holds at
     once (its 228 KB of shared memory, 2048 threads, and 64 K registers at
-    the kernel's budget of 64 cols registers a thread). ``strips``
-    defaults to one wave of resident blocks over ``sms`` multiprocessors,
-    with no strip shorter than 6 halo rows."""
+    the kernel's budget: 64 cols 32-bit registers a thread in f32, 256 in
+    fp64, whose values take two). The grid is strips x groups (column
+    groups) blocks. Without ``strips``, the strips fill ``waves`` waves of
+    the resident blocks over ``sms`` multiprocessors, and no strip is
+    shorter than 6 halo rows; without ``waves``, the count of waves (1 to
+    4) whose reckoned time is least: per resident block, its waves times
+    the chunks a strip iterates over (its own, and 3 lag + 3 (lag - 1) of
+    warm-up and halo)."""
     R = _STREAM_CHUNK
-    if cols not in _STREAM_COLS:
-        raise ValueError(f"cols={cols}: one of {_STREAM_COLS}")
+    if cols not in _STREAM_COLS[itemsize]:
+        raise ValueError(f"cols={cols}: one of {_STREAM_COLS[itemsize]}")
     shared = _stream_ring_bytes(halo, cols, depth, itemsize)
     lag = 1 + -(-halo // R)
     groups = -(-M // cols)
+    regs = 64 * cols if itemsize == 4 else 256
     per_sm = max(1, min(_SM_SHARED_BYTES // (shared + 1024), 2048 // R,
-                        65536 // (R * 64 * cols)))
+                        65536 // (R * regs)))
+    resident = per_sm * sms
+
+    def cut(w):
+        k = max(1, min(w * resident // groups, N // max(6 * halo, R)))
+        rounds = -(-k * groups // resident)
+        return k, rounds * (-(-N // (k * R)) + 6 * lag - 3)
+
     if strips is None:
-        strips = max(1, min(per_sm * sms // groups, N // max(6 * halo, R)))
+        strips = (cut(waves)[0] if waves else
+                  min((cut(w) for w in range(1, 5)),
+                      key=lambda kc: kc[1])[0])
     tile = -(-(-(-N // strips)) // R) * R
     tiles = -(-N // tile)
     if (shared > SHARED_BYTES_PER_BLOCK or N + tile > 2**31 - 1
@@ -462,22 +469,20 @@ def _stream_shape(halo, N, M, cols, strips=None, depth=0, sms=_SMS,
 def reckoned_traffic(plan, offsets, N, itemsize=4):
     """What a multi-step pass under ``plan`` (streamed or tiled, for
     ``offsets`` and N rows) requests, reckoned from the plan and not read
-    from the card: ``recompute`` (rows the levels compute over four times
+    from the card: ``recompute`` (rows the levels compute over S times
     the own rows) and ``l2_bytes_per_element`` (bytes requested from L2
     per element of the carry). Streamed: T1 with its halo chunks, T0, acc
     read and written, T4 and T5 written, and each level's diagonals once
-    per block for its columns. Tiled: per own row of a column, every load
-    of a diagonal, of T1's neighbours and of T0 on the rows each level
-    computes (halos unclipped), acc read and written, T_S and T_{S+1}
+    per block for its columns. Tiled (two steps): per own row of a column,
+    every load of a diagonal, of T1's neighbours and of T0 on the rows each
+    level computes (halos unclipped), acc read and written, T2 and T3
     written."""
-    nd, halo, tile, S = len(offsets), plan["halo"], plan["tile"], plan[
-        "steps"]
+    nd, halo, tile = len(offsets), plan["halo"], plan["tile"]
     if "chunk" not in plan:
         return dict(recompute=plan["recompute"],
-                    l2_bytes_per_element=itemsize * (4 + sum(
-                        (2 * nd + 2 if s == 0 else nd + 1 if s == 1 else nd)
-                        * (tile + 2 * (S - 1 - s) * halo)
-                        for s in range(S)) / tile))
+                    l2_bytes_per_element=itemsize * (4 + (
+                        (2 * nd + 2) * (tile + 2 * halo)
+                        + (nd + 1) * tile) / tile))
     # per strip, as the kernel walks it: the own chunks and, per level s,
     # the chunks [lo[s], hi[s]) it computes (the own ones and (3-s) H more
     # each side, clipped to the matrix)
@@ -538,14 +543,12 @@ def cheb_step4_plain(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
 def _multistep_library(*defines):
     from .cuda_build import load
     lib = load("cheb_multistep", *defines)
-    for name, scalar, S in (("cheb_step2_f32", ctypes.c_float, 2),
-                            ("cheb_step4_f32_tiled", ctypes.c_float, 4),
-                            ("cheb_step2_f64", ctypes.c_double, 2),
-                            ("cheb_step4_f64", ctypes.c_double, 4)):
+    for name, scalar in (("cheb_step2_f32", ctypes.c_float),
+                         ("cheb_step2_f64", ctypes.c_double)):
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
                         ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int64] * 3 + [scalar] * (2 + S)
+                       + [ctypes.c_int64] * 3 + [scalar] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.cheb_multistep_error_string.argtypes = [ctypes.c_int]
@@ -557,11 +560,14 @@ def _multistep_library(*defines):
 def _stream_library(*defines):
     from .cuda_build import load
     lib = load("cheb_stream4", *defines)
-    lib.cheb_step4_f32.argtypes = (
-        [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
-        + [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
-        + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-    lib.cheb_step4_f32.restype = ctypes.c_int
+    for name, scalar in (("cheb_step4_f32", ctypes.c_float),
+                         ("cheb_step4_f64", ctypes.c_double)):
+        fn = getattr(lib, name)
+        fn.argtypes = (
+            [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
+            + [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
+            + [scalar] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     lib.cheb_stream4_error_string.argtypes = [ctypes.c_int]
     lib.cheb_stream4_error_string.restype = ctypes.c_char_p
     return lib
@@ -572,20 +578,16 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-# how _multistep launches a multi-step entry, by the wrapper's name: its
-# plan (of offsets, N, M, dtype, steps and the device), its library, the
-# library's error-string function and the plan's fields the C entry takes
-# after N and M; the entries not named take the tiled body's
-_ENTRIES = {
-    "cheb_step4_f32": (
-        lambda offsets, N, M, dtype, S, device: _stream_plan(
-            offsets, N, M, _sm_count(device)),
-        _stream_library, "cheb_stream4_error_string",
-        ("chunk", "cols", "tile", "depth")),
-}
+# how _multistep launches a multi-step entry: its plan (of offsets, N, M,
+# dtype and the device), its library, the library's error-string function
+# and the plan's fields the C entry takes after N and M
+_STREAM_ENTRY = (
+    lambda offsets, N, M, dtype, device: _stream_plan(
+        offsets, N, M, _sm_count(device), _itemsize(dtype)),
+    _stream_library, "cheb_stream4_error_string",
+    ("chunk", "cols", "tile", "depth"))
 _TILED_ENTRY = (
-    lambda offsets, N, M, dtype, S, device: _tiled_plan(offsets, N, M, dtype,
-                                                        S),
+    lambda offsets, N, M, dtype, device: _tiled_plan(offsets, N, M, dtype),
     _multistep_library, "cheb_multistep_error_string", ("tile",))
 
 
@@ -619,8 +621,8 @@ def _multistep(wrapper, S, dtype, diags, offsets, t0, t1, acc, out0, out1,
     """Check the operands, then launch ``wrapper``'s kernel on CUDA tensors
     (its plain version on CPU tensors). ``defines``: build flags of the
     kernel's library; ``plan``: a plan to launch with instead of the
-    entry's own (the streamed kernel's from :func:`_stream_shape`, a tiled
-    kernel's from :func:`_tiled_plan`)."""
+    entry's own (a four-step kernel's from :func:`_stream_shape`, a
+    two-step kernel's from :func:`_tiled_plan`)."""
     planes = (t0, t1, acc, out0, out1)
     _check_multistep(diags, offsets, planes, dtype)
     cs = [float(c) for c in cs]
@@ -633,10 +635,10 @@ def _multistep(wrapper, S, dtype, diags, offsets, t0, t1, acc, out0, out1,
     if not t0.is_cuda:
         raise ValueError(f"unsupported device {t0.device}")
     M, N = t0.shape
-    plan_of, library, error_name, fields = _ENTRIES.get(wrapper.__name__,
-                                                        _TILED_ENTRY)
+    plan_of, library, error_name, fields = (_STREAM_ENTRY if S == 4
+                                            else _TILED_ENTRY)
     if plan is None:
-        plan = plan_of(offsets, N, M, dtype, S, t0.device)
+        plan = plan_of(offsets, N, M, dtype, t0.device)
     if plan is None:
         raise ValueError(
             f"{wrapper.__name__}: N={N}, M={M}, offsets={tuple(offsets)} "
@@ -671,15 +673,6 @@ def cheb_step4_f32(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
                acc, out0, out1, sc, sh, cs)
 
 
-def cheb_step4_f32_tiled(diags, offsets, t0, t1, acc, out0, out1, sc, sh,
-                         cs):
-    """The same four f32 steps through the tiled body of
-    ``csrc/cheb_multistep.cu``, kept to be timed against
-    :func:`cheb_step4_f32`; the solver does not call it."""
-    _multistep(cheb_step4_f32_tiled, 4, torch.float32, diags, offsets, t0,
-               t1, acc, out0, out1, sc, sh, cs)
-
-
 def cheb_step2_f64(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
     """Two fused fp64 steps; see :func:`cheb_step2_f32`."""
     _multistep(cheb_step2_f64, 2, torch.float64, diags, offsets, t0, t1,
@@ -687,7 +680,8 @@ def cheb_step2_f64(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
 
 
 def cheb_step4_f64(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
-    """Four fused fp64 steps; see :func:`cheb_step4_f32`."""
+    """Four fused fp64 steps; see :func:`cheb_step4_f32` (the same
+    streamed kernel, ``csrc/cheb_stream4.cu``)."""
     _multistep(cheb_step4_f64, 4, torch.float64, diags, offsets, t0, t1,
                acc, out0, out1, sc, sh, cs)
 
@@ -702,7 +696,7 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for w in (*_WRAPPERS, cheb_step4_f32_tiled):
+    for w in _WRAPPERS:
         w.launches = 0
 
 

@@ -1,11 +1,11 @@
 // Four fused Chebyshev steps per pass for Hopper (sm_90a), as streamed
-// strips: cheb_step4_f32.
+// strips: cheb_step4_f32 and cheb_step4_f64.
 //
-// Replaces the Pallas TPU kernel _cheb_f32_4_kernel of
-// feastkit_tpu/ops/cheb_pallas.py (body :847, pallas_call :916). Its
-// contract is that of cheb_multistep.cu (which keeps the overlapped-tile
-// body of the same function as cheb_step4_f32_tiled): column-major (M, N)
-// carries, row-aligned DIA diagonals (nd, N) with offsets off_k,
+// Replaces the Pallas TPU kernels _cheb_f32_4_kernel (f32) and
+// _cheb_ds4_kernel (double-single, native fp64 here, as in cheb_step.cu) of
+// feastkit_tpu/ops/cheb_pallas.py (bodies :847 and :522, pallas_call :916
+// and :630). Column-major (M, N) carries, row-aligned DIA diagonals (nd, N)
+// with offsets off_k,
 //
 //   for s in 0..3:
 //     T_{s+2}[i] = 2 (sc sum_k diags[k, i] T_{s+1}[i + off_k] - sh T_{s+1}[i])
@@ -16,24 +16,23 @@
 //
 // What bounds it on this card: device memory. A pass must move 6 planes
 // (T0, T1 and acc read; T4, T5 and acc written) and the diagonals once:
-// 24 B per element in f32 plus 4 nd B per row; its arithmetic, 4 (2 nd + 6)
-// operations per element, is far below the ridge. The tiled body gives
-// each block one column's tile and recomputes the intermediate levels on
-// halos, reloading all nd diagonals through L1/L2 for every row of every
-// level of every column: some 155 B per element requested from L1/L2 at
-// the main shapes against the 24 B the bound counts, and three block-wide
-// barriers with a full drain per block.
+// 6 sizeof(T) B per element plus nd sizeof(T) B per row; its arithmetic,
+// 4 (2 nd + 6) operations per element, is far below the ridge in both
+// types. An overlapped-tile body (one column's tile per block, the
+// intermediate levels recomputed on halos) reloads all nd diagonals through
+// L1/L2 for every row of every level of every column: 155 B per element
+// requested at the main shapes in f32 against the 24 B the bound counts,
+// and 394 B in fp64 against 48.
 //
 // This body is the TPU kernel's sequential ring discipline done inside one
 // block. A block of 256 threads owns a strip of `tile` rows for a group of
-// COLS columns (1, 2 or 4, a template parameter; 4 at the main shapes) and
-// walks down it in chunks of 256 rows, one thread per row (the grid is
-// strips x column groups, a single wave at the main shapes). Level s
-// (computing T_{s+2}) trails level s-1 by L = 1 + ceil(halo / 256) chunks,
-// so at every iteration the four levels work on four different chunks
-// whose inputs were all finished in earlier iterations: one __syncthreads
-// per iteration, no drain inside the strip. The levels live in
-// shared-memory rings, indexed by chunk mod ring length:
+// COLS columns (1, 2 or 4 in f32, 1 or 2 in fp64, a template parameter; the
+// widest whose rings fit) and walks down it in chunks of 256 rows, one
+// thread per row. Level s (computing T_{s+2}) trails level s-1 by
+// L = 1 + ceil(halo / 256) chunks, so at every iteration the four levels
+// work on four different chunks whose inputs were all finished in earlier
+// iterations: one __syncthreads per iteration, no drain inside the strip.
+// The levels live in shared-memory rings, indexed by chunk mod ring length:
 //
 //   T1  2L+1 chunks   level 0's stencil source and level 1's prev
 //   T2  3L+1 chunks   level 1's source, level 2's prev, and read once more
@@ -47,10 +46,18 @@
 // Halo rows are recomputed only at a strip's two ends: level s covers the
 // strip's own chunks plus (3-s) ceil(halo/256) chunks each side, clipped
 // to the matrix. A ring row holds the group's columns side by side, so one
-// shared-memory access of up to 16 bytes reads or writes a row of all of
-// them, and a thread loads each diagonal once per (row, level) and applies
-// it to all its columns from a register: a block reads the diagonals of a
-// row 4 times for COLS columns, not 4.8 COLS times as the tiled body does.
+// shared-memory access of up to 16 bytes (4 f32 or 2 fp64 columns) reads
+// or writes a row of all of them, and a thread loads each diagonal once
+// per (row, level) and applies it to all its columns from a register: a
+// block reads the diagonals of a row 4 times for COLS columns, not 4.8 COLS
+// times as a tiled body does.
+//
+// The grid is strips x column groups, the group the fast index, so the
+// blocks of one strip read the same diagonals at about the same time,
+// from L2: one wave of resident blocks at the main shapes in f32, several
+// where the plan cuts the strips finer than one wave because the groups
+// alone would leave multiprocessors idle (36 fp64 groups of 2 columns
+// fill 108 of 132 SMs in one wave; 396 blocks fill all of them in 3).
 //
 // What limits it: one block of 256 threads per multiprocessor (the rings
 // take most of its shared memory) leaves few warps to hide latency, so the
@@ -60,7 +67,7 @@
 //   0, acc for level 3 and, where the registers allow, each level's
 //   diagonals) are issued one iteration ahead into registers, in flight
 //   during the previous iteration's arithmetic; stores are coalesced and
-//   never waited on. A variant (ASYNC, for 4 columns and five or nine
+//   never waited on. A variant (ASYNC, f32, 4 columns and five or nine
 //   diagonals; `depth` > 0 in the plan) brings T1, T0 and acc in with
 //   cp.async instead, `depth` iterations ahead, into a ring of depth + 1
 //   stage slots after the level rings; chip_smoke.py --stream-sweep times
@@ -80,14 +87,20 @@
 // A warp covers 32 consecutive rows, so global accesses are coalesced and
 // ring accesses are free of bank conflicts.
 //
+// The register budget a thread has (Budget below) follows from how many
+// blocks share a multiprocessor, and an fp64 value takes two registers:
+// the diagonals are prefetched only where two iterations' worth of them
+// take at most a third of that budget (f32: 4 columns, or 2 columns and
+// five diagonals; fp64: five diagonals).
+//
 // The diagonal count is a template parameter for the five-point (the main
 // path), the seven-point (the 3D Laplacian) and the nine-point (the
 // consistent-mass pencils) stencils, with a run-time count for every other
 // operator; -DCHEB_RUNTIME_COUNT_ONLY builds the run-time-count body
-// only. The element type is a template parameter; f32 is instantiated.
+// only. The element type is a template parameter, f32 and fp64.
 //
-// Plain C interface (bound with ctypes). The entry point launches on the
-// given stream, does not synchronise, and returns cudaGetLastError().
+// Plain C interface (bound with ctypes). The entry points launch on the
+// given stream, do not synchronise, and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -126,6 +139,19 @@ struct Plan {
   int depth;     // ASYNC: iterations of copies in flight (1..8)
 };
 
+// The 32-bit registers a thread may use: 64 K over the 256 threads of
+// each block that shares a multiprocessor, as many as the rings' shared
+// memory lets in at the widest halo of the block shape: f32 4 / COLS;
+// fp64 1 (a 1-column fp64 block could share its SM only at halos up to
+// 1024 rows, and its run-time-count body spills within 128 registers). A
+// value of T takes kWords registers.
+template <typename T, int COLS>
+struct Budget {
+  static constexpr int kWords = static_cast<int>(sizeof(T) / 4);
+  static constexpr int kMinBlocks = kWords == 1 ? 4 / COLS : 1;
+  static constexpr int kRegs = 65536 / (kChunk * kMinBlocks);
+};
+
 // one element from device memory into shared memory, asynchronously; with
 // valid false nothing is read and the element is zero
 template <typename T>
@@ -156,15 +182,17 @@ __device__ __forceinline__ void copy_wait(int pending) {
 }
 
 template <typename T, int ND, int COLS, bool ASYNC>
-__global__ void __launch_bounds__(kChunk, 4 / COLS)
+__global__ void __launch_bounds__(kChunk, Budget<T, COLS>::kMinBlocks)
 cheb_stream4_kernel(const T* __restrict__ diags, DiaOffsets offs, int nd_rt,
                     const T* __restrict__ t0, const T* __restrict__ t1,
                     T* __restrict__ acc, T* __restrict__ out0,
                     T* __restrict__ out1, Plan pl, T sc, T sh, Coeffs<T> ck) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // the diagonals are fetched an iteration ahead where two sets of 4 ND
-  // registers fit the thread's budget of 64 COLS, else loaded at use
-  constexpr bool kFetchD = ND > 0 && (COLS == 4 || (COLS == 2 && ND <= 5));
+  // the diagonals are fetched an iteration ahead where two iterations' 4 ND
+  // values take at most a third of the thread's register budget, else
+  // loaded at use
+  using B = Budget<T, COLS>;
+  constexpr bool kFetchD = ND > 0 && 8 * ND * B::kWords <= B::kRegs / 3;
   constexpr int kPre = kFetchD ? ND : 1;
   constexpr int R = kChunk;
   using RowT = Row<T, COLS>;
@@ -401,19 +429,30 @@ cheb_stream4_kernel(const T* __restrict__ diags, DiaOffsets offs, int nd_rt,
           term(k, dk, qn[s][k]);
         }
       } else {
-        // a run-time count: all of the level's diagonals loaded first, so
-        // their latencies overlap, then the terms (bounded by kMaxDiags)
+        // a run-time count: the level's diagonals loaded a batch at a time,
+        // all of a batch first so that their latencies overlap, then its
+        // terms (bounded by kMaxDiags; one batch in f32, batches of 16 in
+        // fp64, whose 32 values would not fit the registers beside the
+        // rest, each after the first only where the count reaches it)
+        constexpr int kBatch = kMaxDiags / B::kWords;
         const bool live = in_rows(row);
-        T d[kMaxDiags];
 #pragma unroll
-        for (int k = 0; k < kMaxDiags; ++k) {
-          d[k] = live && k < nd_rt
-                     ? __ldg(diags + static_cast<long long>(k) * n + row)
-                     : T(0);
-        }
+        for (int k0 = 0; k0 < kMaxDiags; k0 += kBatch) {
+          if (k0 > 0 && k0 >= nd_rt) break;   // uniform
+          T d[kBatch];
 #pragma unroll
-        for (int k = 0; k < kMaxDiags; ++k) {
-          if (k < nd_rt) term(k, d[k], neighbour(s, pos, offs.v[k]));
+          for (int k = 0; k < kBatch; ++k) {
+            d[k] = live && k0 + k < nd_rt
+                       ? __ldg(diags + static_cast<long long>(k0 + k) * n +
+                               row)
+                       : T(0);
+          }
+#pragma unroll
+          for (int k = 0; k < kBatch; ++k) {
+            if (k0 + k < nd_rt) {
+              term(k0 + k, d[k], neighbour(s, pos, offs.v[k0 + k]));
+            }
+          }
         }
       }
       const RowT center = ring[s][pos];
@@ -574,8 +613,8 @@ int launch_cols(const T* diags, const DiaOffsets& offs, int nd, const T* t0,
   return CHEB_LAUNCH(0, false);
 #else
   if (pl.depth > 0) {
-    // the cp.async variant: four columns, five or nine diagonals
-    if constexpr (COLS == 4) {
+    // the cp.async variant: f32, four columns, five or nine diagonals
+    if constexpr (COLS == 4 && std::is_same_v<T, float>) {
       if (nd == 5) return CHEB_LAUNCH(5, true);
       if (nd == 9) return CHEB_LAUNCH(9, true);
     }
@@ -594,9 +633,11 @@ int launch(const T* diags, const long long* offsets, int nd, const T* t0,
            const T* t1, T* acc, T* out0, T* out1, long long n, long long m,
            long long chunk, long long cols, long long tile, long long depth,
            T sc, T sh, Coeffs<T> ck, void* stream) {
+  // fp64 takes 1 or 2 columns per block (a ring row of 16 bytes at most)
+  const bool cols_ok =
+      cols == 1 || cols == 2 || (cols == 4 && sizeof(T) == 4);
   if (nd < 0 || nd > kMaxDiags || n < 0 || m < 0 || chunk != kChunk ||
-      (cols != 1 && cols != 2 && cols != 4) || tile <= 0 ||
-      tile % chunk != 0 || depth < 0 || depth > 8) {
+      !cols_ok || tile <= 0 || tile % chunk != 0 || depth < 0 || depth > 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0 || m == 0) return static_cast<int>(cudaSuccess);
@@ -642,8 +683,11 @@ int launch(const T* diags, const long long* offsets, int nd, const T* t0,
       return launch_cols<T, 2>(diags, offs, nd, t0, t1, acc, out0, out1, pl,
                                threads, blocks, sbytes, sc, sh, ck, st);
     default:
-      return launch_cols<T, 4>(diags, offs, nd, t0, t1, acc, out0, out1, pl,
-                               threads, blocks, sbytes, sc, sh, ck, st);
+      if constexpr (sizeof(T) == 4) {
+        return launch_cols<T, 4>(diags, offs, nd, t0, t1, acc, out0, out1,
+                                 pl, threads, blocks, sbytes, sc, sh, ck, st);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -660,6 +704,17 @@ int cheb_step4_f32(const float* diags, const long long* offsets, int nd,
   return launch<float>(diags, offsets, nd, t0, t1, acc, out0, out1, n, m,
                        chunk, cols, tile, depth, sc, sh,
                        Coeffs<float>{{c0, c1, c2, c3}}, stream);
+}
+
+int cheb_step4_f64(const double* diags, const long long* offsets, int nd,
+                   const double* t0, const double* t1, double* acc,
+                   double* out0, double* out1, long long n, long long m,
+                   long long chunk, long long cols, long long tile,
+                   long long depth, double sc, double sh, double c0,
+                   double c1, double c2, double c3, void* stream) {
+  return launch<double>(diags, offsets, nd, t0, t1, acc, out0, out1, n, m,
+                        chunk, cols, tile, depth, sc, sh,
+                        Coeffs<double>{{c0, c1, c2, c3}}, stream);
 }
 
 const char* cheb_stream4_error_string(int err) {

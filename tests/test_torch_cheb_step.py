@@ -354,9 +354,10 @@ LAP3D_2M = (-128 * 128, -128, -1, 0, 1, 128, 128 * 128)
     (LAP2D_1M, 1024 ** 2, torch.float32, 4, True),
     (LAP2D_1M, 1024 ** 2, torch.float64, 4, True),
     (LAP2D_1M, 1024 ** 2, torch.float64, 2, True),
-    # a 2048 x 2048 grid: f32 still fits four steps, fp64 only two
+    # a 2048 x 2048 grid: four steps in both types (fp64 one column per
+    # block), two too
     (LAP2D_4M, 2048 ** 2, torch.float32, 4, True),
-    (LAP2D_4M, 2048 ** 2, torch.float64, 4, False),
+    (LAP2D_4M, 2048 ** 2, torch.float64, 4, True),
     (LAP2D_4M, 2048 ** 2, torch.float64, 2, True),
     # a 128^3 Laplacian's +-nx^2 halo fits neither: the 1-step kernels
     (LAP3D_2M, 128 ** 3, torch.float32, 4, False),

@@ -1,29 +1,31 @@
 """PyTorch port: a CPU rehearsal of the streamed four-step kernel's schedule.
 
-``csrc/cheb_stream4.cu`` (``cheb_step4_f32``) runs only on the card. Its
-schedule is emulated here in numpy, block by block, iteration by
-iteration, exactly as the CUDA source walks it: a block owns a strip of
-rows for a group of columns; level s (T_{s+2}) computes chunk c0 - s L at
-the iteration whose level-0 chunk is c0, over the range [lo[s], hi[s]) of
-its strip (the own chunks and (3-s) H halo chunks each side, clipped to
-the matrix); T1..T4 live in rings of 2L+1, 3L+1, 2L+1 and 2L chunks, a
-chunk c in slot (c - base) mod length; T1 is preloaded for the first
-iteration and stored one chunk ahead at the end of each iteration (zeros
-past the chunks level 0 needs); T0, acc and the diagonals come from
-device memory; loads are masked to the matrix's rows and terms whose
-neighbour row lies outside it are dropped. Every ring read checks that
-its slot holds the chunk the row needs and was not written in the same
-iteration, and every ring write that its slot was not read in the same
-iteration (the kernel has one barrier per iteration, so either would be a
-race between its threads). The result is held against
+``csrc/cheb_stream4.cu`` (``cheb_step4_f32`` and ``cheb_step4_f64``) runs
+only on the card. Its schedule is emulated here in numpy, block by block,
+iteration by iteration, exactly as the CUDA source walks it: a block owns
+a strip of rows for a group of columns; level s (T_{s+2})
+computes chunk c0 - s L at the iteration whose level-0 chunk is c0, over
+the range [lo[s], hi[s]) of its strip (the own chunks and (3-s) H halo
+chunks each side, clipped to the matrix); T1..T4 live in rings of 2L+1,
+3L+1, 2L+1 and 2L chunks, a chunk c in slot (c - base) mod length; T1 is
+preloaded for the first iteration and stored one chunk ahead at the end of
+each iteration (zeros past the chunks level 0 needs); T0, acc and the
+diagonals come from device memory; loads are masked to the matrix's rows
+and terms whose neighbour row lies outside it are dropped. Every ring read
+checks that its slot holds the chunk the row needs and was not written in
+the same iteration, and every ring write that its slot was not read in the
+same iteration (the kernel has one barrier per iteration, so either would
+be a race between its threads). The result is held against
 ``cheb_step4_plain`` (fp64 at 1e-12 and f32 at 1e-5 relative to max|acc|)
 at small shapes chosen to reach every edge of the schedule: N not a
 multiple of the chunk or of the strip, |offset| = nx, halos over one and
 over several chunks, 1, 3, 5, 7, 9 and 11 diagonals, an offset outside the
 matrix, and M = 1, 7, 11 and 40 against column groups that do not divide
-it. The plan's fields are checked too. The kernel itself is held to the
-same plain version on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``).
+it; under f32 block shapes (up to 4 columns) and fp64 ones (1 or 2). The plans' fields are checked too, and
+that every halo the retired tiled four-step body took still gets a
+four-step route. The kernel itself is held to the same plain version on
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``). About 10 s in
+one process.
 """
 import numpy as np
 import pytest
@@ -96,15 +98,15 @@ def _emulate(diags, offsets, t0, t1, acc, sc, sh, cs, plan):
         v[:, live] = plane[np.ix_(cols, rows[live])]
         return v
 
-    strips = -(-n // tile)
-    for strip in range(strips):
-        s0 = strip * tile
-        k_own = -(-(min(s0 + tile, n) - s0) // R)
-        k_max = -(-(n - s0) // R)
-        lo = [max(-(3 - s) * H, -(s0 // R)) for s in range(4)]
-        hi = [min(k_own + (3 - s) * H, k_max) for s in range(4)]
-        base = lo[0] - H
+    # one block per (strip, column group)
+    for strip in range(-(-n // tile)):
         for group in range(-(-m // C)):
+            s0 = strip * tile
+            k_own = -(-(min(s0 + tile, n) - s0) // R)
+            k_max = -(-(n - s0) // R)
+            lo = [max(-(3 - s) * H, -(s0 // R)) for s in range(4)]
+            hi = [min(k_own + (3 - s) * H, k_max) for s in range(4)]
+            base = lo[0] - H
             cols = np.arange(group * C, min(group * C + C, m))
             rings = [_Ring(len(cols), ln, R) for ln in lens]
 
@@ -212,6 +214,8 @@ OPERATORS = {
 #  and the strips)
 CASES = [
     ("lap2d_37x29", 11, (4, 3)),
+    ("lap2d_300x9", 11, (4, 3)),
+    ("9diags", 7, (2, 4)),
     ("lap2d_37x29", 7, (2, 2)),
     ("lap2d_300x9", 7, (4, 2)),
     ("lap2d_600x5", 1, (1, 3)),
@@ -234,11 +238,18 @@ def _halo(offs, n):
     return max((abs(d) for d in offs if abs(d) < n), default=0)
 
 
-def _plan(offs, n, M, shape):
+def _plan(offs, n, M, shape, dtype=np.float32):
+    """The solver's plan (shape None) or the given block shape, for a
+    carry of ``dtype``."""
+    itemsize = np.dtype(dtype).itemsize
     if shape is None:
-        return ck.multistep_plan(offs, n, M, torch.float32, 4)
+        return ck.multistep_plan(offs, n, M, _TORCH[itemsize], 4)
     cols, strips = shape
-    return ck._stream_shape(_halo(offs, n), n, M, cols, strips)
+    return ck._stream_shape(_halo(offs, n), n, M, cols, strips,
+                            itemsize=itemsize)
+
+
+_TORCH = {4: torch.float32, 8: torch.float64}
 
 
 def _carry(n, M, dtype, seed=1):
@@ -255,14 +266,8 @@ def _plain(dia, offs, carry, sc, sh, cs, dtype):
     return out0.numpy(), out1.numpy(), acc.numpy()
 
 
-@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
-                                       (np.float32, 1e-5)])
-@pytest.mark.parametrize("op,M,shape", CASES,
-                         ids=[f"{o}-M{m}-{s if s else 'plan'}"
-                              for o, m, s in CASES])
-def test_schedule_matches_plain(op, M, shape, dtype, tol):
+def _check_schedule(op, M, plan, dtype, tol):
     dia, offs, n = OPERATORS[op]()
-    plan = _plan(offs, n, M, shape)
     assert plan is not None
     carry = _carry(n, M, dtype)
     sc, sh = dtype(0.37), dtype(0.61)
@@ -277,6 +282,46 @@ def test_schedule_matches_plain(op, M, shape, dtype, tol):
         assert float(np.abs(g - w).max()) / scale <= tol
 
 
+def _ids(cases):
+    return [f"{o}-M{m}-{s if s else 'plan'}" for o, m, s in cases]
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("op,M,shape", CASES, ids=_ids(CASES))
+def test_schedule_matches_plain(op, M, shape, dtype, tol):
+    # f32 block shapes (up to 4 columns), the arithmetic in both types
+    dia, offs, n = OPERATORS[op]()
+    _check_schedule(op, M, _plan(offs, n, M, shape), dtype, tol)
+
+
+# fp64 plans: 1 or 2 columns per block
+FP64_CASES = [
+    ("lap2d_37x29", 11, (2, 3)),
+    ("9diags", 7, (2, 3)),
+    ("lap3d_20x17x5", 9, (1, 2)),
+    ("lap2d_300x9", 7, (2, 2)),
+    ("lap2d_600x5", 1, (1, 3)),
+    ("lap2d_33x33", 40, None),
+    ("9diags", 11, (2, 4)),
+    ("9diags_wide", 7, (1, 2)),
+    ("11diags", 7, None),
+    ("wide_small", 7, (2, 2)),
+    ("outside", 5, (2, 3)),
+    ("lap3d_20x17x5", 11, None),
+]
+
+
+@pytest.mark.parametrize("op,M,shape", FP64_CASES, ids=_ids(FP64_CASES))
+def test_schedule_under_fp64_plans(op, M, shape):
+    dia, offs, n = OPERATORS[op]()
+    plan = _plan(offs, n, M, shape, np.float64)
+    assert plan["cols"] <= 2
+    _check_schedule(op, M, plan, np.float64, 1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
 @pytest.mark.parametrize("offs,N,M", [
     ((-1024, -1, 0, 1, 1024), 1024 ** 2, 72),
     ((-2048, -1, 0, 1, 2048), 2048 ** 2, 72),
@@ -284,28 +329,34 @@ def test_schedule_matches_plain(op, M, shape, dtype, tol):
     ((-37, -1, 0, 1, 37), 1073, 11),
     ((-60, -1, 0, 1, 60), 100, 1),
     ((-1, 0, 1), 1073, 7)])
-def test_stream_plan_fields(offs, N, M):
-    plan = ck.multistep_plan(offs, N, M, torch.float32, 4)
+def test_stream_plan_fields(offs, N, M, dtype):
+    plan = ck.multistep_plan(offs, N, M, dtype, 4)
+    size = ck._itemsize(dtype)
+    if dtype == torch.float64 and N == 2048 ** 2:
+        # two fp64 columns' rings do not fit a 2048-row halo: one column
+        # per block, alone on its multiprocessor
+        assert (plan["cols"], plan["blocks_per_sm"]) == (1, 1)
     R, L, C = plan["chunk"], plan["lag"], plan["cols"]
-    assert C in (1, 2, 4) and R == 256
-    assert 1 <= plan["blocks_per_sm"] <= 4 // C
+    assert C in ((1, 2, 4) if size == 4 else (1, 2)) and R == 256
+    # a multiprocessor holds 4 / C f32 or 2 / C fp64 blocks at most
+    assert 1 <= plan["blocks_per_sm"] <= max(1, 16 // (C * size))
     assert plan["groups"] * C >= M > (plan["groups"] - 1) * C
     assert (L - 1) * R >= plan["halo"] > (L - 2) * R
     # the rings: 9 L + 3 chunks per column, within the block's budget
-    assert plan["shared_bytes"] == C * (9 * L + 3) * R * 4
+    assert plan["shared_bytes"] == C * (9 * L + 3) * R * size
     assert plan["shared_bytes"] <= ck.SHARED_BYTES_PER_BLOCK
     assert plan["tile"] % R == 0 and plan["depth"] == 0
     assert plan["tiles"] * plan["tile"] >= N > (plan["tiles"] - 1) * plan[
         "tile"]
-    reckoned = ck.reckoned_traffic(plan, offs, N)
+    reckoned = ck.reckoned_traffic(plan, offs, N, size)
     assert reckoned["recompute"] >= 1.0
-    assert reckoned["l2_bytes_per_element"] > 24.0
+    assert reckoned["l2_bytes_per_element"] > 6 * size
 
 
 def test_stream_plan_at_the_main_shapes():
-    # 18 groups of 4 columns x 7 strips: one block per multiprocessor of
-    # the 132, one wave; a pass requests ~45 B per element from L2 (24 B
-    # of planes), the tiled body ~155 B
+    # f32: 18 groups of 4 columns x 7 strips, one block per multiprocessor
+    # of the 132, one wave; a pass requests ~45 B per element from L2 (24 B
+    # of planes)
     offs, N = (-1024, -1, 0, 1, 1024), 1024 ** 2
     plan = ck.multistep_plan(offs, N, 72, torch.float32, 4)
     assert (plan["chunk"], plan["cols"], plan["lag"]) == (256, 4, 5)
@@ -313,23 +364,55 @@ def test_stream_plan_at_the_main_shapes():
     streamed = ck.reckoned_traffic(plan, offs, N)
     assert streamed["recompute"] < 1.02
     assert 44 < streamed["l2_bytes_per_element"] < 46
-    tiled = ck.reckoned_traffic(
-        ck._tiled_plan(offs, N, 72, torch.float32, 4), offs, N)
-    assert tiled["l2_bytes_per_element"] > 3 * streamed[
-        "l2_bytes_per_element"]
+    # fp64: 36 groups of 2 columns (196,608 B of rings, one block per SM);
+    # 108 blocks of one strip each would leave 24 multiprocessors idle, so
+    # the rows are cut into 11 strips, 396 blocks in three waves over all
+    # 132; each diagonal load serves 2 columns, not 4: ~131 B per element
+    plan64 = ck.multistep_plan(offs, N, 72, torch.float64, 4)
+    assert (plan64["chunk"], plan64["cols"], plan64["lag"]) == (256, 2, 5)
+    assert plan64["shared_bytes"] == 196608
+    assert (plan64["groups"], plan64["tiles"]) == (36, 11)
+    streamed64 = ck.reckoned_traffic(plan64, offs, N, 8)
+    assert streamed64["recompute"] < 1.04
+    assert 130 < streamed64["l2_bytes_per_element"] < 133
+    # one wave would be the 108 blocks of 3 strips, reckoned ~128.7 B
+    one = ck._stream_shape(1024, N, 72, 2, itemsize=8, waves=1)
+    assert one["groups"] * one["tiles"] == 108
+    assert 128 < ck.reckoned_traffic(one, offs, N, 8)[
+        "l2_bytes_per_element"] < 129
+
+
+def test_stream_plan_at_nine_diagonals():
+    # the consistent-mass B~ at P=8: halo 257, lag 3; fp64 rings of 2
+    # columns take 122,880 B (4 would take 245,760); 3 strips x 36 groups
+    # in one wave (more waves reckon slower: the strips are short), ~200.6
+    # B per element requested from L2
+    offs = (-257, -256, -255, -1, 0, 1, 255, 256, 257)
+    plan = ck.multistep_plan(offs, 65536, 72, torch.float64, 4)
+    assert (plan["cols"], plan["lag"], plan["shared_bytes"]) == (2, 3,
+                                                                 122880)
+    assert ck._stream_ring_bytes(257, 4, itemsize=8) == 245760
+    assert plan["tiles"] * plan["groups"] == 3 * 36
+    reckoned = ck.reckoned_traffic(plan, offs, 65536, 8)
+    assert 200 < reckoned["l2_bytes_per_element"] < 201
 
 
 def test_stream_plan_refuses_bad_block_shapes():
     offs = (-1, 0, 1)
     with pytest.raises(ValueError, match="cols"):
         ck._stream_shape(1, 1000, 4, 3, 1)
+    with pytest.raises(ValueError, match="cols"):    # 32-byte fp64 rows
+        ck._stream_shape(1, 1000, 8, 4, 1, itemsize=8)
     # a halo the rings of one column cannot hold
     assert ck._stream_plan((-6000, 0, 6000), 10**6, 4) is None
-    # only the f32 four-step kernel streams; the others keep their tiles
-    for dtype, steps in ((torch.float64, 4), (torch.float32, 2)):
-        plan = ck.multistep_plan(offs, 1000, 4, dtype, steps)
-        assert "chunk" not in plan and plan == ck._tiled_plan(
-            offs, 1000, 4, dtype, steps)
+    # both four-step kernels stream; the two-step passes keep their tiles
+    for dtype in (torch.float32, torch.float64):
+        plan = ck.multistep_plan(offs, 1000, 4, dtype, 4)
+        assert plan["chunk"] == 256 and plan == ck._stream_plan(
+            offs, 1000, 4, itemsize=ck._itemsize(dtype))
+        plan = ck.multistep_plan(offs, 1000, 4, dtype, 2)
+        assert "chunk" not in plan and plan["steps"] == 2
+        assert plan == ck._tiled_plan(offs, 1000, 4, dtype)
 
 
 @pytest.mark.parametrize("halo,cols,depth,fits", [
@@ -349,24 +432,90 @@ def test_stream_plan_stage_slots(halo, cols, depth, fits):
         assert plan["shared_bytes"] <= ck.SHARED_BYTES_PER_BLOCK
 
 
-@pytest.mark.parametrize("offs,N,M,cols", [
+F32, F64 = torch.float32, torch.float64
+
+
+@pytest.mark.parametrize("dtype,offs,N,M,cols", [
     # the 7-point stencil on a 32^3 grid: 4 columns per block
-    ((-1024, -32, -1, 0, 1, 32, 1024), 32 ** 3, 72, 4),
+    (F32, (-1024, -32, -1, 0, 1, 32, 1024), 32 ** 3, 72, 4),
     # a 2048^2 grid (the tile plan's too): 2 columns, one block per SM
-    ((-2048, -1, 0, 1, 2048), 2048 ** 2, 72, 2),
+    (F32, (-2048, -1, 0, 1, 2048), 2048 ** 2, 72, 2),
     # the widest halo two columns' rings hold
-    ((-2816, -1, 0, 1, 2816), 3000 ** 2, 72, 2),
+    (F32, (-2816, -1, 0, 1, 2816), 3000 ** 2, 72, 2),
     # 64^3 (halo 4096, beyond the tile plan's reach): one column alone on
     # its multiprocessor, refused (the solver takes 2-step passes) ...
-    ((-4096, -64, -1, 0, 1, 64, 4096), 64 ** 3, 72, None),
-    ((-2817, -1, 0, 1, 2817), 3000 ** 2, 72, None),
+    (F32, (-4096, -64, -1, 0, 1, 64, 4096), 64 ** 3, 72, None),
+    (F32, (-2817, -1, 0, 1, 2817), 3000 ** 2, 72, None),
     # ... but taken for a single column, where the strips fill the card
-    ((-4096, -64, -1, 0, 1, 64, 4096), 64 ** 3, 1, 1)])
-def test_stream_plan_columns_in_flight(offs, N, M, cols):
-    plan = ck.multistep_plan(offs, N, M, torch.float32, 4)
+    (F32, (-4096, -64, -1, 0, 1, 64, 4096), 64 ** 3, 1, 1),
+    # fp64: 2 columns up to a 1024-row halo, then one column per block,
+    # alone on its multiprocessor, up to the widest halo its rings hold
+    (F64, (-1024, -32, -1, 0, 1, 32, 1024), 32 ** 3, 72, 2),
+    (F64, (-1030, -1, 0, 1, 1030), 1030 ** 2, 72, 1),
+    (F64, (-2048, -1, 0, 1, 2048), 2048 ** 2, 72, 1),
+    (F64, (-2816, -1, 0, 1, 2816), 2816 * 512, 72, 1),
+    (F64, (-2817, -1, 0, 1, 2817), 2817 * 512, 72, None),
+    (F64, (-4096, -64, -1, 0, 1, 64, 4096), 64 ** 3, 72, None)])
+def test_stream_plan_columns_in_flight(dtype, offs, N, M, cols):
+    plan = ck.multistep_plan(offs, N, M, dtype, 4)
     assert (plan and plan["cols"]) == cols
     if plan is None:
-        assert ck._tiled_plan(offs, N, M, torch.float32, 4) is None
-        assert ck.multistep_plan(offs, N, M, torch.float32, 2) is not None
+        # the solver takes the tiled two-step passes there
+        plan2 = ck.multistep_plan(offs, N, M, dtype, 2)
+        assert plan2 is not None and plan2["steps"] == 2
     else:
-        assert plan["blocks_per_sm"] * plan["cols"] >= min(M, 2)
+        assert plan["blocks_per_sm"] * plan["cols"] >= (
+            min(M, 2) if dtype == F32 else 1)
+
+
+def _old_tiled_four_step_took(halo, N, M, itemsize):
+    """The rule by which the tile plan of the retired tiled four-step body
+    took a shape: its largest tile (three tiles' and ten halos' values in
+    the block's shared memory) at least six halos long."""
+    words = ck.SHARED_BYTES_PER_BLOCK // itemsize
+    tile_max = (words - 10 * halo) // 3 // 32 * 32
+    return (N > 0 and M > 0 and tile_max >= max(6 * halo, 32)
+            and 2 * N + tile_max + 5 * halo + 1024 <= 2**31 - 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("M", [72, 1])
+def test_four_step_route_where_the_tiles_ran(dtype, M):
+    # every halo from 1 to 3000 rows on a 2D grid of nx = halo: wherever
+    # the old tiled four-step plan took the shape, the streamed plan does
+    # (in fp64 at halos 1025-1034 with one column per block, which two
+    # fp64 2-step passes were slower than, PERF.md); and the streamed plan
+    # reaches further: 2816 rows (two f32 columns' or one fp64 column's
+    # rings), and past 3000 for a single f32 column (5632)
+    size = ck._itemsize(dtype)
+    took = streams = 0
+    for halo in range(1, 3001):
+        N = max(halo * halo, 4096)
+        plan = ck.multistep_plan((-halo, -1, 0, 1, halo), N, M, dtype, 4)
+        if _old_tiled_four_step_took(halo, N, M, size):
+            took = halo
+            assert plan is not None, halo
+        if plan is not None:
+            streams = halo
+    assert took == (2074 if size == 4 else 1034)
+    assert streams == (3000 if size == 4 and M == 1 else 2816)
+
+
+@pytest.mark.parametrize("nx,cols64", [(1024, 2), (1025, 1), (1030, 1),
+                                       (1034, 1), (1035, 1)])
+def test_gap_routing_in_the_solver(nx, cols64, monkeypatch):
+    # the polynomial path's steps per pass on a 2D Laplacian's five
+    # diagonals: both rungs stream four steps; fp64 takes 2 columns per
+    # block up to nx = 1024 and one above (1025-1034 ran the tiled
+    # four-step body before; 1035 took 2-step passes)
+    from feastkit_tpu_torch.solvers import sparse
+    for switch in ("FEAST_CHEB_FUSE2", "FEAST_CHEB_FUSE4"):
+        monkeypatch.delenv(switch, raising=False)
+    offs = (-nx, -1, 0, 1, nx)
+    dia = torch.zeros((5, nx * nx), dtype=torch.float64)
+    ctx = sparse._cheb_fused_context(dia, offs, np.ones(5), -0.1, 8.1, 72)
+    assert ctx["f32"]["steps"] == ctx["f64"]["steps"] == 4
+    plan = ck.multistep_plan(offs, nx * nx, 72, torch.float64, 4)
+    assert plan["cols"] == cols64
+    assert _old_tiled_four_step_took(nx, nx * nx, 72, 8) == (nx < 1035)

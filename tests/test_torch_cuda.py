@@ -121,11 +121,7 @@ def test_multistep_kernel_other_diagonal_counts(name, plain, S, dtype, tol,
     # other count: hold the others against the plain version too
     _need_cuda()
     N = 1089
-    rng = np.random.default_rng(3)
-    dia = np.zeros((len(offs), N))
-    for k, d in enumerate(offs):
-        dia[k, max(0, -d):N - max(0, d)] = rng.random(N - abs(d)) - 0.5
-    _two_passes(name, plain, S, dtype, tol, dia, offs, N, 6)
+    _two_passes(name, plain, S, dtype, tol, _banded(offs, N), offs, N, 6)
 
 
 @pytest.mark.cuda
@@ -152,24 +148,66 @@ def test_streamed_kernel_block_shapes(nx, ny, M, shape):
     _streamed_two_passes(dia, offs, N, M, plan)
 
 
-def _streamed_two_passes(dia, offs, N, M, plan):
+def _streamed_two_passes(dia, offs, N, M, plan, dtype=torch.float32):
     g = torch.Generator().manual_seed(1)
-    d = torch.as_tensor(dia, dtype=torch.float32).cuda()
-    k = [torch.randn(M, N, generator=g).cuda() for _ in range(5)]
+    d = torch.as_tensor(dia, dtype=dtype).cuda()
+    k = [torch.randn(M, N, generator=g, dtype=dtype).cuda() for _ in range(5)]
     p = [t.clone() for t in k]
-    before = ck.cheb_step4_f32.launches
+    wrapper = ck.cheb_step4_f32 if dtype == torch.float32 else \
+        ck.cheb_step4_f64
+    before = wrapper.launches
     coeffs = np.random.default_rng(2).standard_normal(8) * 0.1
     for i in (0, 4):
-        ck._multistep(ck.cheb_step4_f32, 4, torch.float32, d, offs, *k, 0.3,
-                      0.6, coeffs[i:i + 4], plan=plan)
+        ck._multistep(wrapper, 4, dtype, d, offs, *k, 0.3, 0.6,
+                      coeffs[i:i + 4], plan=plan)
         ck.cheb_step4_plain(d, offs, *p, 0.3, 0.6, coeffs[i:i + 4])
         k = [k[3], k[4], k[2], k[0], k[1]]
         p = [p[3], p[4], p[2], p[0], p[1]]
     torch.cuda.synchronize()
-    assert ck.cheb_step4_f32.launches == before + 2
+    assert wrapper.launches == before + 2
     scale = p[2].abs().max()
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
     for a, b in zip(k[:3], p[:3]):
-        assert float((a - b).abs().max() / scale) <= 1e-5
+        assert float((a - b).abs().max() / scale) <= tol
+
+
+def _banded(offs, N, seed=3):
+    rng = np.random.default_rng(seed)
+    dia = np.zeros((len(offs), N))
+    for k, d in enumerate(offs):
+        dia[k, max(0, -d):N - max(0, d)] = rng.random(N - abs(d)) - 0.5
+    return dia
+
+
+_NINE = (-34, -33, -32, -1, 0, 1, 32, 33, 34)
+_ELEVEN = (-40, -33, -7, -2, -1, 0, 1, 2, 7, 33, 40)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offs,N,M,shape", [
+    ((-37, -1, 0, 1, 37), 1073, 11, (2, 3)),          # five, ragged group
+    ((-37, -1, 0, 1, 37), 1073, 7, (1, 2)),           # one column a block
+    ((-340, -20, -1, 0, 1, 20, 340), 1700, 9, (2, 2)),    # seven (3D)
+    ((-340, -20, -1, 0, 1, 20, 340), 1700, 5, (1, 3)),
+    (_NINE, 1089, 11, (2, 4)),        # nine
+    (_NINE, 1089, 3, (1, 3)),
+    (_ELEVEN, 1089, 5, (2, 3)),       # the run-time count
+    (_ELEVEN, 1089, 7, (1, 2)),
+    ((-300, -1, 0, 1, 300), 2700, 13, (2, 3)),        # halo over 2 chunks
+    ((-60, -1, 0, 1, 60), 100, 7, None)],             # the plan, clipped
+    ids=["5d-2c", "5d-1c", "7d-2c", "7d-1c", "9d-2c", "9d-1c",
+         "11d-2c", "11d-1c", "wide-halo", "plan-small"])
+def test_streamed_fp64_block_shapes(offs, N, M, shape):
+    # cheb_step4_f64 (the streamed kernel in fp64) under 1 and 2 columns
+    # per block, 5, 7, 9 and 11 diagonals and M odd: two passes against
+    # the plain version at 1e-13
+    _need_cuda()
+    plan = None
+    if shape is not None:
+        cols, strips = shape
+        halo = max(abs(d) for d in offs if abs(d) < N)
+        plan = ck._stream_shape(halo, N, M, cols, strips, itemsize=8)
+    _streamed_two_passes(_banded(offs, N), offs, N, M, plan, torch.float64)
 
 
 @pytest.mark.cuda
@@ -183,12 +221,8 @@ def test_streamed_kernel_variants(offs, N, M, depth):
     # the seven-diagonal body and the cp.async variant (four columns, five
     # or nine diagonals) against the plain version
     _need_cuda()
-    rng = np.random.default_rng(3)
-    dia = np.zeros((len(offs), N))
-    for k, d in enumerate(offs):
-        dia[k, max(0, -d):N - max(0, d)] = rng.random(N - abs(d)) - 0.5
     halo = max(abs(d) for d in offs)
-    _streamed_two_passes(dia, offs, N, M,
+    _streamed_two_passes(_banded(offs, N), offs, N, M,
                          ck._stream_shape(halo, N, M, 4, 3, depth=depth))
 
 
