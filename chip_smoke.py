@@ -27,12 +27,18 @@ Phases, each printed before the last line:
      bound, a torch.sparse.mm (CSR) matvec for scale, and each multi-step
      plan's block shape and reckoned L2 bytes per element; and the
      Rayleigh-Ritz update's time at the main path's shapes;
-  3b. the SPD-B composite's kernels (the column-major one-step entries
-     cheb_step_cm_f32/f64 and the combine cheb_combine_f32/f64) against
-     their plain versions at the P=8 consistent-mass shapes (N = 65,536,
-     M = 72, the nine-diagonal B~) and at awkward shapes, same
-     tolerances, and their times; and the 2- and 4-step kernels on the
-     nine-diagonal operator with the ND = 9 instantiation and with the
+  3b. the SPD-B composite's kernels against their plain versions at the
+     P=8 consistent-mass shapes (N = 65,536, M = 72, nine diagonals) and
+     at awkward shapes, same tolerances, and their times: the column-major
+     one-step entries cheb_step_cm_f32/f64 (ops/csrc/cheb_step_cm.cu) on
+     A~ in each of their four forms (T0 and acc present or absent), each
+     form's device time (CUDA graph) and its time launched one call at a
+     time against its own bound, torch.sparse.mm (A~ in CSR) on the
+     function the form without T0 and acc computes, block shapes other
+     than the plan's, and the registers and spills of every
+     instantiation (nvcc -Xptxas -v, run beside the build); the combine
+     cheb_combine_f32/f64; and the 2- and 4-step kernels on the
+     nine-diagonal B~ with the ND = 9 instantiation and with the
      run-time-count body, each checked and timed;
   3c. the DIA matvec kernels of ops/csrc/dia_matvec.cu (dia_matvec_f32/f64
      and dia_matvec_batched_f32/f64) against their plain version at the
@@ -67,9 +73,11 @@ Phases, each printed before the last line:
      the first warm solve and read just after it; checks M against the
      analytic count, eigenvalue error <= 1e-8, residuals <= 1e-8, info 0,
      the launches of every kernel against the schedule the solve's outer
-     and inner series imply, on both rungs; then one more warm solve with
-     its stages timed (the Lanczos bounds, coefficients, each rung's
-     filter, Rayleigh-Ritz, back-transform, Q0);
+     and inner series imply, on both rungs, and the column-major entries'
+     launches by form; then one more warm solve with its stages timed
+     (the Lanczos bounds, coefficients, each rung's filter, Rayleigh-Ritz,
+     back-transform, Q0), and each rung's launches x times per launch
+     (each column-major form's launches x that form's time);
   8. the Krylov contour engine: feast(lap2d(256), None, (Emin, Emax), 72,
      fpm, solver="gmres", solver_maxiter=250) with fpm[3] = 8 and the
      default fpm[42] (complex64 Krylov inside a complex128 refinement on
@@ -88,7 +96,10 @@ Phases, each printed before the last line:
   7. one JSON line {"kernels": [...]} with each kernel's launches on its
      path (the main path's, for the composite's own kernels the SPD-B
      path's, for the DIA kernels the Krylov path's: phase 8's counted
-     solves), its error against its plain version and its times.
+     solves), its error against its plain version and its times; the
+     column-major entries' ms, bound_ms and library_ms are those of the
+     form without T0 and acc, and their "forms" give every form's times,
+     bound and launches.
 The last line is {"ok": true, "device": {...}}. Any failed check raises
 and exits nonzero before that line. Without a CUDA device the script
 exits nonzero and prints no result.
@@ -216,6 +227,28 @@ def cuda_time_ms(fn, reps, warm=3):
     return start.elapsed_time(stop) / reps
 
 
+def graph_time_ms(fn, reps=20, replays=20):
+    """Device time per call of ``fn`` (a few kernel launches and no host
+    synchronisation): ``reps`` calls captured in one CUDA graph, the graph
+    replayed ``replays`` times between CUDA events. Without the host's
+    per-call cost (Python, ctypes, the launch itself), which for a kernel
+    of tens of microseconds can exceed the kernel."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = cuda_time_ms(graph.replay, replays, warm=2) / reps
+    del graph
+    return ms
+
+
 def phase_card():
     import torch
     smi = subprocess.run(
@@ -234,28 +267,32 @@ MULTISTEP_SOURCES = ("cheb_multistep", "cheb_stream4")
 
 
 def phase_build():
+    """Build every source, and the multi-step kernels with the run-time
+    diagonal count only (timed against the nine-diagonal instantiation,
+    phase 3b), one nvcc per build, all started together; beside them the
+    ptxas report of cheb_step_cm.cu (printed in phase 3b)."""
     from feastkit_tpu_torch.ops import cuda_build
     sources = sorted(p.stem for p in cuda_build.SRC_DIR.glob("*.cu"))
-    # every source, and the multi-step kernels with the run-time diagonal
-    # count only (timed against the nine-diagonal instantiation, phase 3)
     builds = [(name, ()) for name in sources] + [
         (name, RUNTIME_COUNT_ONLY) for name in MULTISTEP_SOURCES]
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(builds)) as pool:    # one nvcc per build
+    with ThreadPoolExecutor(len(builds) + 1) as pool:
+        report = pool.submit(_ptxas, "cheb_step_cm")
         list(pool.map(lambda b: cuda_build.build(*b), builds))
+        report = report.result()
     dt = time.perf_counter() - t0
     print(f"== 2. built {sources} and {MULTISTEP_SOURCES} with "
           f"{RUNTIME_COUNT_ONLY} for sm_90a in {dt:.2f} s", flush=True)
-    return dt
+    return report
 
 
 KERNELS = {   # name -> (steps per launch, source, TPU kernel it replaces)
     "cheb_step_f32": (1, "cheb_step.cu", "feastkit_tpu/ops/cheb_pallas.py:685"),
     "cheb_step_f64": (1, "cheb_step.cu", "feastkit_tpu/ops/cheb_pallas.py:256"),
-    "cheb_step_cm_f32": (1, "cheb_step.cu",
+    "cheb_step_cm_f32": (1, "cheb_step_cm.cu",
                          "feastkit_tpu/ops/cheb_pallas.py:685"),
-    "cheb_step_cm_f64": (1, "cheb_step.cu",
+    "cheb_step_cm_f64": (1, "cheb_step_cm.cu",
                          "feastkit_tpu/ops/cheb_pallas.py:256"),
     "cheb_combine_f32": (0, "cheb_combine.cu",
                          "feastkit_tpu/ops/cheb_pallas.py:990"),
@@ -670,23 +707,32 @@ def stream_sweep(card_name):
         del dia, carry
         torch.cuda.empty_cache()
     print(json.dumps({"stream_sweep": rows}), flush=True)
-    _ptxas_report()
+    _print_ptxas("cheb_stream4", _ptxas("cheb_stream4"))
     return rows
 
 
-def _ptxas_report():
-    """Registers and spill bytes of every instantiation of the streamed
+# source -> (its kernel template, the names of the template arguments
+# after the value type), for the ptxas reports
+PTXAS_KERNELS = {
+    "cheb_stream4": ("cheb_stream4_kernel", ("nd", "cols", "async_copies")),
+    "cheb_step_cm": ("cheb_step_cm_kernel", ("nd", "has_t0", "has_acc")),
+}
+
+
+def _ptxas(source):
+    """Registers and spill bytes of every instantiation of ``source``'s
     kernel, as ptxas reports them (nvcc -Xptxas -v, the build's flags)."""
     import re
     from feastkit_tpu_torch.ops import cuda_build
-    src = cuda_build.SRC_DIR / "cheb_stream4.cu"
-    out = cuda_build.BUILD_DIR / "cheb_stream4.ptxas.cubin"
+    kernel, fields = PTXAS_KERNELS[source]
+    src = cuda_build.SRC_DIR / f"{source}.cu"
+    out = cuda_build.BUILD_DIR / f"{source}.ptxas.cubin"
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run(
         [cuda_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
          "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", "-o", str(out),
          str(src)], capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0, "nvcc -Xptxas -v builds cheb_stream4.cu")
+    check(proc.returncode == 0, f"nvcc -Xptxas -v builds {source}.cu")
     report, name = [], None
     for line in (proc.stdout + proc.stderr).splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -698,44 +744,270 @@ def _ptxas_report():
             spill = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            t = re.search(
-                r"cheb_stream4_kernelI([fd])Li(\d+)ELi(\d+)ELb([01])E", name)
+            t = re.search(kernel + r"I([fd])((?:L[ib]\d+E)+)", name)
             if t:
+                args = [int(a) for a in re.findall(r"L[ib](\d+)E",
+                                                   t.group(2))]
                 report.append(dict(
                     dtype="f32" if t.group(1) == "f" else "f64",
-                    nd=int(t.group(2)), cols=int(t.group(3)),
-                    async_copies=t.group(4) == "1",
+                    **dict(zip(fields, args)),
                     registers=int(m.group(1)), spill_stores=spill[0],
                     spill_loads=spill[1]))
             name = None
-    for r in sorted(report, key=lambda r: (r["dtype"], r["cols"], r["nd"])):
-        print(f"   ptxas {r['dtype']} ND={r['nd']} cols={r['cols']}"
-              f"{' cp.async' if r['async_copies'] else ''}: "
-              f"{r['registers']} registers, spill stores "
+    return report
+
+
+def _print_ptxas(source, report):
+    fields = PTXAS_KERNELS[source][1]
+    for r in sorted(report, key=lambda r: (r["dtype"],
+                                           *(r[f] for f in fields[::-1]))):
+        print(f"   ptxas {source} {r['dtype']} "
+              + " ".join(f"{f}={r[f]}" for f in fields)
+              + f": {r['registers']} registers, spill stores "
               f"{r['spill_stores']} B, loads {r['spill_loads']} B",
               flush=True)
-    check(len(report) > 0, "ptxas reported the streamed kernel's registers")
-    print(json.dumps({"ptxas": report}), flush=True)
+    check(len(report) > 0, f"ptxas reported {source}'s registers")
+    print(json.dumps({"ptxas": {source: report}}), flush=True)
 
 
-def phase_gen_kernels(card_name):
+def _cm_operands(form):
+    """(has T0, has acc) of a form of the column-major entries."""
+    return form in ("full", "no_acc"), form in ("full", "no_t0")
+
+
+def _cm_compare(torch, ck, wrapper, dia, offs, planes, form, sc, sh, cs):
+    """The column-major entry in ``form`` against its plain version from
+    the same (M, N) planes (T0, T1, acc): the full form over len(cs)
+    steps (the carry rotated as the chunk functions do), the others one
+    launch, whose T2 must land in a new plane and which must leave T1 as
+    it was. Max abs error over the outputs and that error relative to the
+    plain outputs' largest entry."""
+    if form == "full":
+        return _compare(torch, wrapper, ck.cheb_step_cm_plain, dia, offs,
+                        planes, sc, sh, cs)
+    has_t0, has_acc = _cm_operands(form)
+    c = cs[0] if has_acc else 0.0
+    k = [t.clone() for t in planes]
+    p = [t.clone() for t in planes]
+    ko = wrapper(dia, offs, k[0] if has_t0 else None, k[1],
+                 k[2] if has_acc else None, sc, sh, c)
+    po = ck.cheb_step_cm_plain(dia, offs, p[0] if has_t0 else None, p[1],
+                               p[2] if has_acc else None, float(sc),
+                               float(sh), float(c))
+    torch.cuda.synchronize()
+    check(torch.equal(k[1], planes[1]) and (ko is k[0]) == has_t0
+          and ko.data_ptr() != k[1].data_ptr(),
+          f"{wrapper.__name__} {form}: T1 untouched, T2 where the form "
+          "puts it")
+    pairs = [(ko, po)] + [(k[2], p[2])] * has_acc
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    return err, err / max(float(b.abs().max()) for _, b in pairs)
+
+
+def _cm_entry(torch, ck, name, dtype, tol, peak, bw, Acsr, dia_np, offs,
+              awkward, cs):
+    """Phase 3b for one column-major one-step entry on the nine-diagonal A~
+    at the consistent-mass shapes (N = 65,536, M = 72) and at the awkward
+    operators: every form (:data:`CM_FORMS`) against the plain version;
+    each form's device time per launch (CUDA graph), its time launched one
+    call at a time from Python, the plain version's time, its bound (the
+    planes the form moves: full 5, no_t0 4, no_acc 3, bare 2) and its share
+    of the bound; torch.sparse.mm with A~ in CSR on the (N, M) view of T1,
+    the function the bare form computes (its scalars 0.5, 0, as the
+    composite's y = A~ T1 launch); and block shapes other than the plan's
+    on the bare and full forms, each checked against the plain version."""
+    wrapper = getattr(ck, name)
+    size = torch.finfo(dtype).bits // 8
+    npd = np.float32 if size == 4 else np.float64
+    N, M, nd = dia_np.shape[1], 72, len(offs)
+    dia = torch.as_tensor(dia_np, device="cuda").to(dtype)
+    # A~'s Gershgorin interval mapped onto [-1, 1], so the timed carries
+    # stay bounded
+    main = dia_np[list(offs).index(0)]
+    radius = np.abs(dia_np).sum(axis=0) - np.abs(main)
+    lo, hi = float((main - radius).min()), float((main + radius).max())
+    sc, sh = npd(2.0 / (hi - lo)), npd((hi + lo) / (hi - lo))
+    row = dict(forms={})
+    for form in ck.CM_FORMS:
+        planes = _planes(torch, dtype, (M, N), 3, 1)
+        err, rel = _cm_compare(torch, ck, wrapper, dia, offs, planes, form,
+                               sc, sh, cs)
+        print(f"   {name} {form} N={N} M={M} nd={nd}: max abs err "
+              f"{err:.3e}, relative {rel:.3e} (tol {tol:g})", flush=True)
+        check(rel <= tol, f"{name} {form} agrees with its plain version at "
+              "the consistent-mass shapes")
+        worst = rel
+        for dn, on, an, am in awkward:
+            dd = torch.as_tensor(dn, device="cuda").to(dtype)
+            c2 = _planes(torch, dtype, (am, an), 3, 2)
+            _, r2 = _cm_compare(torch, ck, wrapper, dd, on, c2, form,
+                                npd(0.37), npd(0.61), cs[:5])
+            print(f"   {name} {form} N={an} M={am} offsets={on}: relative "
+                  f"{r2:.3e}", flush=True)
+            check(r2 <= tol, f"{name} {form} agrees at N={an} M={am}")
+            worst = max(worst, r2)
+        row["forms"][form] = dict(max_abs_err=err, max_rel_err=worst)
+        del planes
+
+    def caller(fn, form, plan=None):
+        """One call of the form on a carry of its own; in place forms
+        rotate T0 and T1 as the chunk functions do."""
+        has_t0, has_acc = _cm_operands(form)
+        c = 0.01 if has_acc else 0.0
+        carry = _planes(torch, dtype, (M, N), 3, 4)
+        kw = {} if plan is None else dict(plan=plan)
+
+        def call():
+            fn(dia, offs, carry[0] if has_t0 else None, carry[1],
+               carry[2] if has_acc else None, sc, sh, c, **kw)
+            if has_t0:
+                carry[0], carry[1] = carry[1], carry[0]
+        return call
+
+    def with_plan(*a, plan):
+        return ck._step_cm(wrapper, dtype, *a, plan=plan)
+
+    for form in ck.CM_FORMS:
+        has_t0, has_acc = _cm_operands(form)
+        before = wrapper.launches
+        eager_ms = cuda_time_ms(caller(wrapper, form), 100)
+        check(wrapper.launches == before + 103,
+              f"{name} counts one launch per call")
+        ms = graph_time_ms(caller(wrapper, form))
+        plain_ms = cuda_time_ms(caller(ck.cheb_step_cm_plain, form), 10)
+        planes = 2 + has_t0 + 2 * has_acc
+        nbytes = (planes * N * M + nd * N) * size
+        flops = N * M * (2 * nd + 3 + has_t0 + 2 * has_acc)
+        bound_ms = max(nbytes / bw, flops / peak) * 1e3
+        print(f"   {name} {form}: {ms:.4f} ms/launch on the device (CUDA "
+              f"graph; {eager_ms:.4f} ms launched one call at a time), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+              f"{nbytes / 1e6:.1f} MB ({planes} planes) at "
+              f"{bw / 1e12:.2f} TB/s, {bound_ms / ms:.1%} of bound",
+              flush=True)
+        row["forms"][form].update(
+            ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by="bytes" if nbytes / bw >= flops / peak
+            else "operations")
+    # the library call computing the bare form's function, y = A~ T1
+    t1 = _planes(torch, dtype, (M, N), 1, 6)[0]
+    y = wrapper(dia, offs, None, t1, None, 0.5, 0.0, 0.0)
+    ylib = torch.sparse.mm(Acsr, t1.t())
+    torch.cuda.synchronize()
+    lib_rel = float((y.t() - ylib).abs().max() / ylib.abs().max())
+    check(lib_rel <= tol, f"{name} bare form (0.5, 0, 0) equals "
+          f"torch.sparse.mm with A~ ({lib_rel:.2e})")
+    library_ms = cuda_time_ms(lambda: torch.sparse.mm(Acsr, t1.t()), 100)
+    bare = row["forms"]["bare"]
+    print(f"   {name}: torch.sparse.mm (A~ CSR, T1 as (N, M)) "
+          f"{library_ms:.4f} ms against the bare form's {bare['ms']:.4f} ms "
+          f"(device) / {bare['eager_ms']:.4f} ms (one call at a time)",
+          flush=True)
+    del t1, y, ylib
+    # what the bare form costs beyond its bytes: its device time at
+    # M = 8 ... 144 fitted as a + b M (a: what a launch costs whatever its
+    # size), and a device copy of the same two planes (T1 read, T2 written)
+    ms_of_m = {}
+    for m in (8, 24, 72, 144):
+        x = _planes(torch, dtype, (m, N), 1, 8)[0]
+        ms_of_m[m] = graph_time_ms(
+            lambda x=x: wrapper(dia, offs, None, x, None, sc, sh, 0.0))
+        del x
+    ms_m = np.array(list(ms_of_m.items()))
+    slope, intercept = np.polyfit(ms_m[:, 0], ms_m[:, 1], 1)
+    x = _planes(torch, dtype, (M, N), 1, 9)[0]
+    y = torch.empty_like(x)
+    copy_ms = graph_time_ms(lambda: y.copy_(x))
+    # and with fewer of A~'s diagonals (the same bytes, fewer loads of T1
+    # per element)
+    ms_of_nd = {}
+    for keep in ((0,), (-1, 0, 1), (-N ** 0.5, -1, 0, 1, N ** 0.5),
+                 tuple(offs)):
+        idx = [k for k, o in enumerate(offs) if o in keep]
+        sub = dia[idx].contiguous()
+        so = tuple(offs[k] for k in idx)
+        ms_of_nd[len(so)] = graph_time_ms(
+            lambda sub=sub, so=so: wrapper(sub, so, None, x, None, sc, sh,
+                                           0.0))
+    del x, y, sub
+    print(f"   {name} bare: device ms at M = "
+          + ", ".join(f"{m}: {t:.4f}" for m, t in ms_of_m.items())
+          + f"; fitted {intercept * 1e3:.1f} us + {slope * 1e3:.3f} us per "
+          f"column ({2 * N * size / (slope * 1e-3) / 1e12:.2f} TB/s for the "
+          f"two planes); a device copy of T1 at M = {M}: {copy_ms:.4f} ms "
+          f"({bare['ms'] / copy_ms:.2f}x); at M = {M} with "
+          + ", ".join(f"{k}: {t:.4f}" for k, t in ms_of_nd.items())
+          + " diagonals", flush=True)
+    row.update(ms_by_columns=ms_of_m, fitted_launch_us=intercept * 1e3,
+               fitted_us_per_column=slope * 1e3, copy_ms=copy_ms,
+               ms_by_diagonals=ms_of_nd)
+    # block shapes: columns per thread x threads per block
+    plan = ck.cm_step_plan(N, M)
+    sweep = {}
+    for form in ("bare", "full"):
+        times = {}
+        for cols in (2, 4, 8):
+            for threads in ck._CM_THREADS:
+                shape = ck._cm_shape(N, M, cols, threads)
+                if form == "bare":
+                    planes = _planes(torch, dtype, (M, N), 3, 7)
+                    k = ck._step_cm(wrapper, dtype, dia, offs, None,
+                                    planes[1], None, sc, sh, 0.0, plan=shape)
+                    p = ck.cheb_step_cm_plain(dia, offs, None, planes[1],
+                                              None, float(sc), float(sh),
+                                              0.0)
+                    torch.cuda.synchronize()
+                    r = float((k - p).abs().max() / p.abs().max())
+                    check(r <= tol, f"{name} bare, {cols} columns x "
+                          f"{threads} threads agrees with its plain version")
+                    del planes, k, p
+                times[f"{cols}x{threads}"] = graph_time_ms(
+                    caller(with_plan, form, plan=shape))
+        best = min(times, key=times.get)
+        print(f"   {name} {form} block shapes (columns per thread x threads "
+              f"per block), ms on the device: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+              + f"; plan {plan['cols']}x{plan['threads']}, fastest {best}",
+              flush=True)
+        sweep[form] = times
+    row.update(max_abs_err=row["forms"]["bare"]["max_abs_err"],
+               max_rel_err=max(f["max_rel_err"]
+                               for f in row["forms"].values()),
+               ms=bare["ms"], eager_ms=bare["eager_ms"],
+               ms_per_step=bare["ms"], plain_ms=bare["plain_ms"],
+               bound_ms=bare["bound_ms"], bound_by=bare["bound_by"],
+               library_ms=library_ms, csr_spmm_ms=None,
+               plan={k: plan[k] for k in ("cols", "threads")},
+               block_shapes=sweep)
+    del dia
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_gen_kernels(card_name, ptxas_cm):
     """Phase 3 for the kernels of the sparse-SPD-B composite: the
-    column-major one-step entries and the combine against their plain
-    versions at the P=8 consistent-mass shapes (N = 65,536, M = 72, the
-    nine-diagonal B~) and at awkward shapes; their times; and the
-    multi-step kernels on the nine-diagonal operator, with the ND = 9
-    instantiation and with the run-time-count body."""
+    column-major one-step entries (every form, on the nine-diagonal A~,
+    :func:`_cm_entry`) and the combine against their plain versions at the
+    P=8 consistent-mass shapes (N = 65,536, M = 72) and at awkward shapes;
+    their times; and the multi-step kernels on the nine-diagonal B~, with
+    the ND = 9 instantiation and with the run-time-count body. First the
+    registers and spills of every instantiation of cheb_step_cm.cu
+    (``ptxas_cm``, reported during the build)."""
     import torch
     from feastkit_tpu_torch.ops import cheb_kernels as ck
     bw, peak32, peak64 = _card_rates(card_name)
     print("== 3b. the SPD-B composite's kernels (P=8 consistent mass)",
           flush=True)
     A, B, _ = consistent_mass_pencil(8)
-    (_, _), (dB_np, offs) = congruenced_dia(A, B)
+    (dA_np, offs_A), (dB_np, offs) = congruenced_dia(A, B)
     N, M, nd = A.shape[0], 72, len(offs)
     # b_lo, b_hi of the solve (0.9 / 1.1 x the B~ spectrum (0.25, 2.25))
     scB, shB = 2.0 / (2.475 - 0.225), (2.475 + 0.225) / (2.475 - 0.225)
     awkward = _awkward_operators()
+    _print_ptxas("cheb_step_cm", ptxas_cm)
+    import scipy.sparse as sp
+    dsq = sp.diags(1.0 / np.sqrt(B.diagonal()))
+    At = (dsq @ A @ dsq).tocsr()             # A~, the y = A~ T1 operator
     out = {}
     for dtype, tol, peak in ((torch.float32, 1e-5, peak32),
                              (torch.float64, 1e-13, peak64)):
@@ -743,50 +1015,19 @@ def phase_gen_kernels(card_name):
         npd = np.float32 if dtype == torch.float32 else np.float64
         size = torch.finfo(dtype).bits // 8
         dia = torch.as_tensor(dB_np, device="cuda").to(dtype)
+        with warnings.catch_warnings():   # "CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            Acsr = torch.sparse_csr_tensor(
+                torch.as_tensor(At.indptr, dtype=torch.int64),
+                torch.as_tensor(At.indices, dtype=torch.int64),
+                torch.as_tensor(At.data, dtype=dtype),
+                size=At.shape).cuda()
         cs = np.asarray(np.random.default_rng(0).standard_normal(8) * 0.1,
                         npd)
-        # the column-major one-step entry (8 steps, as for cheb_step_*)
+        # the column-major one-step entry, every form, on A~
         name = f"cheb_step_cm_{rung}"
-        wrapper, plain = getattr(ck, name), ck.cheb_step_cm_plain
-        carry = _planes(torch, dtype, (M, N), 3, 1)
-        err, rel = _compare(torch, wrapper, plain, dia, offs, carry,
-                            npd(scB), npd(shB), cs)
-        print(f"   {name} N={N} M={M} nd={nd}: max abs err {err:.3e}, "
-              f"relative {rel:.3e} (tol {tol:g})", flush=True)
-        check(rel <= tol, f"{name} agrees with its plain version at the "
-              "consistent-mass shapes")
-        worst = rel
-        for dn, on, an, am in awkward:
-            dd = torch.as_tensor(dn, device="cuda").to(dtype)
-            c2 = _planes(torch, dtype, (am, an), 3, 2)
-            _, r2 = _compare(torch, wrapper, plain, dd, on, c2, npd(0.37),
-                             npd(0.61), cs[:5])
-            print(f"   {name} N={an} M={am} offsets={on}: relative "
-                  f"{r2:.3e}", flush=True)
-            check(r2 <= tol, f"{name} agrees at N={an} M={am}")
-            worst = max(worst, r2)
-
-        def step():
-            wrapper(dia, offs, *carry, scB, shB, 0.01)
-            carry[0], carry[1] = carry[1], carry[0]
-
-        def step_plain():
-            plain(dia, offs, *carry, float(scB), float(shB), 0.01)
-            carry[0], carry[1] = carry[1], carry[0]
-        ms = cuda_time_ms(step, 100)
-        plain_ms = cuda_time_ms(step_plain, 10)
-        nbytes = (5 * N * M + nd * N) * size
-        flops = N * M * (2 * nd + 6)
-        bound_ms = max(nbytes / bw, flops / peak) * 1e3
-        print(f"   {name}: {ms:.4f} ms/launch (plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms, {bound_ms / ms:.1%} of bound)",
-              flush=True)
-        out[name] = dict(max_abs_err=err, max_rel_err=worst, ms=ms,
-                         ms_per_step=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms,
-                         bound_by="bytes" if nbytes / bw >= flops / peak
-                         else "operations", csr_spmm_ms=None)
-        del carry
+        out[name] = _cm_entry(torch, ck, name, dtype, tol, peak, bw, Acsr,
+                              dA_np, offs_A, awkward, cs)
         # the combine: in place (the outer step) and from zero (the inits)
         name = f"cheb_combine_{rung}"
         wrapper = getattr(ck, name)
@@ -863,7 +1104,7 @@ def phase_gen_kernels(card_name):
                   f"{row['nd9']['ms']:.4f} ms/launch, run-time-count body "
                   f"{row['runtime_count']['ms']:.4f} ms/launch", flush=True)
             out[f"{name}_nd9"] = row
-        del dia
+        del dia, Acsr
         torch.cuda.empty_cache()
     return out
 
@@ -1398,6 +1639,26 @@ def expected_gen_launches(applications, inner, qlen):
     return want
 
 
+def expected_gen_forms(applications, inner, qlen):
+    """Launches of the column-major one-step entries by form that the
+    composite's schedule must give: per outer step the y = A~ T1 launch
+    without T0 and acc ("bare"), the inner init without T0 ("bare" on the
+    fp64 carry, "no_t0" with the accumulator on the f32 carry), and the
+    inner one-step launches of the 4 / 2 / 1 split in the full form."""
+    from feastkit_tpu_torch.ops.cheb_gen import inner_split
+    from feastkit_tpu_torch.ops.cheb_kernels import CM_FORMS
+    want = {f"cheb_step_cm_{rung}": dict.fromkeys(CM_FORMS, 0)
+            for rung in ("f32", "f64")}
+    for rung, n in applications:
+        outer = n - 1
+        n1 = inner_split(qlen[rung] - 2, inner[rung])[2]
+        forms = want[f"cheb_step_cm_{rung}"]
+        forms["bare"] += outer * (1 + (rung == "f64"))
+        forms["no_t0"] += outer * (rung == "f32")
+        forms["full"] += outer * n1
+    return want
+
+
 @contextlib.contextmanager
 def recorded_applications(gen=False):
     """Record (rung, series length) of every filter application and each
@@ -1445,12 +1706,14 @@ def switches(**env):
 def _counted_solve(A, B, Emin, Emax, M0, fpm, label, gen=False):
     """One solve with the launch counts set to 0 just before and read just
     after; checks the counts against the schedule the solve reports."""
-    from feastkit_tpu_torch.ops.cheb_kernels import (launch_counts,
+    from feastkit_tpu_torch.ops.cheb_kernels import (form_launch_counts,
+                                                      launch_counts,
                                                       reset_launch_counts)
     with recorded_applications(gen) as seen:
         reset_launch_counts()
         r, seconds = _run_feast(A, B, Emin, Emax, M0, fpm)
         counts = launch_counts()
+        seen["forms"] = form_launch_counts()
     want = (expected_gen_launches(seen["applications"], seen["steps"],
                                   seen["qlen"]) if gen
             else expected_launches(seen["applications"], seen["steps"]))
@@ -1458,6 +1721,13 @@ def _counted_solve(A, B, Emin, Emax, M0, fpm, label, gen=False):
           f"applications {seen['applications']}, launches {counts}",
           flush=True)
     check(counts == want, f"{label}: launches follow the schedule {want}")
+    if gen:
+        want = expected_gen_forms(seen["applications"], seen["steps"],
+                                  seen["qlen"])
+        print(f"   {label}: column-major launches by form {seen['forms']}",
+              flush=True)
+        check(seen["forms"] == want, f"{label}: column-major launches by "
+              f"form follow the schedule {want}")
     return r, seconds, counts, seen
 
 
@@ -1708,19 +1978,30 @@ def phase_consistent_mass(kernels):
     print(f"   warm solves {[round(s, 3) for s in warm]} s, median "
           f"{float(np.median(warm)):.3f} s", flush=True)
     breakdown = _breakdown(A, B, 0.0, Emax, M0, fpm)
+    forms = seen["forms"]
+
+    def seconds(n):
+        # the column-major entries: each form's launches x its own time
+        if n in forms:
+            return sum(c * kernels[n]["forms"][f]["ms"]
+                       for f, c in forms[n].items()) / 1e3
+        return counts[n] * kernels[n]["ms"] / 1e3
     for rung in ("f32", "f64"):
         names = [n for n in counts if n.endswith(rung) and counts[n]]
-        kernel_s = sum(counts[n] * kernels[n]["ms"] for n in names
-                       if n in kernels) / 1e3
+        kernel_s = sum(seconds(n) for n in names if n in kernels)
         print(f"   {rung} rung: launches "
               f"{ {n: counts[n] for n in names} }; x ms/launch (phase 3, "
-              f"nine-diagonal times for the multi-step kernels) = "
-              f"{kernel_s:.3f} s; filter stage "
-              f"{breakdown.get('filter_' + rung, 0.0):.3f} s", flush=True)
+              f"nine-diagonal times for the multi-step kernels, each "
+              f"form's device time for the column-major entries) = "
+              f"{kernel_s:.3f} s, of which the column-major entries "
+              f"{sum(seconds(n) for n in names if n in forms):.3f} s; "
+              f"filter stage {breakdown.get('filter_' + rung, 0.0):.3f} s",
+              flush=True)
     return dict(cold_s=cold_s, warm_s=warm, warm_median_s=float(
         np.median(warm)), peak_bytes=peak, counts=counts,
-        applications=seen["applications"], inner_steps=seen["steps"],
-        inner_series=seen["qlen"], breakdown=breakdown)
+        form_counts=forms, applications=seen["applications"],
+        inner_steps=seen["steps"], inner_series=seen["qlen"],
+        breakdown=breakdown)
 
 
 def main(argv):
@@ -1733,7 +2014,7 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_card()
-    phase_build()
+    ptxas_cm = phase_build()
     if "--stream-sweep" in argv:
         stream_sweep(smi.split(",")[0])
         print(smi, flush=True)
@@ -1749,13 +2030,14 @@ def main(argv):
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
     kernels = phase_kernels(smi.split(",")[0])
-    gen_kernels = phase_gen_kernels(smi.split(",")[0])
+    gen_kernels = phase_gen_kernels(smi.split(",")[0], ptxas_cm)
     nd9 = {k: gen_kernels.pop(k) for k in list(gen_kernels)
            if k.endswith("_nd9")}
     kernels.update(gen_kernels)
     dia_kernels = phase_dia_kernels(smi.split(",")[0])
     rr_ms = phase_rayleigh_ritz()
     counts = {name: None for name in (*KERNELS, *DIA_KERNELS)}
+    form_counts = {}
     if not quick:
         main_path = phase_main_path(kernels)
         p9 = phase_p9()
@@ -1767,6 +2049,7 @@ def main(argv):
         spd_b = phase_consistent_mass(ms9)
         counts = dict(main_path["counts"])
         counts.update({n: spd_b["counts"][n] for n in SPD_B_KERNELS})
+        form_counts = spd_b["form_counts"]
         print(json.dumps({"main_path": main_path, "p9": p9,
                           "spd_b": spd_b}), flush=True)
         krylov = phase_krylov(dia_kernels)
@@ -1784,9 +2067,13 @@ def main(argv):
             replaces=replaces, launches=counts[name],
             max_abs_err=k["max_abs_err"], max_rel_err=k["max_rel_err"],
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by=k["bound_by"], library_ms=None,
+            bound_by=k["bound_by"], library_ms=k.get("library_ms"),
             steps_per_launch=steps, ms_per_step=k["ms_per_step"],
             csr_spmm_ms=k["csr_spmm_ms"]))
+        if "forms" in k:      # the column-major entries: ms, bound of "bare"
+            rows[-1].update(eager_ms=k["eager_ms"], plan=k["plan"], forms={
+                f: dict(v, launches=form_counts.get(name, {}).get(f))
+                for f, v in k["forms"].items()})
     for name, k in dia_kernels.items():
         rows.append(dict(
             name=name, route="cuda",

@@ -14,13 +14,16 @@ with an accumulator, so each OUTER step runs the kernels of
 ``ops/cheb_kernels.py``:
 
 1. y = A~ T1: one one-step launch with halved scalars (0.5, 0, 0) from
-   T0 = 0 (the acc it updates with c_k = 0 is a scratch plane);
+   T0 = 0 and without an accumulator (the JAX package passes zero planes
+   for both; the port's launch neither loads nor stores them and writes y
+   to a new plane);
 2. the inner init t1 = Bhat y (one-step launch, scalars scB/2, shB/2,
-   from T0 = 0), with the inner accumulator qc0 y + qc1 t1: on the fp64
-   carry through the combine kernel with (sc, sh, c_k) = (qc1, -qc0, 0.5)
-   from T0 = F = 0, as the JAX package's double-single rung does; on the
-   f32 carry from acc = qc0 y inside the one-step launch (c_k = qc1), as
-   its f32 rung does;
+   from T0 = 0, again not loaded), with the inner accumulator
+   qc0 y + qc1 t1: on the fp64 carry through the combine kernel with
+   (sc, sh, c_k) = (qc1, -qc0, 0.5) from T0 = F = 0 (the one-step launch
+   without an accumulator), as the JAX package's double-single rung does;
+   on the f32 carry from acc = qc0 y inside the one-step launch
+   (c_k = qc1), as its f32 rung does;
 3. the other m_B - 1 inner steps as 4-step passes, a 2-step pass and a
    one-step launch (the split of ``_sparse_cheb_filter_host_fused``; the
    JAX package pads the last group with zero coefficients, which leaves
@@ -78,15 +81,16 @@ def inner_split(n, steps):
     return n4, n2, n - n4 - n2
 
 
-def _apply_q_of_B(k, dB, offsets_B, qc, y, scB, shB, inner_steps, scratch):
+def _apply_q_of_B(k, dB, offsets_B, qc, y, scB, shB, inner_steps):
     """z = q(B~) y. Consumes y (its buffer joins the inner carry)."""
-    t1 = torch.zeros_like(y)
     if k["ds_form"]:
-        k["step"](dB, offsets_B, t1, y, scratch, scB * 0.5, shB * 0.5, 0.0)
+        t1 = k["step"](dB, offsets_B, None, y, None, scB * 0.5, shB * 0.5,
+                       0.0)
         acc = k["combine"](t1, y, None, None, qc[1], -qc[0], 0.5)
     else:
         acc = y * float(qc[0])
-        k["step"](dB, offsets_B, t1, y, acc, scB * 0.5, shB * 0.5, qc[1])
+        t1 = k["step"](dB, offsets_B, None, y, acc, scB * 0.5, shB * 0.5,
+                       qc[1])
     rest = qc[2:]
     n4, n2, _ = inner_split(len(rest), inner_steps)
     carry = k["chunk4"](dB, offsets_B, (y, t1, acc), rest[:n4], scB, shB)
@@ -112,12 +116,9 @@ def cheb_gen_chunk(dA, offsets_A, dB, offsets_B, qc, carry, coeffs_chunk,
     if len(coeffs_chunk) == 0:
         return t0, t1, f
     scB, shB = scals["scB"], scals["shB"]
-    scratch = torch.zeros_like(t1)
     for ck in coeffs_chunk:
-        y = torch.zeros_like(t1)
-        k["step"](dA, offsets_A, y, t1, scratch, 0.5, 0.0, 0.0)
-        z = _apply_q_of_B(k, dB, offsets_B, qc, y, scB, shB, inner_steps,
-                          scratch)
+        y = k["step"](dA, offsets_A, None, t1, None, 0.5, 0.0, 0.0)
+        z = _apply_q_of_B(k, dB, offsets_B, qc, y, scB, shB, inner_steps)
         del y
         k["combine"](z, t1, t0, f, scals["sc_C"], scals["sh_C"], ck)
         del z

@@ -56,9 +56,17 @@ applications of :func:`cheb_step_plain`.
 The sparse-SPD-B composite (``ops/cheb_gen.py``) runs one-step and
 multi-step passes in turn on every outer step, so it needs the one-step
 kernels on the column-major carry too: ``cheb_step_cm_f32`` /
-``cheb_step_cm_f64`` are the entries of ``csrc/cheb_step.cu`` for (M, N)
-planes (plain version :func:`cheb_step_cm_plain`, the 1-step plain version
-on the transposed views). Its elementwise combine
+``cheb_step_cm_f64`` (``csrc/cheb_step_cm.cu``; plain version
+:func:`cheb_step_cm_plain`, the 1-step plain version on the transposed
+views). They take T0 and acc as optional operands, which gives four forms
+(:data:`CM_FORMS`): without T0 it is read as zero and never loaded, and
+T2 goes to a new plane; without acc no accumulator is loaded or stored
+(c_k must be 0). Every column-major launch of the composite starts from
+T0 = 0, and its y = A~ T1 launch has no accumulator. A thread of the
+kernel holds its row's diagonals in registers across a group of columns
+(:func:`cm_step_plan`). The wrappers return the plane that holds T2 and
+count their launches per form too (:func:`form_launch_counts`). Its
+elementwise combine
 
     T2 = 2 (sc * z - sh * x) - T0,    F += c_k * T2,
 
@@ -78,6 +86,7 @@ from .dia import dia_matvec_plain
 
 __all__ = ["cheb_step_f32", "cheb_step_f64", "cheb_step_plain",
            "cheb_step_cm_f32", "cheb_step_cm_f64", "cheb_step_cm_plain",
+           "CM_FORMS", "cm_step_plan",
            "cheb_step2_f32", "cheb_step4_f32", "cheb_step2_f64",
            "cheb_step4_f64", "cheb_step2_plain",
            "cheb_step4_plain",
@@ -87,7 +96,7 @@ __all__ = ["cheb_step_f32", "cheb_step_f64", "cheb_step_plain",
            "cheb_f32_4_chunk", "cheb_f64_2_chunk", "cheb_f64_4_chunk",
            "multistep_plan", "reckoned_traffic", "transpose_planes",
            "SHARED_BYTES_PER_BLOCK",
-           "reset_launch_counts", "launch_counts"]
+           "reset_launch_counts", "launch_counts", "form_launch_counts"]
 
 # dynamic shared memory one thread block may use on sm_90 (227 KB), and
 # what each of two blocks resident on one SM may use (the SM has 228 KB and
@@ -103,6 +112,12 @@ _TILE_ALIGN = 32
 _STREAM_CHUNK = 256
 _STREAM_COLS = {4: (1, 2, 4), 8: (1, 2)}
 _SMS = 132
+# the column-major one-step kernel (csrc/cheb_step_cm.cu): the columns a
+# thread may take and its blocks of threads (one row each)
+_CM_COLS = (1, 2, 4, 8)
+_CM_THREADS = (64, 128, 256, 512)
+# the forms of the column-major entries, by (T0 absent, acc absent)
+CM_FORMS = ("full", "no_t0", "no_acc", "bare")
 
 
 def cheb_step_plain(diags, offsets, t0, t1, acc, sc, sh, ck):
@@ -116,9 +131,22 @@ def cheb_step_plain(diags, offsets, t0, t1, acc, sc, sh, ck):
 
 def cheb_step_cm_plain(diags, offsets, t0, t1, acc, sc, sh, ck):
     """The plain version of one step on column-major (M, N) planes: the
-    row-major plain version on the transposed views, which write through
-    to the planes (elementwise the same arithmetic in the same order)."""
-    cheb_step_plain(diags, offsets, t0.t(), t1.t(), acc.t(), sc, sh, ck)
+    arithmetic of :func:`cheb_step_plain` in the same order on the
+    transposed views, which write through to the planes. ``t0`` None: T0
+    is read as zero and T2 goes to a new plane; ``acc`` None: no
+    accumulator (``ck`` is not used). Returns the plane that holds T2
+    (``t0`` when given)."""
+    x = t1.t()
+    t2 = 2.0 * (sc * dia_matvec_plain(diags, offsets, x) - sh * x)
+    if t0 is None:
+        out = torch.empty_like(t1)
+    else:
+        t2 = t2 - t0.t()
+        out = t0
+    out.t().copy_(t2)
+    if acc is not None:
+        acc.t().add_(t2, alpha=ck)
+    return out
 
 
 @functools.cache
@@ -126,9 +154,7 @@ def _library():
     from .cuda_build import load
     lib = load("cheb_step")
     for name, scalar in (("cheb_step_f32", ctypes.c_float),
-                         ("cheb_step_f64", ctypes.c_double),
-                         ("cheb_step_cm_f32", ctypes.c_float),
-                         ("cheb_step_cm_f64", ctypes.c_double)):
+                         ("cheb_step_f64", ctypes.c_double)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -140,18 +166,17 @@ def _library():
     return lib
 
 
-def _check(diags, offsets, t0, t1, acc, dtype, colmajor=False):
+def _check(diags, offsets, t0, t1, acc, dtype):
     for name, t in (("diags", diags), ("T0", t0), ("T1", t1), ("acc", acc)):
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != t0.device:
             raise ValueError(f"{name} is on {t.device}, T0 on {t0.device}")
     if t0.dim() != 2 or t1.shape != t0.shape or acc.shape != t0.shape:
-        layout = "(M, N)" if colmajor else "(N, M)"
-        raise ValueError(f"T0, T1 and acc must be {layout} of one shape, "
+        raise ValueError(f"T0, T1 and acc must be (N, M) of one shape, "
                          f"got {tuple(t0.shape)}, {tuple(t1.shape)}, "
                          f"{tuple(acc.shape)}")
-    n = t0.shape[1] if colmajor else t0.shape[0]
+    n = t0.shape[0]
     if diags.dim() != 2 or diags.shape[0] != len(offsets) \
             or diags.shape[1] != n:
         raise ValueError(f"diags must be ({len(offsets)}, {n}), "
@@ -162,13 +187,13 @@ def _check(diags, offsets, t0, t1, acc, dtype, colmajor=False):
         raise ValueError("T0, T1 and acc must be three distinct buffers")
 
 
-def _launch(wrapper, diags, offsets, t0, t1, acc, sc, sh, ck, colmajor):
+def _launch(wrapper, diags, offsets, t0, t1, acc, sc, sh, ck):
     for name, t in (("diags", diags), ("T0", t0), ("T1", t1), ("acc", acc)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib = _library()
     offs = (ctypes.c_int64 * max(len(offsets), 1))(*offsets)
-    n, m = (t0.shape[1], t0.shape[0]) if colmajor else t0.shape
+    n, m = t0.shape
     with torch.cuda.device(t0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, wrapper.__name__)(
@@ -180,15 +205,14 @@ def _launch(wrapper, diags, offsets, t0, t1, acc, sc, sh, ck, colmajor):
     wrapper.launches += 1
 
 
-def _step(wrapper, dtype, diags, offsets, t0, t1, acc, sc, sh, ck,
-          colmajor=False):
-    _check(diags, offsets, t0, t1, acc, dtype, colmajor)
+def _step(wrapper, dtype, diags, offsets, t0, t1, acc, sc, sh, ck):
+    _check(diags, offsets, t0, t1, acc, dtype)
     if t0.is_cuda:
         _launch(wrapper, diags, offsets, t0, t1, acc, float(sc), float(sh),
-                float(ck), colmajor)
+                float(ck))
     elif t0.device.type == "cpu":
-        plain = cheb_step_cm_plain if colmajor else cheb_step_plain
-        plain(diags, offsets, t0, t1, acc, float(sc), float(sh), float(ck))
+        cheb_step_plain(diags, offsets, t0, t1, acc, float(sc), float(sh),
+                        float(ck))
     else:
         raise ValueError(f"unsupported device {t0.device}")
 
@@ -206,16 +230,139 @@ def cheb_step_f64(diags, offsets, t0, t1, acc, sc, sh, ck):
           sc, sh, ck)
 
 
+# ------------------------------------------------- column-major one-step
+
+def cm_step_plan(N, M):
+    """Block shape of the column-major one-step kernel
+    (``csrc/cheb_step_cm.cu``) for an (M, N) carry: a thread owns one row
+    for a group of ``cols`` columns (``groups`` = ceil(M / cols) of them,
+    the last one ragged), a block ``threads`` rows (``strips`` =
+    ceil(N / threads) blocks per group); the grid is strips x groups
+    blocks. A thread loads its row's diagonals once per group, so ``cols``
+    is the largest of 1, 2, 4, 8 not above M; blocks of 128 threads. At
+    the consistent-mass shapes (N = 65,536, M = 72) that block shape was
+    the fastest ``chip_smoke.py`` timed in both types and in the form the
+    composite launches, and blocks that walk several chunks of rows were
+    slower (PERF.md). Raises where the kernel does not take the shape
+    (N > 2^30, or more than 65535 groups)."""
+    N, M = int(N), int(M)
+    if N > 2**30 or M < 0 or N < 0:
+        raise ValueError(f"N={N}, M={M}: the column-major one-step kernel "
+                         "takes 0 <= N <= 2^30")
+    cols = max(c for c in _CM_COLS if c <= max(M, 1))
+    if -(-M // cols) > 65535:
+        raise ValueError(f"M={M}: more than 65535 column groups")
+    return _cm_shape(N, M, cols, 128)
+
+
+def _cm_shape(N, M, cols, threads):
+    """The column-major one-step kernel's plan for a given block shape."""
+    if cols < 1 or threads not in _CM_THREADS:
+        raise ValueError(f"cols={cols}, threads={threads}: cols >= 1, "
+                         f"threads one of {_CM_THREADS}")
+    return dict(cols=cols, groups=-(-M // cols), threads=threads,
+                strips=-(-N // threads))
+
+
+@functools.cache
+def _cm_library():
+    from .cuda_build import load
+    lib = load("cheb_step_cm")
+    for name, scalar in (("cheb_step_cm_f32", ctypes.c_float),
+                         ("cheb_step_cm_f64", ctypes.c_double)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p]
+                       + [ctypes.c_int64] * 4 + [scalar] * 3
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.cheb_step_cm_error_string.argtypes = [ctypes.c_int]
+    lib.cheb_step_cm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cm_form(t0, acc):
+    return CM_FORMS[(t0 is None) + 2 * (acc is None)]
+
+
+def _check_cm(diags, offsets, t0, t1, acc, dtype, ck):
+    named = [(name, t) for name, t in (("diags", diags), ("T0", t0),
+                                       ("T1", t1), ("acc", acc))
+             if t is not None]
+    for name, t in named:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != t1.device:
+            raise ValueError(f"{name} is on {t.device}, T1 on {t1.device}")
+    planes = [t for _, t in named[1:]]
+    if t1.dim() != 2 or any(t.shape != t1.shape for t in planes):
+        raise ValueError("T0, T1 and acc must be (M, N) of one shape, got "
+                         + ", ".join(str(tuple(t.shape)) for t in planes))
+    n = t1.shape[1]
+    if diags.dim() != 2 or diags.shape[0] != len(offsets) \
+            or diags.shape[1] != n:
+        raise ValueError(f"diags must be ({len(offsets)}, {n}), "
+                         f"got {tuple(diags.shape)}")
+    if len(offsets) > 32:
+        raise ValueError(f"at most 32 diagonals, got {len(offsets)}")
+    if len({t.data_ptr() for t in planes}) != len(planes):
+        raise ValueError("T0, T1 and acc must be distinct buffers")
+    if acc is None and ck != 0.0:
+        raise ValueError(f"without acc, c_k must be 0, got {ck}")
+
+
+def _step_cm(wrapper, dtype, diags, offsets, t0, t1, acc, sc, sh, ck,
+             plan=None):
+    """Check the operands, then launch ``wrapper``'s kernel on CUDA tensors
+    (its plain version on CPU tensors); ``plan``: a block shape to launch
+    with instead of :func:`cm_step_plan`'s (from :func:`_cm_shape`).
+    Returns the plane that holds T2."""
+    sc, sh, ck = float(sc), float(sh), float(ck)
+    _check_cm(diags, offsets, t0, t1, acc, dtype, ck)
+    if t1.device.type == "cpu":
+        return cheb_step_cm_plain(diags, offsets, t0, t1, acc, sc, sh, ck)
+    if not t1.is_cuda:
+        raise ValueError(f"unsupported device {t1.device}")
+    for name, t in (("diags", diags), ("T0", t0), ("T1", t1), ("acc", acc)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    M, N = t1.shape
+    if plan is None:
+        plan = cm_step_plan(N, M)
+    out = torch.empty_like(t1) if t0 is None else t0
+    lib = _cm_library()
+    offs = (ctypes.c_int64 * max(len(offsets), 1))(*offsets)
+    with torch.cuda.device(t1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, wrapper.__name__)(
+            diags.data_ptr(), offs, len(offsets), out.data_ptr(),
+            int(t0 is not None), t1.data_ptr(),
+            None if acc is None else acc.data_ptr(), N, M, plan["cols"],
+            plan["threads"], sc, sh, ck, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{wrapper.__name__} launch failed: CUDA error {err} "
+            f"({lib.cheb_step_cm_error_string(err).decode()})")
+    wrapper.launches += 1
+    wrapper.form_launches[_cm_form(t0, acc)] += 1
+    return out
+
+
 def cheb_step_cm_f32(diags, offsets, t0, t1, acc, sc, sh, ck):
-    """One fused f32 step in place on column-major (M, N) planes."""
-    _step(cheb_step_cm_f32, torch.float32, diags, offsets, t0, t1, acc,
-          sc, sh, ck, colmajor=True)
+    """One fused f32 step on column-major (M, N) planes: T2 = 2 (sc A T1 -
+    sh T1) - T0 into T0's buffer, acc += ck T2 in place. ``t0`` None: read
+    as zero, T2 to a new plane; ``acc`` None: no accumulator (``ck`` must
+    be 0). Returns the plane that holds T2. Scalars are used as f32."""
+    return _step_cm(cheb_step_cm_f32, torch.float32, diags, offsets, t0, t1,
+                    acc, sc, sh, ck)
 
 
 def cheb_step_cm_f64(diags, offsets, t0, t1, acc, sc, sh, ck):
-    """One fused fp64 step in place on column-major (M, N) planes."""
-    _step(cheb_step_cm_f64, torch.float64, diags, offsets, t0, t1, acc,
-          sc, sh, ck, colmajor=True)
+    """One fused fp64 step on column-major (M, N) planes; see
+    :func:`cheb_step_cm_f32`."""
+    return _step_cm(cheb_step_cm_f64, torch.float64, diags, offsets, t0, t1,
+                    acc, sc, sh, ck)
 
 
 # ------------------------------------------------------------ combine
@@ -695,9 +842,18 @@ def launch_counts() -> dict:
     return {w.__name__: w.launches for w in _WRAPPERS}
 
 
+def form_launch_counts() -> dict:
+    """The column-major one-step entries' launches by form
+    (:data:`CM_FORMS`)."""
+    return {w.__name__: dict(w.form_launches)
+            for w in (cheb_step_cm_f32, cheb_step_cm_f64)}
+
+
 def reset_launch_counts() -> None:
     for w in _WRAPPERS:
         w.launches = 0
+    for w in (cheb_step_cm_f32, cheb_step_cm_f64):
+        w.form_launches = dict.fromkeys(CM_FORMS, 0)
 
 
 reset_launch_counts()

@@ -19,13 +19,8 @@
 // T1 must not alias T0 or acc (the Python wrapper checks). The caller then
 // rotates its carry (T0, T1, acc) <- (T1, T2, acc).
 //
-// cheb_step_cm_f32 / cheb_step_cm_f64 are the same step on COLUMN-major
-// (M, N) planes (each of the M columns one contiguous N-vector), the layout
-// of the multi-step kernels (cheb_multistep.cu): the sparse-SPD-B composite
-// (ops/cheb_gen.py) alternates one-step and multi-step passes on every
-// outer step, so it keeps one layout throughout. Same flat grid, element
-// e = j N + i of column j and row i; the neighbour of row i on diagonal k
-// is e + off_k, and the bounds test is on i + off_k.
+// The same step on the column-major (M, N) carry of the sparse-SPD-B
+// composite is cheb_step_cm.cu.
 //
 // What bounds it: memory. A step moves 5 (N, M) planes (T0, T1 and acc
 // read; T2 and acc written) plus the nd diagonals, and does ~2 nd + 6
@@ -58,8 +53,8 @@ struct DiaOffsets {
 // MAXD is a compile-time bound on nd, so the loop over the diagonals
 // unrolls and its independent loads issue together: 8 covers the 2D and 3D
 // Laplacian stencils (5 and 7 diagonals), 32 any operator bcoo_to_dia
-// accepts. COLMAJOR selects the (M, N) layout (see the top of the file).
-template <typename T, int MAXD, bool COLMAJOR>
+// accepts.
+template <typename T, int MAXD>
 __global__ void __launch_bounds__(kThreadsPerBlock)
 cheb_step_kernel(const T* __restrict__ diags, DiaOffsets offs, int nd,
                  T* __restrict__ t0, const T* __restrict__ t1,
@@ -70,16 +65,12 @@ cheb_step_kernel(const T* __restrict__ diags, DiaOffsets offs, int nd,
       static_cast<unsigned long long>(blockIdx.x) * kThreadsPerBlock +
       threadIdx.x;
   if (e >= total) return;
-  // the row of element e: e / m row-major, e % n column-major; 32-bit
-  // division where the grid fits (the branch is uniform)
-  const unsigned long long div = COLMAJOR ? n : m;
-  const unsigned long long q =
+  // the row of element e; 32-bit division where the grid fits (the branch
+  // is uniform)
+  const long long row = static_cast<long long>(
       total <= 0xffffffffULL
-          ? static_cast<unsigned int>(e) / static_cast<unsigned int>(div)
-          : e / div;
-  const long long row = static_cast<long long>(COLMAJOR ? e - q * div : q);
-  // distance in elements between rows i and i + 1
-  const long long stride = COLMAJOR ? 1 : m;
+          ? static_cast<unsigned int>(e) / static_cast<unsigned int>(m)
+          : e / static_cast<unsigned long long>(m));
 
   T y = T(0);
 #pragma unroll
@@ -88,7 +79,7 @@ cheb_step_kernel(const T* __restrict__ diags, DiaOffsets offs, int nd,
       const long long r = row + offs.v[k];
       if (r >= 0 && r < n) {
         y += __ldg(diags + static_cast<long long>(k) * n + row) *
-             __ldg(t1 + static_cast<long long>(e) + offs.v[k] * stride);
+             __ldg(t1 + static_cast<long long>(e) + offs.v[k] * m);
       }
     }
   }
@@ -97,7 +88,7 @@ cheb_step_kernel(const T* __restrict__ diags, DiaOffsets offs, int nd,
   acc[e] += ck * t2;
 }
 
-template <typename T, bool COLMAJOR>
+template <typename T>
 int launch(const T* diags, const long long* offsets, int nd, T* t0,
            const T* t1, T* acc, long long n, long long m, T sc, T sh, T ck,
            void* stream) {
@@ -115,10 +106,10 @@ int launch(const T* diags, const long long* offsets, int nd, T* t0,
   const dim3 block(kThreadsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nd <= 8) {
-    cheb_step_kernel<T, 8, COLMAJOR><<<grid, block, 0, s>>>(
+    cheb_step_kernel<T, 8><<<grid, block, 0, s>>>(
         diags, offs, nd, t0, t1, acc, n, m, sc, sh, ck);
   } else {
-    cheb_step_kernel<T, kMaxDiags, COLMAJOR><<<grid, block, 0, s>>>(
+    cheb_step_kernel<T, kMaxDiags><<<grid, block, 0, s>>>(
         diags, offs, nd, t0, t1, acc, n, m, sc, sh, ck);
   }
   return static_cast<int>(cudaGetLastError());
@@ -131,33 +122,16 @@ extern "C" {
 int cheb_step_f32(const float* diags, const long long* offsets, int nd,
                   float* t0, const float* t1, float* acc, long long n,
                   long long m, float sc, float sh, float ck, void* stream) {
-  return launch<float, false>(diags, offsets, nd, t0, t1, acc, n, m, sc, sh,
-                              ck, stream);
+  return launch<float>(diags, offsets, nd, t0, t1, acc, n, m, sc, sh, ck,
+                       stream);
 }
 
 int cheb_step_f64(const double* diags, const long long* offsets, int nd,
                   double* t0, const double* t1, double* acc, long long n,
                   long long m, double sc, double sh, double ck,
                   void* stream) {
-  return launch<double, false>(diags, offsets, nd, t0, t1, acc, n, m, sc, sh,
-                               ck, stream);
-}
-
-// column-major (M, N) planes; n is still the number of rows N
-int cheb_step_cm_f32(const float* diags, const long long* offsets, int nd,
-                     float* t0, const float* t1, float* acc, long long n,
-                     long long m, float sc, float sh, float ck,
-                     void* stream) {
-  return launch<float, true>(diags, offsets, nd, t0, t1, acc, n, m, sc, sh,
-                             ck, stream);
-}
-
-int cheb_step_cm_f64(const double* diags, const long long* offsets, int nd,
-                     double* t0, const double* t1, double* acc, long long n,
-                     long long m, double sc, double sh, double ck,
-                     void* stream) {
-  return launch<double, true>(diags, offsets, nd, t0, t1, acc, n, m, sc, sh,
-                              ck, stream);
+  return launch<double>(diags, offsets, nd, t0, t1, acc, n, m, sc, sh, ck,
+                        stream);
 }
 
 const char* cheb_error_string(int err) {

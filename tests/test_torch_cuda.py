@@ -283,6 +283,104 @@ def test_column_major_step_matches_plain(name, dtype, tol, nx, ny, M):
         assert float((a - b).abs().max() / scale) <= tol
 
 
+def _cm_case(case):
+    """(diagonals, offsets, M) of a column-major form test: five-point
+    operators with ragged column groups, the nine-diagonal consistent-mass
+    A~, 2 max|offset| > N, eleven diagonals and one."""
+    if case == "nd9":
+        nx = 32
+        Dx = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+        Mx = sp.diags([4 / 6, 1 / 6, 1 / 6], [0, 1, -1], shape=(nx, nx))
+        A = (sp.kron(Dx, Mx) + sp.kron(Mx, Dx)).tocoo()
+        d = 1.0 / np.sqrt(sp.kron(Mx, Mx).diagonal())
+        dia, offs = bcoo_to_dia(A.data * d[A.row] * d[A.col],
+                                np.stack([A.row, A.col], axis=1), nx * nx)
+        return dia, offs, 72
+    if case in ("wide", "nd11", "nd1"):
+        N, offs, M = dict(
+            wide=(100, (-60, -1, 0, 1, 60), 7),
+            nd11=(1089, (-40, -33, -7, -2, -1, 0, 1, 2, 7, 33, 40), 3),
+            nd1=(257, (0,), 5))[case]
+        rng = np.random.default_rng(N)
+        dia = np.zeros((len(offs), N))
+        for k, o in enumerate(offs):
+            dia[k, max(0, -o):N - max(0, o)] = rng.random(N - abs(o)) - 0.5
+        return dia, offs, M
+    nx, ny, M = dict(m11=(37, 29, 11), m72=(33, 33, 72), m1=(5, 7, 1),
+                     m6=(40, 30, 6))[case]
+    return (*_operator(nx, ny), M)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,tol", [
+    ("cheb_step_cm_f32", torch.float32, 1e-5),
+    ("cheb_step_cm_f64", torch.float64, 1e-13)])
+@pytest.mark.parametrize("form", ["full", "no_t0", "no_acc", "bare"])
+@pytest.mark.parametrize("case", ["m11", "m72", "m1", "m6", "nd9", "wide",
+                                  "nd11", "nd1"])
+def test_column_major_forms_match_plain(name, dtype, tol, form, case):
+    """Every form of the column-major entries (T0 and acc present or
+    absent) against the plain version in the same form: one launch, T2
+    where the form puts it, T1 untouched, each form counted."""
+    _need_cuda()
+    dia, offs, M = _cm_case(case)
+    N = dia.shape[1]
+    has_t0, has_acc = form in ("full", "no_acc"), form in ("full", "no_t0")
+    g = torch.Generator().manual_seed(4)
+    d = torch.as_tensor(dia, dtype=dtype).cuda()
+    planes = [torch.randn(M, N, generator=g, dtype=dtype).cuda()
+              for _ in range(3)]
+    k = [t.clone() for t in planes]
+    p = [t.clone() for t in planes]
+    ck_ = 0.21 if has_acc else 0.0
+    wrapper = getattr(ck, name)
+    before = dict(wrapper.form_launches)
+    out = wrapper(d, offs, k[0] if has_t0 else None, k[1],
+                  k[2] if has_acc else None, 0.3, 0.6, ck_)
+    want = ck.cheb_step_cm_plain(d, offs, p[0] if has_t0 else None, p[1],
+                                 p[2] if has_acc else None, 0.3, 0.6, ck_)
+    torch.cuda.synchronize()
+    assert wrapper.form_launches[form] == before[form] + 1
+    assert (out is k[0]) == has_t0 and out.is_contiguous()
+    assert torch.equal(k[1], planes[1])
+    pairs = [(out, want)] + [(k[2], p[2])] * has_acc
+    scale = max(float(b.abs().max()) for _, b in pairs)
+    for a, b in pairs:
+        assert float((a - b).abs().max()) / scale <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [(2, 128), (4, 512), (8, 256), (1, 64),
+                                   (8, 64)])
+@pytest.mark.parametrize("case", ["m11", "wide", "nd11"])
+def test_column_major_block_shapes(block, case):
+    """Block shapes other than the plan's (columns per thread, threads per
+    block) in the full and bare forms, fp64."""
+    _need_cuda()
+    dia, offs, M = _cm_case(case)
+    N = dia.shape[1]
+    plan = ck._cm_shape(N, M, *block)
+    g = torch.Generator().manual_seed(5)
+    d = torch.as_tensor(dia).cuda()
+    t0, t1, acc = (torch.randn(M, N, generator=g, dtype=torch.float64).cuda()
+                   for _ in range(3))
+    for full in (True, False):
+        k = [t0.clone(), acc.clone()]
+        out = ck._step_cm(ck.cheb_step_cm_f64, torch.float64, d, offs,
+                          k[0] if full else None, t1,
+                          k[1] if full else None, 0.3, 0.6,
+                          0.2 if full else 0.0, plan=plan)
+        p = [t0.clone(), acc.clone()]
+        want = ck.cheb_step_cm_plain(d, offs, p[0] if full else None, t1,
+                                     p[1] if full else None, 0.3, 0.6,
+                                     0.2 if full else 0.0)
+        torch.cuda.synchronize()
+        pairs = [(out, want)] + [(k[1], p[1])] * full
+        scale = max(float(b.abs().max()) for _, b in pairs)
+        for a, b in pairs:
+            assert float((a - b).abs().max()) / scale <= 1e-13
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,dtype,tol", [
     ("cheb_combine_f32", torch.float32, 1e-5),
