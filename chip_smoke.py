@@ -6,14 +6,15 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --quick   # phases 1-3c: build and check kernels
     python3 chip_smoke.py --krylov-solve 9   # one Krylov solve at P = 9
     python3 chip_smoke.py --stream-sweep     # block shapes and bodies of the
-                                             # streamed 4-step kernel, timed
+                                             # streamed 2- and 4-step kernel,
+                                             # timed, and its registers
 
 Phases, each printed before the last line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of every kernel from feastkit_tpu_torch/ops/csrc with nvcc
      (sm_90a), one nvcc per source, all started together, and its time
-     (with cheb_multistep.cu and cheb_stream4.cu built a second time with
-     the run-time diagonal count only, for phase 3b);
+     (with cheb_stream4.cu, the 2- and 4-step kernels, built a second time
+     with the run-time diagonal count only, for phase 3b);
   3. each of the six kernels against its plain PyTorch version on the card,
      at the main path's shapes (2D Laplacian P=10: N = 1,048,576, M = 72,
      five diagonals; 8 steps for the 1-step kernels, two consecutive passes
@@ -25,8 +26,10 @@ Phases, each printed before the last line:
      tolerance relative to max|acc|: f32 1e-5, fp64 1e-13. Then each
      kernel's time per launch and per step, its plain version's time, the
      bound, a torch.sparse.mm (CSR) matvec for scale, and each multi-step
-     plan's block shape and reckoned L2 bytes per element; and the
-     Rayleigh-Ritz update's time at the main path's shapes;
+     plan's block shape and reckoned L2 bytes per element; the 2-step
+     kernels also at the P=9 shapes (N = 262,144, halo 512, M = 72: the
+     passes of the P=9 FEAST_CHEB_FUSE4=0 solve), checked and timed; and
+     the Rayleigh-Ritz update's time at the main path's shapes;
   3b. the SPD-B composite's kernels against their plain versions at the
      P=8 consistent-mass shapes (N = 65,536, M = 72, nine diagonals) and
      at awkward shapes, same tolerances, and their times: the column-major
@@ -39,7 +42,8 @@ Phases, each printed before the last line:
      instantiation (nvcc -Xptxas -v, run beside the build); the combine
      cheb_combine_f32/f64; and the 2- and 4-step kernels on the
      nine-diagonal B~ with the ND = 9 instantiation and with the
-     run-time-count body, each checked and timed;
+     run-time-count body, each checked and timed (on the device by CUDA
+     graphs, and one call at a time), with each plan's block shape;
   3c. the DIA matvec kernels of ops/csrc/dia_matvec.cu (dia_matvec_f32/f64
      and dia_matvec_batched_f32/f64) against their plain version at the
      Krylov path's P=8 shapes (N = 65,536, five diagonals: fp64 M = 72,
@@ -241,7 +245,9 @@ def graph_time_ms(fn, reps=20, replays=20):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # relaxed: a launch may set its kernel's shared-memory attribute
+    # (cudaFuncSetAttribute) while the graph is captured
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(reps):
             fn()
     ms = cuda_time_ms(graph.replay, replays, warm=2) / reps
@@ -263,7 +269,7 @@ def phase_card():
 
 
 RUNTIME_COUNT_ONLY = ("-DCHEB_RUNTIME_COUNT_ONLY",)
-MULTISTEP_SOURCES = ("cheb_multistep", "cheb_stream4")
+MULTISTEP_SOURCES = ("cheb_stream4",)
 
 
 def phase_build():
@@ -298,11 +304,11 @@ KERNELS = {   # name -> (steps per launch, source, TPU kernel it replaces)
                          "feastkit_tpu/ops/cheb_pallas.py:990"),
     "cheb_combine_f64": (0, "cheb_combine.cu",
                          "feastkit_tpu/ops/cheb_pallas.py:990"),
-    "cheb_step2_f32": (2, "cheb_multistep.cu",
+    "cheb_step2_f32": (2, "cheb_stream4.cu",
                        "feastkit_tpu/ops/cheb_pallas.py:749"),
     "cheb_step4_f32": (4, "cheb_stream4.cu",
                        "feastkit_tpu/ops/cheb_pallas.py:847"),
-    "cheb_step2_f64": (2, "cheb_multistep.cu",
+    "cheb_step2_f64": (2, "cheb_stream4.cu",
                        "feastkit_tpu/ops/cheb_pallas.py:370"),
     "cheb_step4_f64": (4, "cheb_stream4.cu",
                        "feastkit_tpu/ops/cheb_pallas.py:522"),
@@ -509,9 +515,8 @@ def phase_kernels(card_name):
                 shape = (f"strips of {plan['tile']} rows x {plan['groups']} "
                          f"groups of {plan['cols']} columns = "
                          f"{plan['tiles'] * plan['groups']} blocks, lag "
-                         f"{plan['lag']}" if "chunk" in plan else
-                         f"tile {plan['tile']} rows x {plan['tiles']} tiles "
-                         f"x {M} columns")
+                         f"{plan['lag']}, {plan['blocks_per_sm']} per SM by "
+                         "its budget")
                 line += (f"\n      {shape}, halo {plan['halo']}, "
                          f"{plan['shared_bytes']} B shared per block; "
                          "reckoned from the plan, not measured: recompute "
@@ -523,10 +528,62 @@ def phase_kernels(card_name):
                 plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if nbytes / bw >= flops / peak
                 else "operations", csr_spmm_ms=csr_ms)
+            if S == 2:
+                out[name]["p9"] = _two_step_p9(torch, ck, name, dtype, tol,
+                                               bw, M, sc, sh)
             del carry
             torch.cuda.empty_cache()
         del dia
     return out
+
+
+def _pass_time(torch, ck, S, dtype, dia, offsets, carry, sc, sh):
+    """ms per pass of the S-step entry of ``dtype`` on the five
+    column-major planes ``carry`` (rotated after each pass as the chunk
+    functions rotate them)."""
+    rung = "f32" if dtype == torch.float32 else "f64"
+    wrapper = getattr(ck, f"cheb_step{S}_{rung}")
+    cks = [0.01] * S
+
+    def step():
+        wrapper(dia, offsets, *carry, sc, sh, cks)
+        carry[:] = [carry[3], carry[4], carry[2], carry[0], carry[1]]
+    return cuda_time_ms(step, 100)
+
+
+def _two_step_p9(torch, ck, name, dtype, tol, bw, M, sc, sh):
+    """Phase 3 for a two-step entry at the P=9 shapes (the 2D Laplacian on
+    a 512^2 grid, N = 262,144, halo 512; the 2-step passes of the P=9
+    FEAST_CHEB_FUSE4=0 solve): against the plain version, its time per
+    launch, its bound and the plan's block shape."""
+    from feastkit_tpu_torch.ops.dia import bcoo_to_dia
+    from feastkit_tpu_torch.solvers.sparse import sparse_coo_arrays
+    size = torch.finfo(dtype).bits // 8
+    data, idx, _ = sparse_coo_arrays(lap2d(512), np.float64)
+    d9_np, o9 = bcoo_to_dia(data, idx, 512 * 512)
+    d9 = torch.as_tensor(d9_np, device="cuda").to(dtype)
+    n9 = d9.shape[1]
+    planes = _planes(torch, dtype, (M, n9), 5, 11)
+    k = [t.clone() for t in planes]
+    p_ = [t.clone() for t in planes]
+    ck._multistep(getattr(ck, name), 2, dtype, d9, o9, *k, sc, sh,
+                  [0.3, -0.2])
+    ck._multistep_plain(2, d9, o9, *p_, sc, sh, [0.3, -0.2])
+    torch.cuda.synchronize()
+    _, rel = _errors([k[3], k[4], k[2]], [p_[3], p_[4], p_[2]])
+    check(rel <= tol, f"{name} agrees with its plain version at the P=9 "
+          "shapes")
+    del k, p_
+    ms = _pass_time(torch, ck, 2, dtype, d9, o9, planes, sc, sh)
+    bound_ms = (6 * n9 * M + len(o9) * n9) * size / bw * 1e3
+    plan = ck.multistep_plan(o9, n9, M, dtype, 2)
+    print(f"   {name} P=9 shapes N={n9} M={M} halo {plan['halo']} (strips "
+          f"of {plan['tile']} rows x {plan['groups']} groups of "
+          f"{plan['cols']} columns): {ms:.4f} ms/launch, bound "
+          f"{bound_ms:.4f} ms, {bound_ms / ms:.1%} of bound; relative error "
+          f"{rel:.3e}", flush=True)
+    del planes, d9
+    return dict(ms=ms, bound_ms=bound_ms, max_rel_err=rel)
 
 
 def _lap3d_dia(nx):
@@ -553,10 +610,10 @@ def _lap2d_rect_dia(nx, ny):
 
 
 def stream_sweep(card_name):
-    """``--stream-sweep``: the streamed four-step kernels under block
-    shapes, schedules and bodies the plan does not take, M = 72, each
-    checked against the plain version and timed between two timings of
-    what it is compared with:
+    """``--stream-sweep``: the streamed kernels under block shapes,
+    schedules and bodies the plan does not take, M = 72, each checked
+    against the plain version and timed between two timings of what it is
+    compared with:
     - f32 (cheb_step4_f32) at the main shapes (five diagonals,
       N = 1,048,576) and the nine-diagonal P=8 shapes (N = 65,536): 2 and
       1 columns per block against the plan's 4, and T1, T0 and acc brought
@@ -575,7 +632,11 @@ def stream_sweep(card_name):
       the plan's block shape, or one column per block, against two passes
       of cheb_step2 (the route where the four-step plan refuses a shape),
       the 3D grids against the run-time-count body too, and the plan's
-      strip cut against one wave where they differ.
+      strip cut against one wave where they differ;
+    - the two-step kernels (cheb_step2_f32 / _f64) at every one of those
+      operators: each column group (1, 2, 4 in f32; 1, 2 in fp64) with the
+      strips cut for 1, 2 and 3 waves and for one block per
+      multiprocessor, against the two-step plan.
     Then each instantiation's registers and spills (nvcc -Xptxas -v)."""
     import torch
     from feastkit_tpu_torch.ops import cheb_kernels as ck
@@ -606,7 +667,6 @@ def stream_sweep(card_name):
             dia_np, offsets = _lap2d_rect_dia(a, b)
         size = torch.finfo(dtype).bits // 8
         rung = "f32" if dtype == f32 else "f64"
-        wrapper = getattr(ck, f"cheb_step4_{rung}")
         # sc maps the spectrum ([0, 8] in 2D, [0, 12] in 3D) into [-1, 1],
         # so the carry stays bounded over the timed passes
         sc = 1 / 6 if label.startswith("lap3d") else 0.25
@@ -618,10 +678,11 @@ def stream_sweep(card_name):
         bound_ms = (6 * N * M + len(offsets) * N) * size / bw * 1e3
         carry = _planes(torch, dtype, (M, N), 5, 21)
 
-        def streamed(plan=None, defines=()):
+        def streamed(plan=None, defines=(), steps=4):
             def run(planes):
-                ck._multistep(wrapper, 4, dtype, dia, offsets, *planes, sc,
-                              sh, cks, defines=defines, plan=plan)
+                ck._multistep(getattr(ck, f"cheb_step{steps}_{rung}"), steps,
+                              dtype, dia, offsets, *planes, sc, sh,
+                              cks[:steps], defines=defines, plan=plan)
             return run
 
         def shape(cols, **kw):
@@ -643,41 +704,56 @@ def stream_sweep(card_name):
             planes[:] = [planes[3], planes[4], planes[2], planes[0],
                          planes[1]]      # undone by the caller's rotation
 
-        # (variant, its function, baseline, its function)
+        # (variant, its function, baseline, its function, steps per pass)
         plan = ck._stream_plan(offsets, N, M, sms, size)
+        plan2 = ck._stream_plan(offsets, N, M, sms, size, steps=2)
         pairs = []
         if label in ("nd5", "nd9"):
             base = (f"plan, {named(plan)}", streamed())
             if dtype == f32:
-                pairs += [(named(shape(c)), streamed(shape(c)), *base)
+                pairs += [(named(shape(c)), streamed(shape(c)), *base, 4)
                           for c in (2, 1)]
                 pairs += [(f"cp.async {depth} in flight", streamed(
-                    shape(4, depth=depth)), "register prefetch", streamed())
-                    for depth in ((1,) if label == "nd5" else (1, 2, 4, 7))]
+                    shape(4, depth=depth)), "register prefetch", streamed(),
+                    4) for depth in ((1,) if label == "nd5" else (1, 2, 4, 7))]
             else:
                 one = shape(plan["cols"], waves=1)
                 pairs += [(f"{w} waves, {named(shape(plan['cols'], waves=w))}",
                            streamed(shape(plan["cols"], waves=w)),
-                           f"1 wave, {named(one)}", streamed(one))
+                           f"1 wave, {named(one)}", streamed(one), 4)
                           for w in (2, 3)]
-                pairs.append((named(shape(1)), streamed(shape(1)), *base))
+                pairs.append((named(shape(1)), streamed(shape(1)), *base, 4))
         else:
             shp = plan or shape(1)
             name = (f"plan, {named(plan)}" if plan else
                     f"{named(shp)}, refused by the plan")
             step2 = f"2 x cheb_step2_{rung}"
-            pairs.append((name, streamed(shp), step2, two_step_twice))
+            pairs.append((name, streamed(shp), step2, two_step_twice, 4))
             if plan and plan["cols"] > 1 and ck._stream_ring_bytes(
                     halo, 1, itemsize=size) <= ck.SHARED_BYTES_PER_BLOCK:
                 pairs.append((named(shape(1)), streamed(shape(1)), step2,
-                              two_step_twice))
+                              two_step_twice, 4))
             if len(offsets) == 7:
                 pairs.append((name, streamed(shp), "run-time count",
-                              streamed(shp, RUNTIME_COUNT_ONLY)))
+                              streamed(shp, RUNTIME_COUNT_ONLY), 4))
             one = shape(shp["cols"], waves=1)
             if one["tiles"] != shp["tiles"]:
                 pairs.append((name, streamed(shp), f"1 wave, {named(one)}",
-                              streamed(one)))
+                              streamed(one), 4))
+        # the two-step kernel: other column groups and strip cuts (1 to 3
+        # waves, and one block per multiprocessor) against its plan
+        base2 = (f"2-step plan, {named(plan2)}", streamed(steps=2))
+        for c in ck._STREAM_COLS[size]:
+            if ck._stream_ring_bytes(halo, c, itemsize=size, steps=2) \
+                    > ck.SHARED_BYTES_PER_BLOCK:
+                continue
+            cuts = {shape(c, waves=w, steps=2)["tiles"] for w in (1, 2, 3)}
+            cuts.add(max(1, sms // -(-M // c)))
+            for k in sorted(cuts):
+                shp2 = shape(c, strips=k, steps=2)
+                if (c, shp2["tiles"]) != (plan2["cols"], plan2["tiles"]):
+                    pairs.append((f"2-step {named(shp2)}",
+                                  streamed(shp2, steps=2), *base2, 2))
 
         def timed(fn):
             def step():
@@ -685,11 +761,11 @@ def stream_sweep(card_name):
                 carry[:] = [carry[3], carry[4], carry[2], carry[0], carry[1]]
             return cuda_time_ms(step, 50 if N > 10**6 else 200)
 
-        for name, fn, base_name, base in pairs:
+        for name, fn, base_name, base, S in pairs:
             k = [t.clone() for t in carry]
             p_ = [t.clone() for t in carry]
             fn(k)
-            ck._multistep_plain(4, dia, offsets, *p_, sc, sh, cks)
+            ck._multistep_plain(S, dia, offsets, *p_, sc, sh, cks[:S])
             torch.cuda.synchronize()
             _, rel = _errors([k[3], k[4], k[2]], [p_[3], p_[4], p_[2]])
             check(rel <= tol, f"{rung} {label} {name} agrees with the plain "
@@ -701,9 +777,10 @@ def stream_sweep(card_name):
             print(f"   {rung} {label} (N={N}, halo {halo}) {name}: {ms:.4f} "
                   f"ms ({bound_ms / ms:.1%} of the {bound_ms:.4f} ms bound); "
                   f"{base_name} {t_a:.4f} / {t_b:.4f} ms", flush=True)
-            rows.append(dict(dtype=rung, operator=label, variant=name, ms=ms,
-                             baseline=base_name, baseline_ms=[t_a, t_b],
-                             bound_ms=bound_ms, max_rel_err=rel))
+            rows.append(dict(dtype=rung, operator=label, steps=S,
+                             variant=name, ms=ms, baseline=base_name,
+                             baseline_ms=[t_a, t_b], bound_ms=bound_ms,
+                             max_rel_err=rel))
         del dia, carry
         torch.cuda.empty_cache()
     print(json.dumps({"stream_sweep": rows}), flush=True)
@@ -714,7 +791,8 @@ def stream_sweep(card_name):
 # source -> (its kernel template, the names of the template arguments
 # after the value type), for the ptxas reports
 PTXAS_KERNELS = {
-    "cheb_stream4": ("cheb_stream4_kernel", ("nd", "cols", "async_copies")),
+    "cheb_stream4": ("cheb_stream_kernel",
+                     ("steps", "nd", "cols", "async_copies")),
     "cheb_step_cm": ("cheb_step_cm_kernel", ("nd", "has_t0", "has_acc")),
 }
 
@@ -1098,11 +1176,20 @@ def phase_gen_kernels(card_name, ptxas_cm):
                 def step(k=k, kern=kern):
                     kern(k, [0.01] * S)
                     k[:] = [k[3], k[4], k[2], k[0], k[1]]
-                row[body] = dict(ms=cuda_time_ms(step, 50), max_rel_err=r)
+                # the device time (CUDA graph) and the time launched one
+                # call at a time, which the host's cost per call can exceed
+                row[body] = dict(ms=graph_time_ms(step),
+                                 eager_ms=cuda_time_ms(step, 50),
+                                 max_rel_err=r)
                 del k, p_
-            print(f"   {name} nd={nd} (tile {plan['tile']}): ND=9 body "
-                  f"{row['nd9']['ms']:.4f} ms/launch, run-time-count body "
-                  f"{row['runtime_count']['ms']:.4f} ms/launch", flush=True)
+            print(f"   {name} nd={nd} (strips of {plan['tile']} rows x "
+                  f"{plan['groups']} groups of {plan['cols']} columns, "
+                  f"{plan['blocks_per_sm']} blocks per SM by its budget): "
+                  f"ND=9 body {row['nd9']['ms']:.4f} ms/launch on the "
+                  f"device ({row['nd9']['eager_ms']:.4f} one call at a "
+                  f"time), run-time-count body "
+                  f"{row['runtime_count']['ms']:.4f} "
+                  f"({row['runtime_count']['eager_ms']:.4f})", flush=True)
             out[f"{name}_nd9"] = row
         del dia, Acsr
         torch.cuda.empty_cache()
@@ -1893,6 +1980,9 @@ def phase_p9():
         if S == 2:
             check(c["cheb_step4_f32"] == 0 and c["cheb_step4_f64"] == 0,
                   "FEAST_CHEB_FUSE4=0: no 4-step launch")
+            print(f"   P=9 FEAST_CHEB_FUSE4=0: {secs:.3f} s, 2-step launches "
+                  f"cheb_step2_f32 {c['cheb_step2_f32']}, cheb_step2_f64 "
+                  f"{c['cheb_step2_f64']}", flush=True)
         if S == 1:
             check(all(c[n] == 0 for n in c if "step2" in n or "step4" in n),
                   "FEAST_CHEB_FUSE2=0: only the 1-step kernels launched")
@@ -1991,8 +2081,8 @@ def phase_consistent_mass(kernels):
         kernel_s = sum(seconds(n) for n in names if n in kernels)
         print(f"   {rung} rung: launches "
               f"{ {n: counts[n] for n in names} }; x ms/launch (phase 3, "
-              f"nine-diagonal times for the multi-step kernels, each "
-              f"form's device time for the column-major entries) = "
+              f"nine-diagonal device times for the multi-step kernels, "
+              f"each form's device time for the column-major entries) = "
               f"{kernel_s:.3f} s, of which the column-major entries "
               f"{sum(seconds(n) for n in names if n in forms):.3f} s; "
               f"filter stage {breakdown.get('filter_' + rung, 0.0):.3f} s",
@@ -2085,7 +2175,10 @@ def main(argv):
             steps_per_launch=0, ms_per_step=k["ms"], csr_spmm_ms=None,
             shape=k["shape"]))
     print(json.dumps({"rayleigh_ritz_ms": rr_ms, "copy_tbs": copy_tbs,
-                      "multistep_nine_diagonals": nd9}), flush=True)
+                      "multistep_nine_diagonals": nd9,
+                      "two_step_p9": {n: kernels[n].pop("p9") for n in (
+                          "cheb_step2_f32", "cheb_step2_f64")}}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

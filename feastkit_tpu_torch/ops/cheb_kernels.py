@@ -39,17 +39,15 @@ and return T_S, T_{S+1} and acc, the next pass's carry:
 
 Their carry is COLUMN-major: contiguous (M, N) tensors, one contiguous
 N-vector per subspace column (:func:`transpose_planes` converts). The
-stencil couples rows only. The four-step kernels (``csrc/cheb_stream4.cu``)
-stream: a thread block walks down a strip of rows for a group of columns
-in chunks, the four levels trailing one another by the stencil's reach,
-each level in a shared-memory ring. The two-step kernels
-(``csrc/cheb_multistep.cu``) tile: a block works on a tile of rows of one
-column and keeps the intermediate level of that tile, with its halos, in
-shared memory. :func:`multistep_plan` sizes the strip or the tile against
-the card's shared memory and says whether a shape fits. A block reads T0
-and T1 in its neighbours' rows, so T_S and T_{S+1} are written to two
-separate output buffers (the chunk functions ping-pong two pairs); only
-acc is updated in place. On a CPU tensor the wrappers run
+stencil couples rows only. Both step counts are one streamed kernel
+(``csrc/cheb_stream4.cu``, the step count a template parameter): a thread
+block walks down a strip of rows for a group of columns in chunks, the S
+levels trailing one another by the stencil's reach, each level in a
+shared-memory ring. :func:`multistep_plan` sizes the rings, the column
+group and the strips against the card and says whether a shape fits. A
+block reads T0 and T1 in its neighbours' rows, so T_S and T_{S+1} are
+written to two separate output buffers (the chunk functions ping-pong two
+pairs); only acc is updated in place. On a CPU tensor the wrappers run
 :func:`cheb_step2_plain` / :func:`cheb_step4_plain`, which are S
 applications of :func:`cheb_step_plain`.
 
@@ -99,13 +97,10 @@ __all__ = ["cheb_step_f32", "cheb_step_f64", "cheb_step_plain",
            "reset_launch_counts", "launch_counts", "form_launch_counts"]
 
 # dynamic shared memory one thread block may use on sm_90 (227 KB), and
-# what each of two blocks resident on one SM may use (the SM has 228 KB and
-# keeps 1 KB per block for itself)
+# an SM's (it keeps 1 KB per resident block for itself)
 SHARED_BYTES_PER_BLOCK = 232448
 _SM_SHARED_BYTES = 233472
-_SHARED_BYTES_TWO_BLOCKS = (_SM_SHARED_BYTES - 2 * 1024) // 2
-_TILE_ALIGN = 32
-# the streamed four-step kernel (csrc/cheb_stream4.cu): chunks of 256 rows
+# the streamed multi-step kernel (csrc/cheb_stream4.cu): chunks of 256 rows
 # (its compile-time block of threads) and, by the bytes of a value, the
 # columns a block may take (a ring row of at most 16 bytes); the streaming
 # multiprocessors of an H100 SXM, the strip count's default target
@@ -455,91 +450,46 @@ def cheb_combine_f64(z, x, t0, f, sc, sh, ck):
 def multistep_plan(offsets, N, M, dtype, steps):
     """Plan of the ``steps``-step kernel (2 or 4) for an (M, N) carry of
     ``dtype``, or None when the shape does not fit this card: the streamed
-    plan (:func:`_stream_plan`) for the four-step kernels, the tile plan
-    (:func:`_tiled_plan`) for the two-step ones. Both give ``steps``,
-    ``tile`` (rows a block owns), ``tiles``, ``halo`` and ``shared_bytes``.
-    Pure function of its arguments: the routing among the 4-, 2- and
-    1-step kernels is decided from it before any launch."""
+    plan (:func:`_stream_plan`) of ``csrc/cheb_stream4.cu``, which gives
+    ``steps``, ``tile`` (rows a block owns), ``tiles``, ``halo``,
+    ``shared_bytes`` and the block shape. Pure function of its arguments:
+    the routing among the 4-, 2- and 1-step kernels is decided from it
+    before any launch."""
     if steps not in (2, 4):
         raise ValueError(f"steps must be 2 or 4, got {steps}")
-    if steps == 2:
-        return _tiled_plan(offsets, N, M, dtype)
-    return _stream_plan(offsets, N, M, itemsize=_itemsize(dtype))
+    return _stream_plan(offsets, N, M, itemsize=_itemsize(dtype),
+                        steps=steps)
 
 
 def _itemsize(dtype):
     return torch.finfo(dtype).bits // 8
 
 
-def _tiled_plan(offsets, N, M, dtype):
-    """Tile plan of the two-step body (``csrc/cheb_multistep.cu``) for an
-    (M, N) carry of ``dtype``, or None when the shape does not fit.
-
-    A block of the kernel owns ``tile`` rows of one column and holds in
-    shared memory, with halo = max |offset|, level T2 on tile + 2 halo
-    rows and the tile's partial accumulator: 2 tile + 2 halo elements,
-    within ``SHARED_BYTES_PER_BLOCK``. The shape fits when the largest such
-    tile is at least as long as the 2 halo rows recomputed beside it (so a
-    pass recomputes at most half of its work). Where a tile of half the
-    SM's shared memory is still twice that long, the plan takes it, so
-    that two blocks are resident per SM (the kernel is latency-bound, and
-    it is built for the 32 registers per thread that two blocks of 1024
-    threads may have; measured faster at the main shapes, PERF.md); the
-    rows are then split into equal tiles. ``recompute`` and
-    ``planes_moved`` are reckoned from the tile and the halo, not read
-    from the card."""
-    N, M = int(N), int(M)
-    itemsize = _itemsize(dtype)
-    halo = max((abs(int(d)) for d in offsets if abs(int(d)) < N), default=0)
-    min_tile = max(2 * halo, _TILE_ALIGN)
-
-    def largest_tile(shared_bytes):
-        words = shared_bytes // itemsize
-        return (words - 2 * halo) // 2 // _TILE_ALIGN * _TILE_ALIGN
-
-    tile_max = largest_tile(SHARED_BYTES_PER_BLOCK)
-    if (N <= 0 or M <= 0 or len(offsets) > 32
-            or tile_max < min_tile
-            or 2 * N + tile_max + 3 * halo + 1024 > 2**31 - 1):
-        return None
-    if largest_tile(_SHARED_BYTES_TWO_BLOCKS) >= 2 * min_tile:
-        tile_max = largest_tile(_SHARED_BYTES_TWO_BLOCKS)
-    tiles = -(-N // tile_max)
-    if tiles * M > 2**31 - 1:                # one block per (tile, column)
-        return None
-    tile = -(-(-(-N // tiles)) // _TILE_ALIGN) * _TILE_ALIGN
-    return dict(steps=2, tile=tile, tiles=tiles, halo=halo,
-                shared_bytes=(2 * tile + 2 * halo) * itemsize,
-                # arithmetic relative to 2 exact steps on the own rows
-                recompute=1.0 + halo / tile,
-                # (N, M) planes a pass reads and writes through the halos:
-                # T1 on tile + 4 halo, T0 on tile + 2 halo, acc read; T2,
-                # T3, acc written
-                planes_moved=6.0 + 6 * halo / tile)
-
-
-def _stream_plan(offsets, N, M, sms=_SMS, itemsize=4):
-    """Plan of the streamed four-step kernel (``csrc/cheb_stream4.cu``)
-    for a carry of ``itemsize``-byte values (4: f32, 8: fp64), or None
-    when the shape does not fit.
+def _stream_plan(offsets, N, M, sms=_SMS, itemsize=4, steps=4):
+    """Plan of the streamed ``steps``-step kernel (2 or 4,
+    ``csrc/cheb_stream4.cu``) for a carry of ``itemsize``-byte values (4:
+    f32, 8: fp64), or None when the shape does not fit.
 
     A block of ``chunk`` = 256 threads walks down a strip of ``tile`` rows
     for a group of ``cols`` columns, ``chunk`` rows at a time, one thread
     per row. With halo = max |offset|, level s trails level s-1 by ``lag``
-    = 1 + ceil(halo / chunk) chunks, and each column keeps rings of
-    2 lag + 1, 3 lag + 1, 2 lag + 1 and 2 lag chunks (T1..T4) in shared
-    memory: 9 lag + 3 chunks per column, within ``SHARED_BYTES_PER_BLOCK``.
+    = 1 + ceil(halo / chunk) chunks, and each column keeps one ring per
+    level in shared memory (:func:`_ring_lengths`): 9 lag + 3 chunks for
+    four steps, 4 lag + 1 for two, within ``SHARED_BYTES_PER_BLOCK``.
     The group takes the widest ring row of 16 bytes, 4 f32 or 2 fp64
     columns (the fastest chip_smoke.py --stream-sweep times at the main
     and nine-diagonal shapes, PERF.md), no more than M needs; where their
-    rings do not fit, fewer. In f32 the shape fits when a multiprocessor holds
-    at least two columns' blocks (``blocks_per_sm`` x ``cols``), or one
-    where M = 1: halo up to 2816 rows. One f32 column per block alone on
-    its multiprocessor is slower than two 2-step passes (the sweep's 5632
-    x 256 grid, PERF.md), which the solver then takes. In fp64 one column
-    alone is taken wherever its rings fit, halo up to 2816 rows: two fp64
-    2-step passes are slower there (the sweep's 1030^2, 2048^2 and 2816 x
-    512 grids). The strips are cut as :func:`_stream_shape` says."""
+    rings do not fit, fewer. Two steps: the shape fits wherever one
+    column's rings do (halo up to 14,080 rows in f32, 6,912 in fp64; the
+    alternative is one step per launch). Four steps, f32: the shape fits
+    when a multiprocessor holds at least two columns' blocks
+    (``blocks_per_sm`` x ``cols``), or one where M = 1: halo up to 2816
+    rows. One f32 column per block alone on its multiprocessor is slower
+    than two 2-step passes (the sweep's 5632 x 256 grid, PERF.md), which
+    the solver then takes. Four steps, fp64: one column alone is taken
+    wherever its rings fit, halo up to 2816 rows: two fp64 2-step passes
+    are slower there (the sweep's 1030^2, 2048^2 and 2816 x 512 grids).
+    The strips are cut as :func:`_stream_shape` says."""
     N, M = int(N), int(M)
     if N <= 0 or M <= 0 or len(offsets) > 32:
         return None
@@ -547,56 +497,80 @@ def _stream_plan(offsets, N, M, sms=_SMS, itemsize=4):
     cols = _STREAM_COLS[itemsize][-1]
     while cols > 1 and cols // 2 >= M:
         cols //= 2
-    while _stream_ring_bytes(halo, cols, itemsize=itemsize) \
+    while _stream_ring_bytes(halo, cols, itemsize=itemsize, steps=steps) \
             > SHARED_BYTES_PER_BLOCK:
         if cols == 1:
             return None
         cols //= 2
-    plan = _stream_shape(halo, N, M, cols, sms=sms, itemsize=itemsize)
-    if plan is None or plan["blocks_per_sm"] * cols < (
+    plan = _stream_shape(halo, N, M, cols, sms=sms, itemsize=itemsize,
+                         steps=steps)
+    if plan is None or steps == 4 and plan["blocks_per_sm"] * cols < (
             min(M, 2) if itemsize == 4 else 1):
         return None
     return plan
 
 
-def _stream_ring_bytes(halo, cols, depth=0, itemsize=4):
+def _ring_lengths(steps, lag):
+    """The chunks of each level's ring (T1 .. T_steps) in the streamed
+    kernel (``ring_len`` of ``csrc/cheb_stream4.cu``): from the chunk
+    written in an iteration back to the oldest chunk read in it, plus
+    one."""
+    return [2 * lag + 1 if r == 0 else 2 * lag if r == steps - 1
+            else (steps - 1) * lag + 1 if r == 1 else 2 * lag + 1
+            for r in range(steps)]
+
+
+def _stream_ring_bytes(halo, cols, depth=0, itemsize=4, steps=4):
     lag = 1 + -(-halo // _STREAM_CHUNK)
     stage = 3 * (depth + 1) if depth else 0
-    return cols * (9 * lag + 3 + stage) * _STREAM_CHUNK * itemsize
+    return (cols * (sum(_ring_lengths(steps, lag)) + stage) * _STREAM_CHUNK
+            * itemsize)
+
+
+def _stream_regs(cols, itemsize, steps):
+    """The registers a thread of the streamed kernel may use (its
+    ``Budget``): 64 K over the 256 threads of the blocks it is built to
+    share a multiprocessor with: four steps 4 / cols in f32 and 1 in fp64,
+    two steps 2."""
+    blocks = 2 if steps == 2 else 4 // cols if itemsize == 4 else 1
+    return 65536 // (_STREAM_CHUNK * blocks)
 
 
 def _stream_shape(halo, N, M, cols, strips=None, depth=0, sms=_SMS,
-                  itemsize=4, waves=None):
-    """The streamed kernel's plan for a given block shape: ``cols`` columns
-    per block (1, 2 or 4 in f32, 1 or 2 in fp64), the rows in ``strips``
-    equal chunk-aligned strips, and ``depth`` iterations of ``cp.async``
-    copies in flight (0: the loads go through registers one iteration
-    ahead, as :func:`_stream_plan` takes them). None where it does not fit.
-    ``blocks_per_sm`` is how many such blocks a multiprocessor holds at
-    once (its 228 KB of shared memory, 2048 threads, and 64 K registers at
-    the kernel's budget: 64 cols 32-bit registers a thread in f32, 256 in
-    fp64, whose values take two). The grid is strips x groups (column
-    groups) blocks. Without ``strips``, the strips fill ``waves`` waves of
-    the resident blocks over ``sms`` multiprocessors, and no strip is
-    shorter than 6 halo rows; without ``waves``, the count of waves (1 to
-    4) whose reckoned time is least: per resident block, its waves times
-    the chunks a strip iterates over (its own, and 3 lag + 3 (lag - 1) of
-    warm-up and halo)."""
+                  itemsize=4, waves=None, steps=4):
+    """The streamed ``steps``-step kernel's plan for a given block shape:
+    ``cols`` columns per block (1, 2 or 4 in f32, 1 or 2 in fp64), the
+    rows in ``strips`` equal chunk-aligned strips, and ``depth`` iterations
+    of ``cp.async`` copies in flight (four steps only; 0: the loads go
+    through registers one iteration ahead, as :func:`_stream_plan` takes
+    them). None where it does not fit. ``blocks_per_sm`` is how many such
+    blocks a multiprocessor holds at once (its 228 KB of shared memory,
+    2048 threads, and 64 K registers at the kernel's budget,
+    :func:`_stream_regs`). The grid is strips x groups (column groups)
+    blocks. Without ``strips``, the strips fill ``waves`` waves of the
+    resident blocks over ``sms`` multiprocessors, and no strip is shorter
+    than 2 (steps - 1) halo rows; without ``waves``, the count of waves (1
+    to 4) whose reckoned time is least: per resident block, its waves times
+    the chunks a strip iterates over (its own, and (steps - 1) (2 lag - 1)
+    of warm-up and halo)."""
     R = _STREAM_CHUNK
     if cols not in _STREAM_COLS[itemsize]:
         raise ValueError(f"cols={cols}: one of {_STREAM_COLS[itemsize]}")
-    shared = _stream_ring_bytes(halo, cols, depth, itemsize)
+    if steps not in (2, 4) or (depth and steps != 4):
+        raise ValueError(f"steps={steps}, depth={depth}: two or four steps, "
+                         "cp.async copies with four only")
+    shared = _stream_ring_bytes(halo, cols, depth, itemsize, steps)
     lag = 1 + -(-halo // R)
     groups = -(-M // cols)
-    regs = 64 * cols if itemsize == 4 else 256
     per_sm = max(1, min(_SM_SHARED_BYTES // (shared + 1024), 2048 // R,
-                        65536 // (R * regs)))
+                        65536 // (R * _stream_regs(cols, itemsize, steps))))
     resident = per_sm * sms
 
     def cut(w):
-        k = max(1, min(w * resident // groups, N // max(6 * halo, R)))
+        k = max(1, min(w * resident // groups,
+                       N // max(2 * (steps - 1) * halo, R)))
         rounds = -(-k * groups // resident)
-        return k, rounds * (-(-N // (k * R)) + 6 * lag - 3)
+        return k, rounds * (-(-N // (k * R)) + (steps - 1) * (2 * lag - 1))
 
     if strips is None:
         strips = (cut(waves)[0] if waves else
@@ -605,46 +579,38 @@ def _stream_shape(halo, N, M, cols, strips=None, depth=0, sms=_SMS,
     tile = -(-(-(-N // strips)) // R) * R
     tiles = -(-N // tile)
     if (shared > SHARED_BYTES_PER_BLOCK or N + tile > 2**31 - 1
-            or 2 * N + (8 * lag + 4) * R > 2**31 - 1
+            or 2 * N + (2 * steps * lag + 4) * R > 2**31 - 1
             or tiles * groups > 2**31 - 1):
         return None
-    return dict(steps=4, tile=tile, tiles=tiles, halo=halo, chunk=R,
+    return dict(steps=steps, tile=tile, tiles=tiles, halo=halo, chunk=R,
                 cols=cols, groups=groups, lag=lag, depth=depth,
                 blocks_per_sm=per_sm, shared_bytes=shared)
 
 
 def reckoned_traffic(plan, offsets, N, itemsize=4):
-    """What a multi-step pass under ``plan`` (streamed or tiled, for
-    ``offsets`` and N rows) requests, reckoned from the plan and not read
-    from the card: ``recompute`` (rows the levels compute over S times
-    the own rows) and ``l2_bytes_per_element`` (bytes requested from L2
-    per element of the carry). Streamed: T1 with its halo chunks, T0, acc
-    read and written, T4 and T5 written, and each level's diagonals once
-    per block for its columns. Tiled (two steps): per own row of a column,
-    every load of a diagonal, of T1's neighbours and of T0 on the rows each
-    level computes (halos unclipped), acc read and written, T2 and T3
-    written."""
-    nd, halo, tile = len(offsets), plan["halo"], plan["tile"]
-    if "chunk" not in plan:
-        return dict(recompute=plan["recompute"],
-                    l2_bytes_per_element=itemsize * (4 + (
-                        (2 * nd + 2) * (tile + 2 * halo)
-                        + (nd + 1) * tile) / tile))
+    """What a streamed multi-step pass under ``plan`` (for ``offsets`` and
+    N rows) requests, reckoned from the plan and not read from the card:
+    ``recompute`` (rows the levels compute over S times the own rows) and
+    ``l2_bytes_per_element`` (bytes requested from L2 per element of the
+    carry): T1 with its halo chunks, T0, acc read and written, the two
+    outputs written, and each level's diagonals once per block for its
+    columns."""
+    nd, tile, S = len(offsets), plan["tile"], plan["steps"]
     # per strip, as the kernel walks it: the own chunks and, per level s,
-    # the chunks [lo[s], hi[s]) it computes (the own ones and (3-s) H more
-    # each side, clipped to the matrix)
+    # the chunks [lo[s], hi[s]) it computes (the own ones and (S-1-s) H
+    # more each side, clipped to the matrix)
     R, H = plan["chunk"], plan["lag"] - 1
     own = comp = t1 = t0 = 0
     for s0 in range(0, N, tile):
         k_own = -(-(min(s0 + tile, N) - s0) // R)
         k_max = -(-(N - s0) // R)
-        lo = [max(-(3 - s) * H, -(s0 // R)) for s in range(4)]
-        hi = [min(k_own + (3 - s) * H, k_max) for s in range(4)]
+        lo = [max(-(S - 1 - s) * H, -(s0 // R)) for s in range(S)]
+        hi = [min(k_own + (S - 1 - s) * H, k_max) for s in range(S)]
         own += k_own
         comp += sum(h - l for l, h in zip(lo, hi))
         t1 += hi[0] - lo[0] + 2 * H
         t0 += hi[0] - lo[0]
-    return dict(recompute=comp / (4 * own),
+    return dict(recompute=comp / (S * own),
                 l2_bytes_per_element=itemsize * (
                     t1 + t0 + 4 * own + nd * comp / plan["cols"]) / own)
 
@@ -687,34 +653,19 @@ def cheb_step4_plain(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
 
 
 @functools.cache
-def _multistep_library(*defines):
-    from .cuda_build import load
-    lib = load("cheb_multistep", *defines)
-    for name, scalar in (("cheb_step2_f32", ctypes.c_float),
-                         ("cheb_step2_f64", ctypes.c_double)):
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
-                        ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int64] * 3 + [scalar] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    lib.cheb_multistep_error_string.argtypes = [ctypes.c_int]
-    lib.cheb_multistep_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.cache
 def _stream_library(*defines):
     from .cuda_build import load
     lib = load("cheb_stream4", *defines)
-    for name, scalar in (("cheb_step4_f32", ctypes.c_float),
-                         ("cheb_step4_f64", ctypes.c_double)):
-        fn = getattr(lib, name)
-        fn.argtypes = (
-            [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
-            + [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
-            + [scalar] * 6 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    for S in (2, 4):
+        for name, scalar in ((f"cheb_step{S}_f32", ctypes.c_float),
+                             (f"cheb_step{S}_f64", ctypes.c_double)):
+            fn = getattr(lib, name)
+            fn.argtypes = (
+                [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                 ctypes.c_int] + [ctypes.c_void_p] * 5
+                + [ctypes.c_int64] * 6 + [scalar] * (2 + S)
+                + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     lib.cheb_stream4_error_string.argtypes = [ctypes.c_int]
     lib.cheb_stream4_error_string.restype = ctypes.c_char_p
     return lib
@@ -723,19 +674,6 @@ def _stream_library(*defines):
 @functools.cache
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-# how _multistep launches a multi-step entry: its plan (of offsets, N, M,
-# dtype and the device), its library, the library's error-string function
-# and the plan's fields the C entry takes after N and M
-_STREAM_ENTRY = (
-    lambda offsets, N, M, dtype, device: _stream_plan(
-        offsets, N, M, _sm_count(device), _itemsize(dtype)),
-    _stream_library, "cheb_stream4_error_string",
-    ("chunk", "cols", "tile", "depth"))
-_TILED_ENTRY = (
-    lambda offsets, N, M, dtype, device: _tiled_plan(offsets, N, M, dtype),
-    _multistep_library, "cheb_multistep_error_string", ("tile",))
 
 
 def _check_multistep(diags, offsets, planes, dtype):
@@ -768,8 +706,7 @@ def _multistep(wrapper, S, dtype, diags, offsets, t0, t1, acc, out0, out1,
     """Check the operands, then launch ``wrapper``'s kernel on CUDA tensors
     (its plain version on CPU tensors). ``defines``: build flags of the
     kernel's library; ``plan``: a plan to launch with instead of the
-    entry's own (a four-step kernel's from :func:`_stream_shape`, a
-    two-step kernel's from :func:`_tiled_plan`)."""
+    entry's own (from :func:`_stream_shape`)."""
     planes = (t0, t1, acc, out0, out1)
     _check_multistep(diags, offsets, planes, dtype)
     cs = [float(c) for c in cs]
@@ -782,27 +719,29 @@ def _multistep(wrapper, S, dtype, diags, offsets, t0, t1, acc, out0, out1,
     if not t0.is_cuda:
         raise ValueError(f"unsupported device {t0.device}")
     M, N = t0.shape
-    plan_of, library, error_name, fields = (_STREAM_ENTRY if S == 4
-                                            else _TILED_ENTRY)
     if plan is None:
-        plan = plan_of(offsets, N, M, dtype, t0.device)
+        plan = _stream_plan(offsets, N, M, _sm_count(t0.device),
+                            _itemsize(dtype), S)
     if plan is None:
         raise ValueError(
             f"{wrapper.__name__}: N={N}, M={M}, offsets={tuple(offsets)} "
             "does not fit the kernel's shared memory (multistep_plan)")
-    lib = library(*defines)
+    if plan["steps"] != S:
+        raise ValueError(f"{wrapper.__name__}: a plan of {plan['steps']} "
+                         f"steps, not {S}")
+    lib = _stream_library(*defines)
     offs = (ctypes.c_int64 * max(len(offsets), 1))(*offsets)
     with torch.cuda.device(t0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, wrapper.__name__)(
             diags.data_ptr(), offs, len(offsets),
-            *(t.data_ptr() for t in planes), N, M,
-            *(plan[f] for f in fields),
+            *(t.data_ptr() for t in planes), N, M, plan["chunk"],
+            plan["cols"], plan["tile"], plan["depth"],
             float(sc), float(sh), *cs, stream)
     if err != 0:
         raise RuntimeError(
             f"{wrapper.__name__} launch failed: CUDA error {err} "
-            f"({getattr(lib, error_name)(err).decode()})")
+            f"({lib.cheb_stream4_error_string(err).decode()})")
     wrapper.launches += 1
 
 

@@ -31,9 +31,8 @@
 // diagonal value diags[k, i] is the same for every thread of row i (a
 // broadcast from L1); the shifted rows i + off_k of x are re-read from L1 or
 // L2 (a 2D stencil's +-nx rows lie a few MB apart, inside the 50 MB L2).
-// Two lessons of the multi-step kernels (cheb_multistep.cu) are taken from
-// the start: the loads are branch-free (an out-of-range neighbour loads the
-// row itself and its term is dropped by a select), and the diagonal count is
+// The loads are branch-free (an out-of-range neighbour loads the row
+// itself and its term is dropped by a select), and the diagonal count is
 // a compile-time constant for 3, 5, 7 and 9 diagonals, so the loop unrolls
 // and its independent loads issue together; any other count (up to 32) runs
 // a loop over a run-time count.

@@ -6,7 +6,7 @@ loaded with ``ctypes``. Libraries go to ``csrc/build/`` inside the package
 (listed in ``.gitignore``) under a name that carries a hash of the source
 and the flags, so an edited source is rebuilt and never loaded stale.
 ``defines`` (``-D`` flags) build a variant of a source beside the default
-library (``chip_smoke.py`` times ``cheb_multistep.cu`` built with
+library (``chip_smoke.py`` times ``cheb_stream4.cu`` built with
 ``-DCHEB_RUNTIME_COUNT_ONLY`` against the default build).
 Nothing here runs at import time: this module imports on machines without
 a CUDA toolkit, and only a call to :func:`build` or :func:`load` needs

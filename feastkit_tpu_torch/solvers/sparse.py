@@ -308,7 +308,7 @@ def _cheb_fused_context(A_dia, offsets, coeffs, lo, hi, M):
     """Device operands of both rungs, built once per solve (counterpart of
     ``_cheb_ds_context``): the f64 diagonals and their f32 rounding, the
     coefficients and map scalars in each rung's precision, and each rung's
-    steps per pass: 4 where the 4-step kernel's tile fits
+    steps per pass: 4 where the 4-step kernel's plan takes the shape
     (``multistep_plan``), else 2, else 1, decided per rung from the shape
     alone. ``FEAST_CHEB_FUSE2=0`` keeps the 1-step kernels for every step
     and ``FEAST_CHEB_FUSE4=0`` stops at two steps per pass (the JAX
@@ -393,7 +393,7 @@ def _cheb_gen_context(A_dia, offsets_A, B_dia, offsets_B, coeffs, lo, hi,
     coefficients, the inner inverse (``qc`` on the f64 rung, the shorter
     ``qc_lo`` on the f32 rung), the outer and B-hat map scalars (f32 on
     the f32 rung, f64 on the f64 rung) and each rung's inner steps per
-    pass: 4 where the 4-step kernel's tile fits B~ (``multistep_plan``),
+    pass: 4 where the 4-step kernel's plan takes B~ (``multistep_plan``),
     else 2, else 1. As in the JAX package only ``FEAST_CHEB_FUSE4=0``
     applies (inner passes of two steps); the composite never runs its
     inner steps one at a time by choice."""

@@ -1,6 +1,7 @@
 """PyTorch port on the card: CUDA kernels against their plain versions.
 
-The Chebyshev step kernels (row-major, column-major, 2- and 4-step), the
+The Chebyshev step kernels (row-major, column-major, 2- and 4-step; the
+multi-step ones under block shapes other than the plan's), the
 combine of the SPD-B composite and the DIA matvec entries, each against its
 plain version at small shapes; what a CUDA entry refuses; and a standard, a
 consistent-mass and a Krylov (GMRES with multigrid) solve on the card
@@ -148,19 +149,19 @@ def test_streamed_kernel_block_shapes(nx, ny, M, shape):
     _streamed_two_passes(dia, offs, N, M, plan)
 
 
-def _streamed_two_passes(dia, offs, N, M, plan, dtype=torch.float32):
+def _streamed_two_passes(dia, offs, N, M, plan, dtype=torch.float32, S=4):
     g = torch.Generator().manual_seed(1)
     d = torch.as_tensor(dia, dtype=dtype).cuda()
     k = [torch.randn(M, N, generator=g, dtype=dtype).cuda() for _ in range(5)]
     p = [t.clone() for t in k]
-    wrapper = ck.cheb_step4_f32 if dtype == torch.float32 else \
-        ck.cheb_step4_f64
+    rung = "f32" if dtype == torch.float32 else "f64"
+    wrapper = getattr(ck, f"cheb_step{S}_{rung}")
     before = wrapper.launches
-    coeffs = np.random.default_rng(2).standard_normal(8) * 0.1
-    for i in (0, 4):
-        ck._multistep(wrapper, 4, dtype, d, offs, *k, 0.3, 0.6,
-                      coeffs[i:i + 4], plan=plan)
-        ck.cheb_step4_plain(d, offs, *p, 0.3, 0.6, coeffs[i:i + 4])
+    coeffs = np.random.default_rng(2).standard_normal(2 * S) * 0.1
+    for i in (0, S):
+        ck._multistep(wrapper, S, dtype, d, offs, *k, 0.3, 0.6,
+                      coeffs[i:i + S], plan=plan)
+        ck._multistep_plain(S, d, offs, *p, 0.3, 0.6, coeffs[i:i + S])
         k = [k[3], k[4], k[2], k[0], k[1]]
         p = [p[3], p[4], p[2], p[0], p[1]]
     torch.cuda.synchronize()
@@ -224,6 +225,61 @@ def test_streamed_kernel_variants(offs, N, M, depth):
     halo = max(abs(d) for d in offs)
     _streamed_two_passes(_banded(offs, N), offs, N, M,
                          ck._stream_shape(halo, N, M, 4, 3, depth=depth))
+
+
+_SEVEN = (-340, -20, -1, 0, 1, 20, 340)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,offs,N,M,shape", [
+    (torch.float32, (-37, -1, 0, 1, 37), 1073, 11, (4, 3)),
+    (torch.float32, (-37, -1, 0, 1, 37), 1073, 7, (2, 2)),
+    (torch.float32, (-37, -1, 0, 1, 37), 1073, 5, (1, 3)),
+    (torch.float32, _SEVEN, 1700, 9, (4, 2)),
+    (torch.float32, _SEVEN, 1700, 3, (1, 2)),
+    (torch.float32, _NINE, 1089, 13, (4, 4)),
+    (torch.float32, _NINE, 1089, 5, (2, 3)),
+    (torch.float32, _ELEVEN, 1089, 7, (2, 3)),
+    (torch.float32, _ELEVEN, 1089, 3, (4, 2)),
+    (torch.float32, (-300, -1, 0, 1, 300), 2700, 13, (4, 3)),
+    (torch.float32, (-37, -1, 0, 1, 37), 11100, 71, "waves"),
+    (torch.float64, (-37, -1, 0, 1, 37), 1073, 11, (2, 3)),
+    (torch.float64, (-37, -1, 0, 1, 37), 1073, 7, (1, 2)),
+    (torch.float64, _SEVEN, 1700, 9, (2, 2)),
+    (torch.float64, _NINE, 1089, 11, (2, 4)),
+    (torch.float64, _NINE, 1089, 3, (1, 3)),
+    (torch.float64, _ELEVEN, 1089, 5, (2, 3)),
+    (torch.float64, _ELEVEN, 1089, 1, (1, 2)),
+    (torch.float64, (-300, -1, 0, 1, 300), 2700, 13, (2, 3)),
+    (torch.float64, (-37, -1, 0, 1, 37), 11100, 71, "waves"),
+    (torch.float32, (-60, -1, 0, 1, 60), 100, 7, None),
+    (torch.float64, (-60, -1, 0, 1, 60), 100, 7, None)],
+    ids=["f32-5d-4c", "f32-5d-2c", "f32-5d-1c", "f32-7d-4c", "f32-7d-1c",
+         "f32-9d-4c", "f32-9d-2c", "f32-11d-2c", "f32-11d-4c",
+         "f32-wide-halo", "f32-waves", "f64-5d-2c", "f64-5d-1c",
+         "f64-7d-2c", "f64-9d-2c", "f64-9d-1c", "f64-11d-2c", "f64-11d-1c",
+         "f64-wide-halo", "f64-waves", "f32-plan-small", "f64-plan-small"])
+def test_two_step_block_shapes(dtype, offs, N, M, shape):
+    # the streamed kernel's two-step entries under 1, 2 and 4 f32 or 1 and
+    # 2 fp64 columns per block, 5, 7, 9 and 11 diagonals, odd M, a strip
+    # cut into several waves of resident blocks and the solver's own plan
+    # (every range clipped): two passes against the plain version
+    _need_cuda()
+    size = torch.finfo(dtype).bits // 8
+    halo = max(abs(d) for d in offs if abs(d) < N)
+    plan = None
+    if shape == "waves":
+        # one column per block, 71 groups: three waves of the resident
+        # blocks over the card's multiprocessors
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = ck._stream_shape(halo, N, M, 1, waves=3, sms=sms,
+                                itemsize=size, steps=2)
+        assert plan["tiles"] * plan["groups"] > plan["blocks_per_sm"] * sms
+    elif shape is not None:
+        cols, strips = shape
+        plan = ck._stream_shape(halo, N, M, cols, strips, itemsize=size,
+                                steps=2)
+    _streamed_two_passes(_banded(offs, N), offs, N, M, plan, dtype, S=2)
 
 
 @pytest.mark.cuda
