@@ -8,6 +8,12 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --stream-sweep     # block shapes and bodies of the
                                              # streamed 2- and 4-step kernel,
                                              # timed, and its registers
+    python3 chip_smoke.py --dia-sweep        # the DIA ring body's block
+                                             # shapes and the flat body
+    python3 chip_smoke.py --dia-turns DIR    # the DIA entries of the tree
+                                             # unpacked in DIR (a parent
+                                             # commit) and of this one, timed
+                                             # in turns
 
 Phases, each printed before the last line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -45,15 +51,24 @@ Phases, each printed before the last line:
      run-time-count body, each checked and timed (on the device by CUDA
      graphs, and one call at a time), with each plan's block shape;
   3c. the DIA matvec kernels of ops/csrc/dia_matvec.cu (dia_matvec_f32/f64
-     and dia_matvec_batched_f32/f64) against their plain version at the
+     and dia_matvec_batched_f32/f64), with the ptxas report of its ring
+     body (no instantiation may spill), against their plain version at the
      Krylov path's P=8 shapes (N = 65,536, five diagonals: fp64 M = 72,
-     f32 M = 128, batched g = 2, M = 128 in both types) and at awkward
-     shapes (M = 1, 7, 11; N = 1073, 100, 1089; |offset| = nx; 2 max|offset|
-     > N; 1, 3, 9 and 11 diagonals; g = 3), tolerance relative to max|y|:
-     f32 1e-5, fp64 1e-13; their times over four rotating operands, the
-     plain version's, the bound and a torch.sparse.mm (CSR) call on the
-     same product (library_ms); and that a CUDA entry refuses a wrong
-     dtype, a non-contiguous operand and a CPU tensor;
+     f32 M = 128, batched g = 2, M = 128 in both types), at the P=10
+     Rayleigh-Ritz shape (fp64, N = 1,048,576, M = 72, offsets +-1,
+     +-1024), at the Lanczos shape (f32, M = 1) and at awkward shapes
+     (M = 1, 7, 11; N = 1073, 100, 1089; |offset| = nx; 2 max|offset| >
+     N; 1, 3, 9 and 11 diagonals; g = 3), each under the entry's own plan
+     and under every other body that takes the shape, tolerance relative
+     to max|y|: f32 1e-5, fp64 1e-13; which body each shape took (the
+     ring body at the Krylov shapes, the flat one at P=10, whose rings
+     leave one block a multiprocessor, and at M = 1); then their times over
+     four rotating operands: on the device (CUDA graph), one call at a time
+     and the host's cost per call, the plan's body and the other in turns
+     (other, own, own, other, by CUDA graph), the plain version's, the
+     bound, the plan's reckoned L2 bytes per element and a torch.sparse.mm
+     (CSR) call on the same product (library_ms); and that a CUDA entry
+     refuses a wrong dtype, a non-contiguous operand and a CPU tensor;
   4. the main path: feast(lap2d(1024), None, (Emin, Emax), 72, fpm) with
      fpm[3] = 8 and the default fpm[42] (mixed precision on CUDA) under the
      default switches, once cold and three times warm, the kernel launch
@@ -276,21 +291,23 @@ def phase_build():
     """Build every source, and the multi-step kernels with the run-time
     diagonal count only (timed against the nine-diagonal instantiation,
     phase 3b), one nvcc per build, all started together; beside them the
-    ptxas report of cheb_step_cm.cu (printed in phase 3b)."""
+    ptxas reports of cheb_step_cm.cu and dia_matvec.cu (printed in phases
+    3b and 3c)."""
     from feastkit_tpu_torch.ops import cuda_build
     sources = sorted(p.stem for p in cuda_build.SRC_DIR.glob("*.cu"))
     builds = [(name, ()) for name in sources] + [
         (name, RUNTIME_COUNT_ONLY) for name in MULTISTEP_SOURCES]
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(builds) + 1) as pool:
-        report = pool.submit(_ptxas, "cheb_step_cm")
+    with ThreadPoolExecutor(len(builds) + 2) as pool:
+        reports = {src: pool.submit(_ptxas, src)
+                   for src in ("cheb_step_cm", "dia_matvec")}
         list(pool.map(lambda b: cuda_build.build(*b), builds))
-        report = report.result()
+        reports = {src: r.result() for src, r in reports.items()}
     dt = time.perf_counter() - t0
     print(f"== 2. built {sources} and {MULTISTEP_SOURCES} with "
           f"{RUNTIME_COUNT_ONLY} for sm_90a in {dt:.2f} s", flush=True)
-    return report
+    return reports
 
 
 KERNELS = {   # name -> (steps per launch, source, TPU kernel it replaces)
@@ -794,6 +811,7 @@ PTXAS_KERNELS = {
     "cheb_stream4": ("cheb_stream_kernel",
                      ("steps", "nd", "cols", "async_copies")),
     "cheb_step_cm": ("cheb_step_cm_kernel", ("nd", "has_t0", "has_acc")),
+    "dia_matvec": ("dia_ring_kernel", ("nd",)),
 }
 
 
@@ -1234,105 +1252,365 @@ def _random_dia(N, offsets, seed):
     return d
 
 
-def phase_dia_kernels(card_name):
-    """Phase 3c: the DIA matvec entries (``ops/csrc/dia_matvec.cu``)
-    against their plain version at the Krylov path's shapes and at awkward
-    ones, tolerance relative to max|y|: f32 1e-5, fp64 1e-13; then each
-    entry's time per launch over four rotating operands (the 128-column f32
-    operand alone fits the 50 MB L2), the plain version's, the bound and
-    one torch.sparse.mm (CSR) call on the same product."""
+# lap2d(256)'s offsets, the Krylov path's operator at P = 8
+DIA_LAP = (-256, -1, 0, 1, 256)
+# (label, entry, N, offsets, operand shape) of every DIA product timed: the
+# Krylov path's four (DIA_MAIN_SHAPES), the P=10 main path's Rayleigh-Ritz
+# and residual products (fp64, M = M0 = 72, offsets +-1, +-1024) and the
+# consistent-mass bounds' Lanczos products (f32, M = 1, where the host's
+# cost per call rules)
+DIA_CASES = tuple(
+    ("krylov", name, 65536, DIA_LAP,
+     (DIA_MAIN_SHAPES[name][0], 65536, DIA_MAIN_SHAPES[name][1])
+     if batched else (65536, DIA_MAIN_SHAPES[name][1]))
+    for name, (batched, _, _) in DIA_KERNELS.items()) + (
+    ("rr_p10", "dia_matvec_f64", 1048576, (-1024, -1, 0, 1, 1024),
+     (1048576, 72)),
+    ("lanczos_m1", "dia_matvec_f32", 65536, DIA_LAP, (65536, 1)))
+
+
+def _rotating(entry, dia, offsets, xs):
+    """A call of ``entry(dia, offsets, x)`` on the next of the operands
+    ``xs`` each time."""
+    turn = [0]
+
+    def run():
+        entry(dia, offsets, xs[turn[0] % len(xs)])
+        turn[0] += 1
+    return run
+
+
+def _dia_time(torch, entry, dia, offsets, xs):
+    """Times of ``entry(dia, offsets, x)`` over the rotating operands
+    ``xs``: one call at a time (CUDA events around 200 calls), on the device
+    (CUDA graph) and the host's cost per call (the median over 5 batches of
+    the host clock around 100 calls that are enqueued, not waited for)."""
+    run = _rotating(entry, dia, offsets, xs)
+    eager = cuda_time_ms(run, 200)
+    graph = graph_time_ms(run)
+    batches = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            run()
+        batches.append((time.perf_counter() - t0) / 100 * 1e6)
+    torch.cuda.synchronize()
+    return dict(eager_ms=eager, graph_ms=graph,
+                host_us=float(np.median(batches)))
+
+
+def _dia_bound(card_name, name, N, nd, shape):
+    """Least ms of a DIA product: x and y once and the diagonals once over
+    the card's bytes rate, above its operations over the peak rate."""
+    bw, peak32, peak64 = _card_rates(card_name)
+    f32 = name.endswith("f32")
+    size = 4 if f32 else 8
+    elems = int(np.prod(shape))
+    nbytes = (2 * elems + nd * N) * size
+    flops = 2 * nd * elems
+    by_bytes = nbytes / bw >= flops / (peak32 if f32 else peak64)
+    return (max(nbytes / bw, flops / (peak32 if f32 else peak64)) * 1e3,
+            "bytes" if by_bytes else "operations", nbytes)
+
+
+def dia_times(root):
+    """--dia-times ROOT: the DIA entries of the package under ROOT (this
+    tree, or a parent commit's checkout) timed at DIA_CASES, one JSON
+    line. Only the public entries are called, so a parent's package
+    without plans is timed the same way."""
+    import torch
+    sys.path.insert(0, os.path.abspath(root))
+    from feastkit_tpu_torch.ops import dia as D
+    check(os.path.abspath(D.__file__).startswith(os.path.abspath(root)),
+          f"the DIA module comes from {root}")
+    rows = {}
+    for label, name, N, offsets, shape in DIA_CASES:
+        dtype = torch.float32 if name.endswith("f32") else torch.float64
+        dia = torch.as_tensor(_random_dia(N, offsets, 5),
+                              device="cuda").to(dtype)
+        xs = _planes(torch, dtype, shape, 4, 11)
+        rows[f"{label}:{name}"] = _dia_time(torch, getattr(D, name), dia,
+                                            offsets, xs)
+        del dia, xs
+        torch.cuda.empty_cache()
+    print(json.dumps({"dia_times": {"root": root, "rows": rows}}),
+          flush=True)
+
+
+def dia_turns(parent):
+    """--dia-turns PARENT: --dia-times of the parent's checkout and of this
+    tree in turns (parent, change, change, parent), each in a process of
+    its own; prints each case's four readings."""
+    runs = []
+    for root in (parent, ".", ".", parent):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--dia-times", root],
+            capture_output=True, text=True, timeout=900)
+        sys.stdout.write(proc.stdout[-4000:])
+        check(proc.returncode == 0,
+              f"--dia-times {root} ran (exit {proc.returncode}) "
+              f"{proc.stderr[-2000:]}")
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith('{"dia_times"')][-1]
+        runs.append(json.loads(line)["dia_times"]["rows"])
+    print("== DIA entries in turns: parent, change, change, parent",
+          flush=True)
+    for case in runs[0]:
+        for key in ("graph_ms", "eager_ms", "host_us"):
+            v = [r[case][key] for r in runs]
+            print(f"   {case} {key}: parent {v[0]:.4f} / {v[3]:.4f}, "
+                  f"change {v[1]:.4f} / {v[2]:.4f}", flush=True)
+    print(json.dumps({"dia_turns": runs}), flush=True)
+    return runs
+
+
+def _dia_sweep_plans(D, torch, N, offsets, M, g, dtype):
+    """The ring body's plans swept at one shape: every column group of
+    16-byte pieces up to 64 bytes a row per operand (and M), copies in
+    flight 2, 4, 6 and 8, and the strips of the plan's rule, half and twice
+    as many and one wave at the most resident blocks."""
+    vec = 4 if dtype == torch.float32 else 2
+    out = []
+    for cols in sorted({c for c in (vec, 2 * vec, 4 * vec, 8 * vec, 16 * vec)
+                        if c <= M and g * c // vec <= 256}):
+        for depth in (2, 4, 6, 8):
+            try:
+                base = D.dia_plan(offsets, N, M, g, dtype, body="ring",
+                                  cols=cols, depth=depth)
+            except ValueError:
+                continue
+            wave = max(1, base["blocks_per_sm"] * 132 // base["groups"])
+            for strips in sorted({base["tiles"], max(1, base["tiles"] // 2),
+                                  2 * base["tiles"], wave}):
+                out.append(D.dia_plan(offsets, N, M, g, dtype, body="ring",
+                                      cols=cols, depth=depth,
+                                      strips=strips))
+    return out
+
+
+def dia_sweep(card_name, ptxas_dia):
+    """--dia-sweep: the ring body's block shapes (_dia_sweep_plans) and the
+    flat body at every DIA_CASES shape but the Lanczos one, each timed on
+    the device by CUDA graph over four rotating operands and checked once
+    against the plain version; the plan's own choice marked."""
     import torch
     from feastkit_tpu_torch.ops import dia as D
-    from feastkit_tpu_torch.ops.dia import bcoo_to_dia
-    from feastkit_tpu_torch.solvers.sparse import sparse_coo_arrays
-    bw, peak32, peak64 = _card_rates(card_name)
+    print("== DIA sweep: ring block shapes and the flat body", flush=True)
+    rows = []
+    for label, name, N, offsets, shape in DIA_CASES[:-1]:
+        batched = DIA_KERNELS[name][0]
+        dtype = torch.float32 if name.endswith("f32") else torch.float64
+        tol = 1e-5 if dtype == torch.float32 else 1e-13
+        g = shape[0] if batched else 1
+        M = shape[-1]
+        wrapper = getattr(D, name)
+        dia = torch.as_tensor(_random_dia(N, offsets, 5),
+                              device="cuda").to(dtype)
+        xs = _planes(torch, dtype, shape, 4, 11)
+        yp = D.dia_matvec_plain(dia, offsets, xs[0])
+        bound, _, _ = _dia_bound(card_name, name, N, len(offsets), shape)
+        own = D.dia_plan(offsets, N, M, g, dtype, D._sm_count(0))
+        plans = [D.dia_plan(offsets, N, M, g, dtype, body="flat")] + \
+            _dia_sweep_plans(D, torch, N, offsets, M, g, dtype)
+        for plan in plans:
+            def call(d, o, x, plan=plan):
+                return D._launch(wrapper, d, o, x, batched, plan=plan)
+            y = call(dia, offsets, xs[0])
+            rel = float((y - yp).abs().max() / yp.abs().max())
+            if rel > tol:
+                raise AssertionError(f"{name} {plan} disagrees at {shape}: "
+                                     f"relative {rel:.3e}")
+            ms = graph_time_ms(_rotating(call, dia, offsets, xs))
+            key = {k: plan.get(k) for k in ("body", "cols", "depth", "tiles",
+                                            "blocks", "blocks_per_sm",
+                                            "shared_bytes")}
+            mine = all(own.get(k) == v for k, v in key.items())
+            rows.append(dict(case=label, name=name, shape=list(shape), ms=ms,
+                             bound_ms=bound, planned=mine, **key))
+            print(f"   {label} {name} {tuple(shape)} {plan['body']} "
+                  f"cols={plan.get('cols')} depth={plan.get('depth')} "
+                  f"tiles={plan.get('tiles')} blocks={plan['blocks']} "
+                  f"per_sm={plan.get('blocks_per_sm')}: {ms:.4f} ms "
+                  f"({bound / ms:.1%} of bound){' <- plan' if mine else ''}",
+                  flush=True)
+        del dia, xs, yp
+        torch.cuda.empty_cache()
+    print(json.dumps({"dia_sweep": rows}), flush=True)
+    check(True, f"{len(rows)} plans agree with the plain version")
+    _print_ptxas("dia_matvec", ptxas_dia)
+    return rows
+
+
+def _dia_check(torch, D, wrapper, batched, dia, offsets, x, tol, label):
+    """The entry's own plan and every body that takes the shape, each held
+    to the plain version; the body counts checked against the plan. Returns
+    (max abs error of the entry's own call, worst relative error, plan)."""
+    g = x.shape[0] if batched else 1
+    n, m = x.shape[-2], x.shape[-1]
+    plan = D.dia_plan(offsets, n, m, g, x.dtype, D._sm_count(x.device.index))
+    yp = D.dia_matvec_plain(dia, offsets, x)
+    scale = float(yp.abs().max())
+    before = (wrapper.launches, dict(wrapper.body_launches))
+    y = wrapper(dia, offsets, x)
+    torch.cuda.synchronize()
+    check(wrapper.launches == before[0] + 1
+          and wrapper.body_launches[plan["body"]]
+          == before[1][plan["body"]] + 1,
+          f"{wrapper.__name__} {label}: one launch, counted on the "
+          f"{plan['body']} body its plan names")
+    err = float((y - yp).abs().max())
+    worst = err / scale
+    bodies = [plan["body"]]
+    for body in ("ring", "flat"):
+        if body == plan["body"]:
+            continue
+        try:
+            other = D.dia_plan(offsets, n, m, g, x.dtype, body=body)
+        except ValueError:
+            continue
+        yo = D._launch(wrapper, dia, offsets, x, batched, plan=other)
+        worst = max(worst, float((yo - yp).abs().max()) / scale)
+        bodies.append(body)
+    print(f"   {wrapper.__name__} {label}: plan {plan['body']}"
+          + (f" (cols {plan['cols']}, depth {plan['depth']}, tiles "
+             f"{plan['tiles']}, blocks {plan['blocks']})"
+             if plan["body"] == "ring" else f" ({plan['reason']})")
+          + f"; bodies {bodies} relative {worst:.3e} (tol {tol:g})",
+          flush=True)
+    check(worst <= tol, f"{wrapper.__name__} {label}: every body agrees "
+          "with the plain version")
+    return err, worst, plan
+
+
+def phase_dia_kernels(card_name, ptxas_dia):
+    """Phase 3c: the DIA matvec entries (``ops/csrc/dia_matvec.cu``)
+    against their plain version at the Krylov path's shapes, the P=10
+    Rayleigh-Ritz shape and awkward ones, each body that takes the shape
+    (the entry's own plan, and the other body by a plan override),
+    tolerance relative to max|y|: f32 1e-5, fp64 1e-13; which body each
+    shape took; then each entry's times over four rotating operands (the
+    128-column f32 operand alone fits the 50 MB L2): on the device by CUDA
+    graph, one call at a time and the host's cost per call, the plan's
+    body and the other in turns (other, own, own, other, by CUDA graph), the
+    plain version's, the bound, the plan's reckoned L2 bytes per element
+    and one torch.sparse.mm (CSR) call on the same product; the same at the
+    P=10 Rayleigh-Ritz and the Lanczos (M = 1) shapes."""
+    import torch
+    from feastkit_tpu_torch.ops import dia as D
     print("== 3c. the DIA matvec kernels against their plain version "
           "(Krylov path, P=8)", flush=True)
+    _print_ptxas("dia_matvec", ptxas_dia)
+    check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+              for r in ptxas_dia), "no ring-body instantiation spills")
     A = lap2d(256)
     N = A.shape[0]
-    data, idx, _ = sparse_coo_arrays(A, np.float64)
-    dia_np, offsets = bcoo_to_dia(data, idx, N)
-    nd = len(offsets)
     out = {}
-    for name, (batched, dname, _) in DIA_KERNELS.items():
+    extra = {}
+    for label, name, n, offsets, shape in DIA_CASES:
+        batched, dname, _ = DIA_KERNELS[name]
         dtype = getattr(torch, dname)
         tol = 1e-5 if dtype == torch.float32 else 1e-13
-        size = torch.finfo(dtype).bits // 8
-        peak = peak32 if dtype == torch.float32 else peak64
         wrapper = getattr(D, name)
-        dia = torch.as_tensor(dia_np, device="cuda").to(dtype)
-        g, M = DIA_MAIN_SHAPES[name]
-        shape = (g, N, M) if batched else (N, M)
+        dia = torch.as_tensor(_random_dia(n, offsets, 5),
+                              device="cuda").to(dtype)
         x = _planes(torch, dtype, shape, 1, 7)[0]
-        before = wrapper.launches
-        y = wrapper(dia, offsets, x)
-        yp = D.dia_matvec_plain(dia, offsets, x)
-        torch.cuda.synchronize()
-        check(wrapper.launches == before + 1,
-              f"{name} counts one launch per call")
-        err = float((y - yp).abs().max())
-        rel = err / float(yp.abs().max())
-        print(f"   {name} main shapes {tuple(shape)} nd={nd}: max abs err "
-              f"{err:.3e}, relative {rel:.3e} (tol {tol:g})", flush=True)
-        check(rel <= tol, f"{name} agrees with its plain version at the "
-              "Krylov path's shapes")
-        worst = rel
-        for an, aoffs, am, ag in DIA_AWKWARD:
-            dd = torch.as_tensor(_random_dia(an, aoffs, an + am),
-                                 device="cuda").to(dtype)
-            xs = _planes(torch, dtype, (ag, an, am) if batched else (an, am),
-                         1, ag)[0]
-            r = float((wrapper(dd, aoffs, xs)
-                       - D.dia_matvec_plain(dd, aoffs, xs)).abs().max()
-                      / D.dia_matvec_plain(dd, aoffs, xs).abs().max())
-            print(f"   {name} N={an} M={am}{f' g={ag}' if batched else ''} "
-                  f"offsets={aoffs}: relative {r:.3e}", flush=True)
-            check(r <= tol, f"{name} agrees at N={an} M={am} nd={len(aoffs)}")
-            worst = max(worst, r)
+        err, worst, plan = _dia_check(torch, D, wrapper, batched, dia,
+                                      offsets, x, tol, f"{label} {shape}")
+        want = "ring" if label == "krylov" else "flat"
+        check(plan["body"] == want, f"{name} {label} takes the {want} body")
+        if label == "krylov":
+            for an, aoffs, am, ag in DIA_AWKWARD:
+                dd = torch.as_tensor(_random_dia(an, aoffs, an + am),
+                                     device="cuda").to(dtype)
+                xa = _planes(torch, dtype, (ag, an, am) if batched
+                             else (an, am), 1, ag)[0]
+                _, r, _ = _dia_check(
+                    torch, D, wrapper, batched, dd, aoffs, xa, tol,
+                    f"N={an} M={am}{f' g={ag}' if batched else ''} "
+                    f"nd={len(aoffs)}")
+                worst = max(worst, r)
         # times over four rotating operands
         xs = _planes(torch, dtype, shape, 4, 11)
-        turn = [0]
-
-        def kern(fn):
-            def run():
-                fn(xs[turn[0] % 4])
-                turn[0] += 1
-            return run
-        ms = cuda_time_ms(kern(lambda v: wrapper(dia, offsets, v)), 200)
+        t = _dia_time(torch, wrapper, dia, offsets, xs)
+        g = shape[0] if batched else 1
+        # the plan's body and the other one in turns (other, own, own,
+        # other) where the other takes the shape
+        turns = {}
+        try:
+            other = D.dia_plan(offsets, n, shape[-1], g, dtype, body=(
+                "flat" if plan["body"] == "ring" else "ring"))
+        except ValueError:
+            other = None
+        if other is not None:
+            for pl in (other, plan, plan, other):
+                def call(d, o, v, pl=pl):
+                    return D._launch(wrapper, d, o, v, batched, plan=pl)
+                turns.setdefault(pl["body"], []).append(
+                    graph_time_ms(_rotating(call, dia, offsets, xs)))
         plain_ms = cuda_time_ms(
-            kern(lambda v: D.dia_matvec_plain(dia, offsets, v)), 20)
-        # the library yardstick: one CSR product on the (N, g M) operand,
-        # laid out beforehand
-        with warnings.catch_warnings():   # "CSR support is in beta"
-            warnings.simplefilter("ignore", UserWarning)
-            Acsr = torch.sparse_csr_tensor(
-                torch.as_tensor(A.indptr, dtype=torch.int64),
-                torch.as_tensor(A.indices, dtype=torch.int64),
-                torch.as_tensor(A.data, dtype=dtype), size=A.shape).cuda()
-        xl = [v.permute(1, 0, 2).reshape(N, g * M).contiguous()
-              if batched else v for v in xs]
-        lib_turn = [0]
+            lambda: D.dia_matvec_plain(dia, offsets, xs[0]), 20)
+        bound_ms, bound_by, nbytes = _dia_bound(card_name, name, n,
+                                                len(offsets), shape)
+        traffic = D.reckoned_traffic(plan, n, shape[-1], g)
+        library_ms = None
+        if label != "lanczos_m1":
+            # the library yardstick: one CSR product on the (N, g M)
+            # operand, laid out beforehand
+            import scipy.sparse as sp
+            Acsr_np = sp.diags(
+                [_random_dia(n, offsets, 5)[k][max(0, -o):n - max(0, o)]
+                 for k, o in enumerate(offsets)], list(offsets),
+                shape=(n, n)).tocsr()
+            with warnings.catch_warnings():   # "CSR support is in beta"
+                warnings.simplefilter("ignore", UserWarning)
+                Acsr = torch.sparse_csr_tensor(
+                    torch.as_tensor(Acsr_np.indptr, dtype=torch.int64),
+                    torch.as_tensor(Acsr_np.indices, dtype=torch.int64),
+                    torch.as_tensor(Acsr_np.data, dtype=dtype),
+                    size=Acsr_np.shape).cuda()
+            xl = [v.permute(1, 0, 2).reshape(n, g * shape[-1]).contiguous()
+                  if batched else v for v in xs]
+            lib_turn = [0]
 
-        def lib():
-            torch.sparse.mm(Acsr, xl[lib_turn[0] % 4])
-            lib_turn[0] += 1
-        library_ms = cuda_time_ms(lib, 50)
-        nbytes = (2 * g * N * M + nd * N) * size    # x, y once; diagonals
-        flops = 2 * nd * g * N * M
-        bound_ms = max(nbytes / bw, flops / peak) * 1e3
-        print(f"   {name}: {ms:.4f} ms/launch over 4 rotating operands "
-              f"(plain {plain_ms:.4f} ms; torch.sparse.mm CSR "
-              f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms = "
-              f"{nbytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s, "
-              f"{bound_ms / ms:.1%} of bound)", flush=True)
-        out[name] = dict(max_abs_err=err, max_rel_err=worst, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by="bytes" if nbytes / bw >= flops / peak
-                         else "operations", library_ms=library_ms,
-                         shape=list(shape))
-        del dia, x, y, yp, xs, xl, Acsr
+            def lib():
+                torch.sparse.mm(Acsr, xl[lib_turn[0] % 4])
+                lib_turn[0] += 1
+            library_ms = cuda_time_ms(lib, 50)
+            del Acsr, xl
+        ms = t["graph_ms"]
+        print(f"   {name} {label} {tuple(shape)}: {ms:.4f} ms on the device "
+              f"(CUDA graph), {t['eager_ms']:.4f} ms one call at a time, "
+              f"host {t['host_us']:.1f} us a call; "
+              + (f"in turns flat {turns['flat'][0]:.4f} / "
+                 f"{turns['flat'][1]:.4f}, ring {turns['ring'][0]:.4f} / "
+                 f"{turns['ring'][1]:.4f} ms (device); " if turns else "")
+              + f"plain {plain_ms:.4f} ms; torch.sparse.mm CSR "
+              + (f"{library_ms:.4f} ms; " if library_ms else "- ; ")
+              + f"bound {bound_ms:.4f} ms = {nbytes / 1e6:.1f} MB at "
+              f"{_card_rates(card_name)[0] / 1e12:.2f} TB/s, "
+              f"{bound_ms / ms:.1%} of bound on the device, "
+              f"{bound_ms / t['eager_ms']:.1%} one call at a time; reckoned "
+              f"L2 {traffic['l2_bytes_per_element']:.2f} B/element, halo "
+              f"share {traffic['halo_share']:.3f}", flush=True)
+        row = dict(max_abs_err=err, max_rel_err=worst, ms=ms,
+                   eager_ms=t["eager_ms"], host_us=t["host_us"],
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms, shape=list(shape),
+                   body=plan["body"], plan=plan, turns=turns,
+                   l2_bytes_per_element=traffic["l2_bytes_per_element"])
+        if label == "krylov":
+            out[name] = row
+        else:
+            extra[label] = row
+        del dia, x, xs
         torch.cuda.empty_cache()
+    print(json.dumps({"dia_other_shapes": extra}), flush=True)
     # what a CUDA entry refuses
+    from feastkit_tpu_torch.ops.dia import bcoo_to_dia
+    from feastkit_tpu_torch.solvers.sparse import sparse_coo_arrays
+    data, idx, _ = sparse_coo_arrays(A, np.float64)
+    dia_np, offsets = bcoo_to_dia(data, idx, N)
     xf = torch.zeros(N, 4, device="cuda", dtype=torch.float64)
     xt = torch.zeros(4, N, device="cuda", dtype=torch.float64).t()
     d64 = torch.as_tensor(dia_np, device="cuda")
@@ -1394,11 +1672,15 @@ def _krylov_counted(A, B, Emin, Emax, M0, fpm, label, device="cuda", **kw):
     ev = r.krylov["events"]
     trips = sum(e.get("trips", 0) for e in ev if e["op"] == "gmres")
     calls = sum(1 for e in ev if e["op"] == "gmres")
+    bodies = D.body_counts()
     print(f"   {label}: {seconds:.2f} s, {calls} GMRES calls, {trips} "
-          f"restart cycles; DIA launches {counts}", flush=True)
+          f"restart cycles; DIA launches {counts}, by body {bodies}",
+          flush=True)
     if device == "cuda":
         check(counts == want, f"{label}: DIA launches equal the count the "
               f"solve's Krylov record implies {want}")
+        check(all(bodies[n]["ring"] > 0 for n in counts if counts[n]),
+              f"{label}: every DIA entry launched runs the ring body")
     return r, seconds, counts, want
 
 
@@ -2099,12 +2381,25 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if "--dia-times" in argv:       # a child of --dia-turns
+        dia_times(argv[argv.index("--dia-times") + 1])
+        return 0
     import feastkit_tpu_torch  # noqa: F401  (fails outside the repo)
     quick = "--quick" in argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_card()
-    ptxas_cm = phase_build()
+    ptxas = phase_build()
+    if "--dia-turns" in argv or "--dia-sweep" in argv:
+        if "--dia-sweep" in argv:
+            dia_sweep(smi.split(",")[0], ptxas["dia_matvec"])
+        if "--dia-turns" in argv:
+            dia_turns(argv[argv.index("--dia-turns") + 1])
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--stream-sweep" in argv:
         stream_sweep(smi.split(",")[0])
         print(smi, flush=True)
@@ -2120,11 +2415,11 @@ def main(argv):
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
     kernels = phase_kernels(smi.split(",")[0])
-    gen_kernels = phase_gen_kernels(smi.split(",")[0], ptxas_cm)
+    gen_kernels = phase_gen_kernels(smi.split(",")[0], ptxas["cheb_step_cm"])
     nd9 = {k: gen_kernels.pop(k) for k in list(gen_kernels)
            if k.endswith("_nd9")}
     kernels.update(gen_kernels)
-    dia_kernels = phase_dia_kernels(smi.split(",")[0])
+    dia_kernels = phase_dia_kernels(smi.split(",")[0], ptxas["dia_matvec"])
     rr_ms = phase_rayleigh_ritz()
     counts = {name: None for name in (*KERNELS, *DIA_KERNELS)}
     form_counts = {}
@@ -2173,7 +2468,8 @@ def main(argv):
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
             steps_per_launch=0, ms_per_step=k["ms"], csr_spmm_ms=None,
-            shape=k["shape"]))
+            shape=k["shape"], eager_ms=k["eager_ms"], host_us=k["host_us"],
+            body=k["body"], turns_ms=k["turns"]))
     print(json.dumps({"rayleigh_ritz_ms": rr_ms, "copy_tbs": copy_tbs,
                       "multistep_nine_diagonals": nd9,
                       "two_step_p9": {n: kernels[n].pop("p9") for n in (

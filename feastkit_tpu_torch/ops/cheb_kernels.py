@@ -80,6 +80,10 @@ import functools
 
 import torch
 
+from .cuda_build import SHARED_BYTES_PER_BLOCK
+from .cuda_build import SM_SHARED_BYTES as _SM_SHARED_BYTES
+from .cuda_build import SMS as _SMS
+from .cuda_build import sm_count as _sm_count
 from .dia import dia_matvec_plain
 
 __all__ = ["cheb_step_f32", "cheb_step_f64", "cheb_step_plain",
@@ -96,17 +100,11 @@ __all__ = ["cheb_step_f32", "cheb_step_f64", "cheb_step_plain",
            "SHARED_BYTES_PER_BLOCK",
            "reset_launch_counts", "launch_counts", "form_launch_counts"]
 
-# dynamic shared memory one thread block may use on sm_90 (227 KB), and
-# an SM's (it keeps 1 KB per resident block for itself)
-SHARED_BYTES_PER_BLOCK = 232448
-_SM_SHARED_BYTES = 233472
 # the streamed multi-step kernel (csrc/cheb_stream4.cu): chunks of 256 rows
 # (its compile-time block of threads) and, by the bytes of a value, the
-# columns a block may take (a ring row of at most 16 bytes); the streaming
-# multiprocessors of an H100 SXM, the strip count's default target
+# columns a block may take (a ring row of at most 16 bytes)
 _STREAM_CHUNK = 256
 _STREAM_COLS = {4: (1, 2, 4), 8: (1, 2)}
-_SMS = 132
 # the column-major one-step kernel (csrc/cheb_step_cm.cu): the columns a
 # thread may take and its blocks of threads (one row each)
 _CM_COLS = (1, 2, 4, 8)
@@ -669,11 +667,6 @@ def _stream_library(*defines):
     lib.cheb_stream4_error_string.argtypes = [ctypes.c_int]
     lib.cheb_stream4_error_string.restype = ctypes.c_char_p
     return lib
-
-
-@functools.cache
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_multistep(diags, offsets, planes, dtype):

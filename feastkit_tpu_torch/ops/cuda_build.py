@@ -22,7 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build",
+__all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SHARED_BYTES_PER_BLOCK",
+           "SM_SHARED_BYTES", "SMS", "sm_count", "library_path", "build",
            "load"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -30,6 +31,20 @@ BUILD_DIR = SRC_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 _NVCC_TIMEOUT_S = 600
+# the card the kernels are built for (sm_90a): the dynamic shared memory
+# one thread block may use (227 KB) and a multiprocessor's (it keeps 1 KB
+# per resident block for itself); the multiprocessors of an H100 SXM, the
+# plans' default where no card is asked
+SHARED_BYTES_PER_BLOCK = 232448
+SM_SHARED_BYTES = 233472
+SMS = 132
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """The multiprocessors of a CUDA device (an index or a device)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nvcc() -> str:

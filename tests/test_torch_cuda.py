@@ -514,6 +514,114 @@ def test_dia_matvec_matches_plain(name, dtype, tol, batched, N, offs, M, g):
     assert float((y - yp).abs().max() / yp.abs().max()) <= tol
 
 
+# (N, offsets, M, g): chip_smoke.py's DIA_AWKWARD, and a ring-width M
+_DIA_AWKWARD = [
+    (1073, (-37, -1, 0, 1, 37), 1, 3), (1073, (-1, 0, 1), 7, 1),
+    (100, (-60, -1, 0, 1, 60), 11, 3), (100, (0,), 7, 3),
+    (1089, (-34, -33, -32, -1, 0, 1, 32, 33, 34), 11, 2),
+    (1089, (-40, -33, -7, -2, -1, 0, 1, 2, 7, 33, 40), 5, 3),
+    (1073, (-37, -1, 0, 1, 37), 72, 2), (100, (-60, -1, 0, 1, 60), 144, 3),
+    (1089, (-40, -33, -7, -2, -1, 0, 1, 2, 7, 33, 40), 16, 2),
+    (900, (-150, -45, -1, 0, 1, 45, 150, 1000), 8, 1)]
+
+
+def _dia_operands(N, offs, M, g, dtype, batched):
+    rng = np.random.default_rng(N + M + g)
+    d = np.zeros((len(offs), N))
+    for k, o in enumerate(offs):
+        if abs(o) < N:
+            d[k, max(0, -o):N - max(0, o)] = rng.random(N - abs(o)) - 0.5
+    x = rng.standard_normal((g, N, M) if batched else (N, M))
+    return (torch.as_tensor(d, dtype=dtype).cuda(),
+            torch.as_tensor(x, dtype=dtype).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,tol,batched", _DIA)
+@pytest.mark.parametrize("body", ["plan", "ring", "flat"])
+@pytest.mark.parametrize("N,offs,M,g", _DIA_AWKWARD)
+def test_dia_bodies_match_plain(name, dtype, tol, batched, body, N, offs, M,
+                                g):
+    # the entry's own plan (one launch, counted on its body) and each body
+    # forced by a plan, against the plain version; the ring body refuses
+    # rows that are not whole 16-byte pieces
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    d, x = _dia_operands(N, offs, M, g, dtype, batched)
+    gg = g if batched else 1
+    wrapper = getattr(D, name)
+    yp = D.dia_matvec_plain(d, offs, x)
+    if body == "plan":
+        plan = D.dia_plan(offs, N, M, gg, dtype, D._sm_count(0))
+        before = dict(wrapper.body_launches)
+        y = wrapper(d, offs, x)
+        assert wrapper.body_launches[plan["body"]] == \
+            before[plan["body"]] + 1
+    else:
+        vec = 4 if dtype == torch.float32 else 2
+        if body == "ring" and (M % vec or M < 2 * vec):
+            with pytest.raises(ValueError, match="ring body"):
+                D.dia_plan(offs, N, M, gg, dtype, body="ring")
+            return
+        plan = D.dia_plan(offs, N, M, gg, dtype, body=body)
+        y = D._launch(wrapper, d, offs, x, batched, plan=plan)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and y.dtype == dtype
+    assert float((y - yp).abs().max() / yp.abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("N,offs,M,g,over", [
+    (1073, (-37, -1, 0, 1, 37), 72, 1, dict(cols=8, depth=1, strips=5)),
+    (1073, (-37, -1, 0, 1, 37), 72, 1, dict(cols=72, depth=8, strips=3)),
+    (4099, (-64, -1, 0, 1, 64), 128, 2, dict(cols=16, depth=2, strips=7)),
+    (4099, (-300, -1, 0, 1, 300), 16, 1, dict(depth=3, strips=4)),
+    (1000, (-1, 0, 1), 8, 3, dict(cols=4, depth=6, strips=9)),
+    (1089, (-34, -33, -32, -1, 0, 1, 32, 33, 34), 72, 1,
+     dict(cols=8, strips=6)),
+    (65536, (-256, -1, 0, 1, 256), 128, 1, dict()),
+    (16384, (-129, -128, -127, -1, 0, 1, 127, 128, 129), 72, 2, dict())],
+    ids=["narrow-d1", "wide-d8", "g2-d2", "halo300", "g3-d6", "nine",
+         "krylov", "nine-g2"])
+def test_dia_ring_block_shapes(dtype, tol, N, offs, M, g, over):
+    # ring plans other than the entry's own: column groups, copies in
+    # flight and strip counts (both walk directions), against the plain
+    # version
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    batched = g > 1
+    if dtype == torch.float64 and "cols" in over:
+        over = dict(over, cols=max(2, over["cols"] // 2))
+    name = ("dia_matvec_batched_" if batched else "dia_matvec_") + (
+        "f32" if dtype == torch.float32 else "f64")
+    d, x = _dia_operands(N, offs, M, g, dtype, batched)
+    plan = D.dia_plan(offs, N, M, g, dtype, body="ring", **over)
+    y = D._launch(getattr(D, name), d, offs, x, batched, plan=plan)
+    yp = D.dia_matvec_plain(d, offs, x)
+    torch.cuda.synchronize()
+    assert float((y - yp).abs().max() / yp.abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_dia_ring_takes_a_misaligned_operand():
+    # a contiguous operand 4 bytes past a 16-byte boundary is copied
+    # before the ring body's 16-byte copies
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    N, offs = 1073, (-37, -1, 0, 1, 37)
+    d, big = _dia_operands(N, offs, 72, 1, torch.float32, False)
+    x = big.reshape(-1)[1:1 + N * 64].reshape(N, 64)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    assert D.dia_plan(offs, N, 64, 1, torch.float32)["body"] == "ring"
+    y = D.dia_matvec_f32(d, offs, x)
+    yp = D.dia_matvec_plain(d, offs, x)
+    torch.cuda.synchronize()
+    assert float((y - yp).abs().max() / yp.abs().max()) <= 1e-5
+
+
 @pytest.mark.cuda
 def test_dia_matvec_any_complex_is_one_launch():
     _need_cuda()
