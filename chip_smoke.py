@@ -14,6 +14,8 @@ Run from the repository root on a machine with a CUDA card:
                                              # unpacked in DIR (a parent
                                              # commit) and of this one, timed
                                              # in turns
+    python3 chip_smoke.py --direct           # phase 10 alone
+    python3 chip_smoke.py --direct-sweep     # BCR blocks, dense LU batching
 
 Phases, each printed before the last line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -112,6 +114,26 @@ Phases, each printed before the last line:
   9. the consistent-mass pencil at P = 7 (N = 16,384) through
      solver="gmres" with grid=(128, 128) (multigrid with a B stencil),
      against its analytic eigenvalues, its launches held to its record;
+  10. the direct-solver contour engines, through the entry points with the
+     default device, each leg once cold and three times warm (the median,
+     the peak device memory and the Chebyshev kernels' launches of the
+     first warm solve), then once with its stages timed (factorization,
+     filter solves or polynomial filter, Rayleigh-Ritz), checked for M,
+     the eigenvalues against float64 LAPACK on the host (f32 1e-5 times
+     max(1, |lam|), real symmetric 1e-10, Hermitian 1e-9, sparse 1e-8),
+     residuals <= the
+     solve's tolerance, info 0 and the engine that ran: config 2 of the
+     JAX package's bench.py (feast_sygv, n = 2048, f32, M0 = 32, 16
+     nodes, 24 eigenvalues; the dense engine) and its complex128 Hermitian
+     counterpart (feast_hegv); config 1 (the quickstart, n = 100); config 3
+     (feast_banded, n = 2048, kd = 4, f32: block cyclic reduction); the
+     banded throughput leg (n = 65,536, kd = 4, f32, 20 spikes: the
+     polynomial route, its Chebyshev launches counted); the narrow-band
+     leg (n = 8192, kd = 2, as CSR through feast, f32 and f64: the
+     narrow-band hand-off, then the banded driver's polynomial route in
+     f32 and, as the JAX package's routing gives under mixed precision,
+     BCR in f64); and lap2d(20) under FEAST_CHEB_DEGREE=4 (off the
+     polynomial route, so densified onto the dense engine);
   7. one JSON line {"kernels": [...]} with each kernel's launches on its
      path (the main path's, for the composite's own kernels the SPD-B
      path's, for the DIA kernels the Krylov path's: phase 8's counted
@@ -2376,6 +2398,438 @@ def phase_consistent_mass(kernels):
         breakdown=breakdown)
 
 
+# -- phase 10: the direct-solver contour engines ---------------------------
+
+def dense_config2(n=2048, seed=0):
+    """bench.py's config 2 pencil (``_problem``): the 1D Laplacian A and
+    B = C C^T + I with C seeded, both f32."""
+    rng = np.random.default_rng(seed)
+    A = (np.diag(2.0 * np.ones(n)) + np.diag(-1.0 * np.ones(n - 1), 1)
+         + np.diag(-1.0 * np.ones(n - 1), -1))
+    C = rng.standard_normal((n, n)) * (0.5 / np.sqrt(n))
+    return A.astype(np.float32), (C @ C.T + np.eye(n)).astype(np.float32)
+
+
+def hermitian_config2(n=2048, seed=1):
+    """The complex counterpart of config 2: a seeded Hermitian A (entries of
+    size ~1/sqrt(n)) and HPD B = C C^H + I, complex128."""
+    rng = np.random.default_rng(seed)
+    H = (rng.standard_normal((n, n))
+         + 1j * rng.standard_normal((n, n))) / np.sqrt(n)
+    C = (rng.standard_normal((n, n))
+         + 1j * rng.standard_normal((n, n))) * (0.5 / np.sqrt(n))
+    return (H + H.conj().T) / 2, C @ C.conj().T + np.eye(n)
+
+
+def middle_interval(w, count):
+    """The interval around ``count`` eigenvalues from the middle of the
+    sorted spectrum w, its ends halfway between neighbours (bench.py)."""
+    k = len(w) // 2
+    return (float((w[k - 1] + w[k]) / 2),
+            float((w[k + count - 1] + w[k + count]) / 2))
+
+
+def banded_config3(n=2048, kd=4):
+    """bench.py's config 3 (``_banded_bench``): a seeded symmetric band of
+    half bandwidth kd, f32: (band storage, the interval of 15 eigenvalues
+    at the middle of the spectrum, the float64 eigenvalues)."""
+    from feastkit_tpu_torch.ops.banded import full_to_banded
+    rng = np.random.default_rng(0)
+    A = np.zeros((n, n), np.float32)
+    for d in range(kd + 1):
+        v = (rng.standard_normal(n - d) * (0.5 if d else 1.0)).astype(
+            np.float32)
+        A[np.arange(n - d), np.arange(d, n)] = v
+        A[np.arange(d, n), np.arange(n - d)] = v
+    A[np.arange(n), np.arange(n)] += 2 * kd
+    w = np.linalg.eigvalsh(A.astype(np.float64))
+    k = n // 2 - 32             # 992 at n = 2048, as in bench.py
+    Emin, Emax = float((w[k] + w[k + 1]) / 2), float((w[k + 16]
+                                                       + w[k + 15]) / 2)
+    return full_to_banded(A, kd, kd), (Emin, Emax), w
+
+
+def banded_throughput(n=65536, kd=4):
+    """bench.py's banded throughput leg (``_banded_large_bench``): a seeded
+    f32 band of half bandwidth kd with 20 diagonal spikes in [28, 32]."""
+    rng = np.random.default_rng(0)
+    bands = np.zeros((2 * kd + 1, n), np.float32)
+    for d in range(1, kd + 1):
+        v = (rng.standard_normal(n - d) * 0.5).astype(np.float32)
+        bands[kd - d, d:] = v
+        bands[kd + d, :n - d] = v
+    bands[kd] = 2 * kd + rng.standard_normal(n).astype(np.float32) * 0.5
+    bands[kd, rng.choice(n, 20, replace=False)] = np.linspace(
+        28.0, 32.0, 20).astype(np.float32)
+    return bands
+
+
+def narrow_band(f64, n=8192, kd=2):
+    """bench.py's narrow-band leg (``_narrowband_bench``): a seeded band of
+    half bandwidth 2 with 20 spikes in [18, 22], as CSR, and its band
+    storage."""
+    import scipy.sparse as sp
+    dt = np.float64 if f64 else np.float32
+    rng = np.random.default_rng(7)
+    diags, offs = [2.0 * kd + rng.standard_normal(n) * 0.5], [0]
+    for d in range(1, kd + 1):
+        v = rng.standard_normal(n - d) * 0.5
+        diags += [v, v]
+        offs += [d, -d]
+    diags[0][rng.choice(n, 20, replace=False)] = np.linspace(18.0, 22.0, 20)
+    A = sp.diags([d.astype(dt) for d in diags], offs, format="csr")
+    bands = np.zeros((2 * kd + 1, n))
+    for d, v in zip(offs, diags):
+        if d >= 0:
+            bands[kd - d, d:] = v.astype(dt)
+        else:
+            bands[kd - d, :n + d] = v.astype(dt)
+    return A, bands
+
+
+def band_eigs(bands, kd, lo, hi):
+    """Eigenvalues in [lo, hi] of a symmetric band in band storage, in
+    float64 on the host (LAPACK's upper band storage is rows 0..kd)."""
+    import scipy.linalg as sla
+    return np.sort(sla.eig_banded(np.asarray(bands[:kd + 1], np.float64),
+                                  eigvals_only=True, select="v",
+                                  select_range=(lo, hi)))
+
+
+@contextlib.contextmanager
+def direct_stages(times, device="cuda"):
+    """Time the direct engines' stages for the block (the device
+    synchronised at each stage's edges): the factorizations (dense LU, the
+    BCR re-blocking and factor), the filter solves (dense triangular
+    solves, BCR solves), the polynomial filter, and Rayleigh-Ritz; and
+    record which engine ran (``times["engines"]``)."""
+    import torch
+    from feastkit_tpu_torch.kernel import hermitian
+    from feastkit_tpu_torch.solvers import banded, dense, sparse
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    engines = times.setdefault("engines", [])
+    saved = []
+
+    def timed(mod, name, key, engine=None):
+        orig = getattr(mod, name)
+
+        def wrapper(*a, **k):
+            if engine and engine not in engines:
+                engines.append(engine)
+            sync()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            sync()
+            times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(mod, name, wrapper)
+        saved.append((mod, name, orig))
+
+    def rr(mod):
+        orig = mod.make_rayleigh_ritz_update
+
+        def factory(*a, **k):
+            update = orig(*a, **k)
+
+            def timed_update(*ua, **uk):
+                sync()
+                t0 = time.perf_counter()
+                out = update(*ua, **uk)
+                sync()
+                times["rayleigh_ritz"] = (times.get("rayleigh_ritz", 0.0)
+                                          + time.perf_counter() - t0)
+                return out
+            return timed_update
+        mod.make_rayleigh_ritz_update = factory
+        saved.append((mod, "make_rayleigh_ritz_update", orig))
+
+    timed(dense, "_factor", "factor", "dense")
+    timed(dense, "_solve", "filter_solves")
+    timed(banded, "banded_to_blocktridiag", "factor", "bcr")
+    timed(banded, "bcr_factor", "factor")
+    timed(banded, "bcr_solve", "filter_solves")
+    timed(sparse, "_sparse_cheb_filter_host_fused", "filter_polynomial",
+          "polynomial")
+    rr(hermitian)
+    rr(sparse)
+    try:
+        yield times
+    finally:
+        for mod, name, orig in reversed(saved):
+            setattr(mod, name, orig)
+
+
+def _direct_leg(label, solve, exp, bar, tol, want_engine, device="cuda",
+                warm=3):
+    """One leg: a cold solve, ``warm`` warm ones (the median reported, the
+    Chebyshev kernels' launches counted in the first, the peak device memory
+    over it), then one with its stages timed. Checks M, the eigenvalues
+    against the host's float64 ones (bar; for single precision times
+    max(1, |lam|)), every residual (<= tol), info 0, finite eigenvectors
+    and the engine that ran."""
+    import torch
+    from feastkit_tpu_torch.ops import cheb_kernels as ck
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def run():
+        sync()
+        t0 = time.perf_counter()
+        r = solve()
+        sync()
+        return r, time.perf_counter() - t0
+
+    r, cold = run()
+    del r
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for i in range(warm):
+        if i == 0:
+            ck.reset_launch_counts()
+        r, s = run()
+        if i == 0:
+            launches = {k: v for k, v in ck.launch_counts().items() if v}
+            peak = torch.cuda.max_memory_allocated() if device == "cuda" \
+                else 0
+        secs.append(s)
+        if i < warm - 1:
+            del r
+    stages = {}
+    with direct_stages(stages, device):
+        _, staged = run()
+    engines = stages.pop("engines")
+    stages = {k: round(v, 4) for k, v in sorted(stages.items())}
+    err = float(np.abs(np.sort(r.lam) - exp).max()) if r.M == len(exp) \
+        else float("inf")
+    if bar >= 1e-5:
+        # single precision: the bar relative to the eigenvalues' size, as
+        # FEAST's residuals are (an f32 Rayleigh quotient of |lam| ~ 30
+        # over 65,536 rows carries ~1e-6 relative rounding)
+        bar *= max(1.0, float(np.abs(exp).max(initial=0.0)))
+    res = float(np.max(r.res)) if r.M else 0.0
+    median = float(np.median(secs))
+    print(f"   {label}: engine {'+'.join(engines)}, M={r.M} info="
+          f"{int(r.info)} loops={r.loop} eigenvalue error {err:.3e} max "
+          f"residual {res:.3e}; cold {cold:.3f} s, warm "
+          f"{[round(s, 4) for s in secs]} s, median {median:.4f} s, peak "
+          f"{peak / 2**30:.3f} GiB; stages of one more ({staged:.4f} s): "
+          f"{stages}, other {staged - sum(stages.values()):.4f} s; "
+          f"Chebyshev launches {launches}", flush=True)
+    check(r.M == len(exp), f"{label}: M = {len(exp)}")
+    check(err <= bar, f"{label}: eigenvalue error <= {bar:g}")
+    check(res <= tol, f"{label}: residuals <= tol {tol:.3g}")
+    check(int(r.info) == 0, f"{label}: info = 0")
+    check(r.q.shape[1] == r.M and bool(torch.isfinite(r.q).all())
+          and r.q.device.type == device, f"{label}: finite (N, M) "
+          f"eigenvectors on {device}")
+    check(engines == [want_engine], f"{label}: the {want_engine} engine "
+          "ran, and no other")
+    if want_engine == "polynomial" and device == "cuda":
+        check(sum(launches.values()) > 0, f"{label}: the Chebyshev kernels "
+              "carried the filter")
+    return dict(engine=want_engine, M=r.M, loops=r.loop, eig_err=err,
+                max_res=res, cold_s=cold, warm_s=secs, warm_median_s=median,
+                peak_bytes=peak, stages=stages, staged_s=staged,
+                cheb_launches=launches)
+
+
+def phase_direct(device="cuda", scale=1):
+    """Phase 10: the direct-solver contour engines at the widths of the
+    JAX package's bench.py legs, through the entry points with the default
+    device (scale > 1 shrinks N, for a dry run)."""
+    import scipy.linalg as sla
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.core.parameters import feast_tolerance
+    print("== 10. the direct engines: dense (configs 1-2), banded (config 3, "
+          "the throughput and narrow-band legs) and the densified sparse "
+          "pencil", flush=True)
+    kw = {} if device == "cuda" else {"device": device}
+    legs = {}
+
+    def tol_of(dtype):
+        return feast_tolerance(ft.feastdefault(ft.feastinit()), dtype)
+
+    n = 2048 // scale
+    A, B = dense_config2(n)
+    w = sla.eigh(A.astype(np.float64), B.astype(np.float64),
+                 eigvals_only=True)
+    Emin, Emax = middle_interval(w, 24)
+    exp = w[(w >= Emin) & (w <= Emax)]
+    fpm = ft.feastinit()
+    fpm[2] = 16
+    At, Bt = (torch_tensor(X, device) for X in (A, B))
+    legs["config2_sygv_f32"] = _direct_leg(
+        f"config 2 feast_sygv f32 n={n}", lambda: ft.feast_sygv(
+            At, Bt, Emin, Emax, 32, fpm, **kw), exp, 1e-5,
+        tol_of(np.float32), "dense", device)
+    check(len(exp) == 24, "config 2: 24 eigenvalues in the interval")
+
+    A, B = hermitian_config2(n)
+    w = sla.eigh(A, B, eigvals_only=True)
+    Emin, Emax = middle_interval(w, 24)
+    exp = w[(w >= Emin) & (w <= Emax)]
+    At, Bt = (torch_tensor(X, device) for X in (A, B))
+    legs["config2_hegv_c128"] = _direct_leg(
+        f"config 2 feast_hegv complex128 n={n}", lambda: ft.feast_hegv(
+            At, Bt, Emin, Emax, 32, fpm, **kw), exp, 1e-9,
+        tol_of(np.complex128), "dense", device)
+    del At, Bt, A, B
+
+    nq = 100
+    Aq = (np.diag(2.0 * np.ones(nq)) + np.diag(-np.ones(nq - 1), 1)
+          + np.diag(-np.ones(nq - 1), -1))
+    wq = 2.0 - 2.0 * np.cos(np.arange(1, nq + 1) * np.pi / (nq + 1))
+    exp = np.sort(wq[(wq >= 0.5) & (wq <= 1.5)])
+    legs["config1_quickstart"] = _direct_leg(
+        "config 1 quickstart feast n=100", lambda: ft.feast(
+            Aq, None, (0.5, 1.5), 24, **kw), exp, 1e-10,
+        tol_of(np.float64), "dense", device)
+    check(len(exp) == 19, "config 1: 19 eigenvalues")
+
+    bands, (Emin, Emax), w = banded_config3(n)
+    exp = w[(w >= Emin) & (w <= Emax)]
+    legs["config3_bcr_f32"] = _direct_leg(
+        f"config 3 feast_banded f32 n={n} kd=4", lambda: ft.feast_banded(
+            bands, 4, 4, (Emin, Emax), 16, **kw), exp, 1e-5,
+        tol_of(np.float32), "bcr", device)
+
+    nt = 65536 // scale
+    bands = banded_throughput(nt)
+    exp = band_eigs(bands, 4, 25.0, 35.0)
+    legs["banded_throughput_f32"] = _direct_leg(
+        f"banded throughput feast_banded f32 n={nt} kd=4",
+        lambda: ft.feast_banded(bands, 4, 4, (25.0, 35.0), 24, **kw), exp,
+        1e-5, tol_of(np.float32), "polynomial", device)
+    check(len(exp) == 20, "throughput leg: 20 eigenvalues")
+
+    nn = 8192 // scale
+    for f64 in (False, True):
+        A, bands = narrow_band(f64, nn)
+        exp = band_eigs(bands, 2, 15.0, 25.0)
+        name = "f64" if f64 else "f32"
+        # the hand-off to the banded driver, then its polynomial route; in
+        # f64 under mixed precision (auto: on for CUDA, as the JAX package's
+        # is on its TPU) the ladder's sharper rational realization blows up
+        # on this interval and the indicator is refused, so BCR answers:
+        # the JAX package at fpm[42] = 2 routes it the same way
+        legs[f"narrow_band_{name}"] = _direct_leg(
+            f"narrow band feast(CSR) {name} n={nn} kd=2", lambda: ft.feast(
+                A, None, (15.0, 25.0), 24, **kw), exp,
+            1e-8 if f64 else 1e-5, tol_of(np.float64 if f64 else np.float32),
+            "bcr" if f64 and device == "cuda" else "polynomial", device)
+        check(len(exp) == 20, "narrow-band leg: 20 eigenvalues")
+
+    A = lap2d(20)
+    w = np.linalg.eigvalsh(A.toarray())
+    Emin, Emax, exp = interval_lowest(w, 8)
+    saved = os.environ.get("FEAST_CHEB_DEGREE")
+    os.environ["FEAST_CHEB_DEGREE"] = "4"
+    try:
+        legs["densify_lap2d20"] = _direct_leg(
+            "lap2d(20) under FEAST_CHEB_DEGREE=4 (densified)",
+            lambda: ft.feast(A, None, (Emin, Emax), 16, **kw), exp, 1e-8,
+            tol_of(np.float64), "dense", device)
+    finally:
+        os.environ.pop("FEAST_CHEB_DEGREE")
+        if saved is not None:
+            os.environ["FEAST_CHEB_DEGREE"] = saved
+    return legs
+
+
+def torch_tensor(X, device):
+    import torch
+    return torch.as_tensor(X).to(device)
+
+
+def direct_sweep(device="cuda", scale=1):
+    """The BCR block sweep (``ops/banded.bcr_block``'s rule) and the dense
+    factorization's batching: re-blocking plus factor, and one solve of
+    the right-hand sides, for blocks minimal, 16, 32 and 64 at config 3's
+    shape (n = 2048, kd = 4, complex64, 8 nodes, 16 columns) and the
+    narrow-band leg's (n = 8192, kd = 2, complex64 and complex128, 24
+    columns); config 3's whole solve under each block; and the (16, 2048,
+    2048) batched LU against one factorization per node."""
+    import torch
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.core.contour import feast_contour
+    from feastkit_tpu_torch.core.tools import lu_factor
+    from feastkit_tpu_torch.ops import banded as OB
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    print("== direct sweep: BCR blocks and the dense LU's batching",
+          flush=True)
+
+    def med(fn, reps=5):
+        fn()
+        ts = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts)) * 1e3
+
+    out = {}
+    z = torch.as_tensor(feast_contour(0.0, 1.0, ne=8).Zne)
+    for n, kd, cdt, M in ((2048 // scale, 4, torch.complex64, 16),
+                          (8192 // scale, 2, torch.complex64, 24),
+                          (8192 // scale, 2, torch.complex128, 24)):
+        bands = torch.as_tensor(narrow_band(True, n, kd)[1] if kd == 2
+                                else banded_config3(n, kd)[0]).to(device)
+        I = torch.zeros_like(bands)
+        I[kd] = 1.0
+        shifted = (z.to(device, cdt)[:, None, None] * I.to(cdt)[None]
+                   - bands.to(cdt)[None])
+        rhs = torch.randn(n, M, dtype=cdt, device=device)
+        for b in sorted({max(kd, 1), 16, 32, 64}):
+            def factor():
+                D, L, U, bb, _ = OB.banded_to_blocktridiag(shifted, kd, kd,
+                                                           block=b)
+                return OB.bcr_factor(D, L, U), D.shape[-3] * bb
+            (lv, rl, rp), npad = factor()
+
+            def solve():
+                r = torch.zeros(npad, M, dtype=cdt, device=device)
+                r[:n] = rhs
+                return OB.bcr_solve(lv, rl, rp, r.reshape(-1, b, M))
+            key = f"n{n}_kd{kd}_{str(cdt)[6:]}_b{b}"
+            out[key] = dict(levels=len(lv), factor_ms=med(factor),
+                            solve_ms=med(solve))
+            print(f"   {key}: {len(lv)} levels, re-block + factor "
+                  f"{out[key]['factor_ms']:.3f} ms, solve "
+                  f"{out[key]['solve_ms']:.3f} ms", flush=True)
+    bands, iv, _ = banded_config3(2048 // scale)
+    kw = {} if device == "cuda" else {"device": device}
+    orig = OB.bcr_block
+    try:
+        for b in (4, 16, 32, 64):
+            OB.bcr_block = lambda *a, _b=b: _b
+            ms = med(lambda: ft.feast_banded(bands, 4, 4, iv, 16, **kw), 3)
+            out[f"config3_solve_b{b}"] = ms
+            print(f"   config 3 whole solve, block {b}: {ms:.2f} ms",
+                  flush=True)
+    finally:
+        OB.bcr_block = orig
+    nd = 2048 // scale
+    for cdt in (torch.complex64, torch.complex128):
+        S = torch.randn(16, nd, nd, dtype=cdt, device=device) \
+            + nd * torch.eye(nd, dtype=cdt, device=device)
+        batched = med(lambda: lu_factor(S), 3)
+        looped = med(lambda: [torch.linalg.lu_factor(s) for s in S], 3)
+        lu, piv = lu_factor(S)
+        rhs = torch.randn(nd, 32, dtype=cdt, device=device)
+        solve = med(lambda: torch.linalg.lu_solve(lu, piv, rhs), 5)
+        name = str(cdt)[6:]
+        out[f"dense_lu_{name}"] = dict(batched_ms=batched, looped_ms=looped,
+                                       solve_ms=solve)
+        print(f"   dense (16, {nd}, {nd}) {name}: batched LU {batched:.2f} "
+              f"ms, one per node {looped:.2f} ms; (16, {nd}, 32) solve "
+              f"{solve:.3f} ms", flush=True)
+    return out
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -2414,6 +2868,18 @@ def main(argv):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--direct" in argv or "--direct-sweep" in argv:
+        out = {}
+        if "--direct-sweep" in argv:
+            out["sweep"] = direct_sweep()
+        if "--direct" in argv:
+            out["direct"] = phase_direct()
+        print(json.dumps(out), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     kernels = phase_kernels(smi.split(",")[0])
     gen_kernels = phase_gen_kernels(smi.split(",")[0], ptxas["cheb_step_cm"])
     nd9 = {k: gen_kernels.pop(k) for k in list(gen_kernels)
@@ -2442,6 +2908,7 @@ def main(argv):
         counts.update(krylov["launches"])
         print(json.dumps({"krylov": krylov, "gen_krylov": gen_krylov}),
               flush=True)
+        print(json.dumps({"direct": phase_direct()}), flush=True)
     rows = []
     copy_tbs = kernels.pop("copy_tbs")
     for name, k in kernels.items():

@@ -15,11 +15,12 @@ import torch
 from .core.backend import resolve_device
 from .core.parameters import FeastParameters
 from .kernel.hermitian import HermitianState
+from .ops.banded import BCRLevel
 from .ops.multigrid import GridStencil
 
 __all__ = ["fpm_from_reference", "dia_from_reference",
            "state_from_reference", "carry_from_reference_packed",
-           "stencil_from_reference"]
+           "stencil_from_reference", "bcr_from_reference"]
 
 
 def fpm_from_reference(fpm) -> FeastParameters:
@@ -81,3 +82,20 @@ def stencil_from_reference(st) -> GridStencil:
     the port's (host numpy, as in the JAX package)."""
     return GridStencil(np.array(st.disps, np.int64), np.array(st.coeffs),
                        tuple(int(g) for g in st.grid))
+
+
+def bcr_from_reference(levels, root_lu, root_piv, device=None):
+    """The JAX package's BCR hierarchy (``bcr_factor``'s levels, each with
+    lu_odd, piv_odd, L_odd, U_odd, C1, C2, and the root factors) -> the
+    port's, for ``ops/banded.bcr_solve``. Pivots move from LAPACK's 0-based
+    rows (jax) to torch's 1-based ones."""
+    device = resolve_device(device)
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=device)
+
+    def piv(p):
+        return torch.as_tensor(np.array(p, np.int32) + 1, device=device)
+    return ([BCRLevel(t(lv.lu_odd), piv(lv.piv_odd), t(lv.L_odd),
+                      t(lv.U_odd), t(lv.C1), t(lv.C2)) for lv in levels],
+            t(root_lu), piv(root_piv))

@@ -1,14 +1,24 @@
-"""Device selection for the port's entry points.
+"""Device and backend selection for the port's entry points.
 
 Every public solver takes ``device=None``, which means the CUDA card. The
 CPU runs only when the caller names it (``device="cpu"``, as the tests do):
 there is no silent fallback from the card to the host.
+
+Backend selection is the JAX package's (``feastkit_tpu/core/backend.py``):
+serial or sharded, with legacy names folded into sharded, and the same
+strict-versus-fallback messages. The devices counted are those of the
+solve's own type: the CUDA cards on CUDA, one on the CPU.
 """
 from __future__ import annotations
 
+import warnings
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "select_parallel_backend"]
+
+_BACKENDS = ("auto", "serial", "sharded")
+_LEGACY = {"threads": "sharded", "distributed": "sharded", "mpi": "sharded"}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -23,3 +33,33 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def _n_devices(device: torch.device) -> int:
+    """Devices of the solve's type: the CUDA cards, or one CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def select_parallel_backend(backend, device, *, allow_fallback=True,
+                            auto_sharded=True) -> str:
+    """"serial" or "sharded" for ``backend`` on ``device``'s type. "auto"
+    picks sharded on two or more devices where ``auto_sharded`` (the JAX
+    package's sparse operands; dense ones shard only on request). A sharded
+    request on one device warns and runs serially, or raises when
+    ``allow_fallback`` is False (the JAX package's strict selection)."""
+    b = str(backend).lstrip(":")
+    b = _LEGACY.get(b, b)
+    if b not in _BACKENDS:
+        raise ValueError(f"Unknown backend {backend!r}")
+    n = _n_devices(device)
+    if b == "auto":
+        return "sharded" if (auto_sharded and n > 1) else "serial"
+    if b == "sharded" and n < 2:
+        if not allow_fallback:
+            raise RuntimeError(
+                f"backend='sharded' requires >= 2 devices but only {n} "
+                "visible. Run on a host with several CUDA devices.")
+        warnings.warn("backend='sharded' unavailable (single device); "
+                      "falling back to serial", stacklevel=4)
+        return "serial"
+    return b

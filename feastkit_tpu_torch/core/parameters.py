@@ -332,6 +332,8 @@ class FeastConfig:
     convergence_criterion: int = 1      # fpm[6]: 0 trace, 1 residual
     print_level: int = 0         # fpm[1]
     mode: int = 0                # fpm[14]
+    store_factorization: bool = True    # fpm[10]: the direct engines
+    #   factor each shifted pencil once per solve (0: on every application)
     mixed: int = 1               # fpm[42]: mixed precision (the f32 rung of
     #   the polynomial filter; c64 Krylov inside a double-precision
     #   iterative refinement in the Krylov engine).
@@ -366,6 +368,7 @@ class FeastConfig:
             convergence_criterion=fpm[6],
             print_level=fpm[1],
             mode=fpm[14],
+            store_factorization=bool(fpm[10]),
             mixed=int(fpm[42]),
             ir_max=int(os.environ.get("FEAST_IR_MAX", 5)),
             mg_nu_pre=int(os.environ.get("FEAST_MG_NU_PRE", 2)),

@@ -15,7 +15,7 @@ import torch
 
 __all__ = ["seeded_subspace", "initial_subspace", "residuals",
            "inside_first_order", "eigh_polished", "reduced_hermitian_gevp",
-           "thin_svd", "orthonormalize"]
+           "thin_svd", "orthonormalize", "lu_factor"]
 
 
 def seeded_subspace(N: int, M0: int, dtype, *, general: bool = False) -> np.ndarray:
@@ -119,3 +119,17 @@ def reduced_hermitian_gevp(S, G, eps_scale=None):
     C = 0.5 * (C + C.mT.conj())
     lam, Y = eigh_polished(C)
     return lam, W @ Y
+
+
+def lu_factor(S):
+    """``torch.linalg.lu_factor`` of one matrix or a batch. On the CPU a
+    batch of matrices larger than 128 is factored one matrix at a time: the
+    CPU build's batched complex getrf with more than one thread reports a
+    LASWP argument error and hangs at such sizes (seen from 200 up, not at
+    150 and below)."""
+    if S.dim() == 2 or S.is_cuda or S.shape[-1] <= 128:
+        return torch.linalg.lu_factor(S)
+    flat = S.reshape(-1, *S.shape[-2:])
+    lus, pivs = zip(*(torch.linalg.lu_factor(s) for s in flat))
+    return (torch.stack(lus).reshape(S.shape),
+            torch.stack(pivs).reshape(S.shape[:-1]))

@@ -1,39 +1,125 @@
-"""High-level API of the PyTorch port: ``feast`` and ``feast_summary``.
+"""High-level API of the PyTorch port: ``feast``, ``feast_banded``,
+``feast_validate_interval`` and ``feast_summary``.
 
-Counterpart of ``feastkit_tpu/interfaces/feast.py`` for sparse operands
-(scipy.sparse matrices): ``feast(A, B, (Emin, Emax), M0, fpm)`` runs the
-sparse interval driver on ``device`` (``None`` means CUDA). Dense and
-matrix-free operands and the sharded backend belong to engines not ported
-yet and raise ``NotImplementedError``.
+Counterpart of ``feastkit_tpu/interfaces/feast.py``. ``feast(A, B,
+(Emin, Emax), M0, fpm)`` routes by storage type: scipy.sparse operands to
+the sparse interval driver, dense ones (numpy arrays or tensors) to the
+dense driver after the symmetric / Hermitian checks and the Gershgorin
+check of the interval. Backend selection (``backend=``, ``parallel=``,
+``strict_backend=``) is the JAX package's, over the devices of the solve's
+type. Everything runs on ``device`` (``None`` means CUDA). Matrix-free
+operands and the sharded backend belong to engines not ported yet and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import sys
+import warnings
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
+from ..core.backend import resolve_device, select_parallel_backend
+from ..core.parameters import _ensure_fpm
 from ..core.types import FeastResult
 
-__all__ = ["feast", "feast_summary"]
+__all__ = ["feast", "feast_banded", "feast_summary",
+           "feast_validate_interval"]
+
+_VALID_BACKENDS = ("auto", "serial", "sharded", "threads", "distributed",
+                   "mpi")
+
+
+def _normalize_backend(backend, parallel):
+    """Reconcile ``backend=`` with the legacy ``parallel=`` flag: both set
+    and conflicting -> error; legacy names fold into sharded."""
+    if parallel is not None:
+        legacy = "sharded" if parallel else "serial"
+        if backend is not None and str(backend) != legacy:
+            raise ValueError(
+                f"Conflicting parallel={parallel} and backend={backend!r}; "
+                "use backend= only")
+        backend = legacy
+    if backend is None:
+        backend = "auto"
+    backend = str(backend).lstrip(":")
+    if backend not in _VALID_BACKENDS:
+        raise ValueError(f"Unknown backend {backend!r}; valid: "
+                         f"{_VALID_BACKENDS}")
+    if backend in ("threads", "distributed", "mpi"):
+        backend = "sharded"
+    return backend
+
+
+def _resolve_backend(backend, parallel, strict_backend, device, *,
+                     auto_sharded):
+    """"serial", or raise: the sharded drivers are not ported. auto_sharded:
+    whether "auto" may pick the sharded mesh for this operand class (sparse
+    yes, dense only on request, as in the JAX package)."""
+    backend = select_parallel_backend(
+        _normalize_backend(backend, parallel), device,
+        allow_fallback=not strict_backend, auto_sharded=auto_sharded)
+    if backend == "sharded":
+        raise NotImplementedError(
+            "the sharded backend is not ported to feastkit_tpu_torch yet "
+            "(ROADMAP.md, queue 1 item 15)")
+    return backend
+
+
+def _as_tensor(A) -> torch.Tensor:
+    """A numpy array or tensor as a floating (or complex) tensor."""
+    t = A if isinstance(A, torch.Tensor) else torch.as_tensor(np.asarray(A))
+    return t if t.is_floating_point() or t.is_complex() else t.double()
+
+
+def feast_validate_interval(A, Emin, Emax, *, warn=True):
+    """Gershgorin-disc sanity check of the search interval: (lo, hi)
+    Gershgorin bounds, with a warning when [Emin, Emax] misses them."""
+    A = _as_tensor(A)
+    diag = torch.diagonal(A)
+    d = diag.real
+    radii = A.abs().sum(dim=1) - diag.abs()
+    lo, hi = float((d - radii).min()), float((d + radii).max())
+    if warn and (Emax < lo or Emin > hi):
+        warnings.warn(
+            f"Search interval [{Emin}, {Emax}] lies outside the Gershgorin "
+            f"bounds [{lo:.4g}, {hi:.4g}]; no eigenvalues can be found there.",
+            stacklevel=3)
+    return lo, hi
+
+
+def _is_hermitian(A, tol=0.0):
+    A = _as_tensor(A)
+    return bool(torch.allclose(A, A.mT.conj(), atol=tol,
+                               rtol=10 * tol if tol else 1e-12))
 
 
 def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
-          Q0=None, device=None, **kw) -> FeastResult:
-    """All eigenpairs of A x = lam B x with lam in [Emin, Emax] for a
-    sparse real symmetric A and B None, a positive diagonal (lumped mass)
-    or a sparse symmetric positive-definite matrix (consistent mass,
-    solved through the polynomial-inverse composite q(B) A), or through
-    the Krylov contour engine (``solver="gmres"`` / ``"bicgstab"``).
+          parallel=None, strict_backend=False, contour=None, Q0=None,
+          device=None, **kw) -> FeastResult:
+    """All eigenpairs of A x = lam B x with lam in [Emin, Emax].
 
     Args:
-      A, B: sparse operands (B=None for the standard problem).
+      A, B: scipy.sparse matrices (the sparse driver: B None, a positive
+        diagonal, or a sparse symmetric positive-definite matrix; the
+        Krylov contour engine through ``solver="gmres"`` / ``"bicgstab"``)
+        or dense numpy arrays / tensors (the dense driver: real symmetric
+        or complex Hermitian, B symmetric / Hermitian positive definite).
+        B=None is the standard problem.
       interval: (Emin, Emax).
       M0: subspace size (default max(8, N // 10), capped at N).
       fpm: the 64-slot FEAST parameters (None: defaults).
-      backend: None, "auto" or "serial" (the sharded backend is not ported).
+      backend, parallel, strict_backend: backend selection as in the JAX
+        package: "auto" (sharded for sparse operands on two or more
+        devices), "serial", "sharded"; ``parallel=True`` is "sharded". A
+        sharded request on one device warns and runs serially, or raises
+        RuntimeError with ``strict_backend=True``; anything that resolves
+        to sharded raises NotImplementedError (not ported).
+      contour: an explicit quadrature for the dense driver (taken and not
+        passed on for sparse operands, as in the JAX package).
       device: torch device; None means "cuda" (raises without CUDA).
-      kw: passed to the sparse driver (``solver=`` "cheb",
+      kw: passed to the driver (sparse: ``solver=`` "cheb",
         "contour_poly", "gmres" or "bicgstab"; ``hermitian=``; for the
         Krylov engine ``solver_tol=``, ``solver_maxiter=``,
         ``solver_restart=``, ``precond=`` and ``grid=``).
@@ -43,20 +129,61 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
     Emin, Emax = float(interval[0]), float(interval[1])
     if not Emax > Emin:
         raise ValueError(f"Emin={Emin} must be < Emax={Emax}")
-    if backend not in (None, "auto", "serial", ":auto", ":serial"):
+    if hasattr(A, "matvec") or callable(A):
         raise NotImplementedError(
-            f"backend={backend!r} is not ported to feastkit_tpu_torch yet "
-            "(ROADMAP.md, queue 1 item 15)")
-    if not sp.issparse(A):
-        raise NotImplementedError(
-            "feast() on dense or matrix-free operands is not ported to "
-            "feastkit_tpu_torch yet (ROADMAP.md, queue 1 items 9 and 13); "
-            "pass a scipy.sparse matrix")
-    from ..solvers.sparse import sparse_feast_interval
+            "feast() on matrix-free operators is not ported to "
+            "feastkit_tpu_torch yet (ROADMAP.md, queue 1 item 13)")
+    device = resolve_device(device)
+    if sp.issparse(A):
+        _resolve_backend(backend, parallel, strict_backend, device,
+                         auto_sharded=True)
+        from ..solvers.sparse import sparse_feast_interval
+        N = A.shape[0]
+        M0r = min(int(M0 or max(8, N // 10)), N)
+        return sparse_feast_interval(A, B, Emin, Emax, M0r, fpm, Q0=Q0,
+                                     device=device, **kw)
+
     N = A.shape[0]
-    M0r = min(int(M0 or max(8, N // 10)), N)
-    return sparse_feast_interval(A, B, Emin, Emax, M0r, fpm, Q0=Q0,
-                                 device=device, **kw)
+    if M0 is None:
+        M0 = min(N, max(8, N // 10))
+    M0 = min(int(M0), N)
+    if not _is_hermitian(A, tol=1e-10):
+        raise ValueError(
+            "feast() requires symmetric/Hermitian A; use feast_general() for "
+            "non-Hermitian problems")
+    if B is not None and not _is_hermitian(B, tol=1e-10):
+        raise ValueError("feast() requires symmetric/Hermitian positive "
+                         "definite B; use feast_general() otherwise")
+    feast_validate_interval(A, Emin, Emax)
+    fpm = _ensure_fpm(fpm)
+    _resolve_backend(backend, parallel, strict_backend, device,
+                     auto_sharded=False)
+    hermitian = _as_tensor(A).is_complex() or (
+        B is not None and _as_tensor(B).is_complex())
+    from ..solvers.dense import dense_hermitian_feast
+    return dense_hermitian_feast(A, B, Emin, Emax, M0, fpm,
+                                 hermitian=hermitian, contour=contour,
+                                 Q0=Q0, device=device, **kw)
+
+
+def feast_banded(A_bands, kl, ku, interval, M0, fpm=None, *, B_bands=None,
+                 klb=0, kub=0, **kw) -> FeastResult:
+    """Banded symmetric / Hermitian FEAST on [Emin, Emax]: band storage
+    (kl+ku+1, N) in, the sb* / hb* drivers of ``solvers/banded.py``
+    (``device=`` among ``kw``; None means CUDA)."""
+    from ..solvers import banded as _b
+    Emin, Emax = float(interval[0]), float(interval[1])
+    hermitian = _as_tensor(A_bands).is_complex() or (
+        B_bands is not None and _as_tensor(B_bands).is_complex())
+    if B_bands is None:
+        if hermitian:
+            return _b.feast_hbev(A_bands, kl, ku, Emin, Emax, M0, fpm, **kw)
+        return _b.feast_sbev(A_bands, kl, ku, Emin, Emax, M0, fpm, **kw)
+    if hermitian:
+        return _b.feast_hbgv(A_bands, kl, ku, B_bands, klb, kub,
+                             Emin, Emax, M0, fpm, **kw)
+    return _b.feast_sbgv(A_bands, kl, ku, B_bands, klb, kub,
+                         Emin, Emax, M0, fpm, **kw)
 
 
 def feast_summary(result, file=None):

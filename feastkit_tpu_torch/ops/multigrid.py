@@ -30,6 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core.tools import lu_factor
+
 __all__ = ["GridStencil", "detect_grid_stencil", "coarsen_stencil",
            "apply_stencil", "make_shifted_vcycle", "stencil_to_dense",
            "plan_mg_levels"]
@@ -308,17 +310,6 @@ def _center(st):
     return 0.0
 
 
-def _lu_factor(S):
-    """``torch.linalg.lu_factor`` of one matrix or a batch; on the CPU a
-    batch is factored one matrix at a time (the CPU build's batched complex
-    getrf with more than one thread reports a LASWP argument error and
-    hangs)."""
-    if S.dim() == 2 or S.is_cuda:
-        return torch.linalg.lu_factor(S)
-    lus, pivs = zip(*(torch.linalg.lu_factor(s) for s in S))
-    return torch.stack(lus), torch.stack(pivs)
-
-
 def make_shifted_vcycle(stA: GridStencil, stB, z, *, nu_pre=2, nu_post=2,
                         omega=0.8, dtype=torch.complex64, n_cycles=1,
                         n_levels=None, device="cpu"):
@@ -362,7 +353,7 @@ def make_shifted_vcycle(stA: GridStencil, stB, z, *, nu_pre=2, nu_post=2,
           else torch.as_tensor(stencil_to_dense(bC).astype(np_dt),
                                device=device))
     Sc = (z[:, None, None] if per_node else z) * Bc - Ac
-    coarse_lu, coarse_piv = _lu_factor(Sc)
+    coarse_lu, coarse_piv = lu_factor(Sc)
 
     def level_solve(l, r):
         grid, dA, cA, B, d = lv[l]

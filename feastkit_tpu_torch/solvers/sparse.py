@@ -45,13 +45,19 @@ preconditioned, complex64 Krylov inside a complex128 refinement under
 mixed precision), and ``kernel/hermitian.feast_hermitian_core`` refines
 around it.
 
+Two hand-offs leave this module for the direct engines, as in the JAX
+package: a narrow-banded pencil (half bandwidth <= 16, N <= 16384) that
+nothing pinned to an iterative solve goes to the banded driver
+(``solvers/banded._banded_interval_driver``, block cyclic reduction, or
+its own polynomial route at N >= 4096), and a pencil of N <=
+``FEAST_SPARSE_DENSE_N`` that leaves the polynomial route is densified
+onto the dense engine (``solvers/dense.dense_hermitian_feast``).
+
 Paths the JAX package has and this port does not yet (each raises
 ``NotImplementedError`` naming its ROADMAP.md queue 1 item): complex
 Hermitian operators, and the polynomial path for operators (A or a sparse
-B) with more than 32 diagonals (item 6), small pencils that leave the
-polynomial route for the dense engine (item 9), the narrow-band BCR
-delegation (item 11) and the stochastic count fpm[14]=2 (item 16). Sharded
-meshes (item 15) are refused by ``feast()``.
+B) with more than 32 diagonals (item 6) and the stochastic count
+fpm[14]=2 (item 16). Sharded meshes (item 15) are refused by ``feast()``.
 """
 from __future__ import annotations
 
@@ -268,6 +274,14 @@ def _b_spd_bounds(B_data, B_idx, N, B_dia, offsets_B, device):
             f"[{b_lo:.3g}, {b_hi:.3g}] is not safely positive — use the "
             "contour solvers (gmres/bicgstab) for this pencil")
     return b_lo, b_hi
+
+
+def _densify(X):
+    """A sparse or dense operand as a dense host array (duplicates add)."""
+    data, idx, shape = sparse_coo_arrays(X)
+    D = np.zeros(shape, data.dtype)
+    np.add.at(D, (idx[:, 0], idx[:, 1]), data)
+    return D
 
 
 def _quick_narrow_band(A, B, max_half_bw=16, max_n=16384):
@@ -1292,8 +1306,16 @@ def _sparse_krylov_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         bwA = _narrow_band(offsets_A, N)
         bwB = (0, 0) if standard else _narrow_band(offsets_B, N)
         if bwA is not None and bwB is not None:
-            raise _not_ported("the narrow-band pencil delegation to the "
-                              "banded BCR engine", 11)
+            # narrow-banded pencil: exact BCR factor / solve per contour
+            # node (direct-solver semantics) on its band storage
+            from ..ops.banded import dia_to_banded
+            from .banded import _banded_interval_driver
+            A_bands = dia_to_banded(A_dia, offsets_A, *bwA)
+            B_bands = None if standard else dia_to_banded(
+                B_dia, offsets_B, *bwB)
+            return _banded_interval_driver(
+                A_bands, bwA[0], bwA[1], B_bands, bwB[0], bwB[1], Emin,
+                Emax, M0, fpm, hermitian, Q0=Q0, device=device)
     precond, mg_A, mg_B = _plan_mg(mg_A, mg_B, float(Emax), precond_auto,
                                    precond)
     config = FeastConfig.from_fpm(fpm, dtype=cdtype)
@@ -1427,10 +1449,19 @@ def sparse_feast_interval(A, B, Emin, Emax, M0, fpm=None, *, hermitian=None,
         except ChebInfeasible as e:
             n = A.shape[0]
             if n <= int(os.environ.get("FEAST_SPARSE_DENSE_N", "2048")):
-                raise _not_ported(
-                    f"this configuration leaves the polynomial route ({e}) "
-                    f"at N={n} <= FEAST_SPARSE_DENSE_N; its densified "
-                    "dense-engine fallback", 9) from e
+                # a small pencil off the polynomial route is usually hostile
+                # to the Krylov engine too (nodes ~1e-7 from the spectrum):
+                # one dense factorization per node shrugs that off
+                if int(fpm[1]) >= 1:
+                    print(f"feast sparse: contour-polynomial route "
+                          f"unavailable ({e}); N={n} small — "
+                          f"densifying onto the dense direct engine",
+                          flush=True)
+                from .dense import dense_hermitian_feast
+                return dense_hermitian_feast(
+                    _densify(A), None if B is None else _densify(B),
+                    Emin, Emax, M0, fpm, Q0=Q0, hermitian=hermitian,
+                    device=device)
             if int(fpm[1]) >= 1:
                 print(f"feast sparse: contour-polynomial route "
                       f"unavailable ({e}); using the Krylov contour "

@@ -689,3 +689,111 @@ def test_krylov_feast_on_cuda_matches_cpu():
         assert counts[name] > 0, name
     assert np.abs(np.sort(rg.lam) - np.sort(rc.lam)).max() <= 1e-8
     assert rg.res.max() <= 1e-8
+
+
+def _rand_band(rng, n, kd, herm):
+    """A random symmetric / Hermitian band of half bandwidth kd, diagonally
+    shifted, as a full matrix."""
+    A = np.zeros((n, n), complex if herm else float)
+    for d in range(1, kd + 1):
+        v = rng.standard_normal(n - d)
+        if herm:
+            v = v + 1j * rng.standard_normal(n - d)
+        A += np.diag(v, d)
+    A = A + A.conj().T + np.diag(2.0 * kd + rng.standard_normal(n))
+    return A
+
+
+_DIRECT = [(dt, herm, gen) for dt in ("f32", "f64")
+           for herm in (False, True) for gen in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,herm,gen", _DIRECT)
+def test_dense_driver_on_cuda_matches_cpu(dt, herm, gen):
+    _need_cuda()
+    rng = np.random.default_rng(3)
+    n = 120
+    A = _rand_band(rng, n, n - 1, herm) / np.sqrt(n)
+    B = None
+    if gen:
+        C = rng.standard_normal((n, n)) * 0.3 / np.sqrt(n)
+        B = C @ C.T + np.eye(n)
+    rdt = {"f32": np.float32, "f64": np.float64}[dt]
+    cdt = {"f32": np.complex64, "f64": np.complex128}[dt]
+    A = A.astype(cdt if herm else rdt)
+    B = None if B is None else B.astype(rdt)
+    import scipy.linalg as sla
+    w = sla.eigh(A.astype(complex), None if B is None else B.astype(float),
+                 eigvals_only=True)
+    iv = (float(w[39] + w[40]) / 2, float(w[55] + w[56]) / 2)
+    rg = ft.feast(A, B, iv, 24)
+    rc = ft.feast(A, B, iv, 24, device="cpu")
+    bar = 1e-4 if dt == "f32" else 1e-9
+    assert rg.q.is_cuda and int(rg.info) == 0 and rg.M == rc.M == 16
+    assert rg.q.is_complex() == herm
+    assert np.abs(np.sort(rg.lam) - np.sort(rc.lam)).max() <= bar
+    assert np.abs(np.sort(rg.lam) - w[40:56]).max() <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,herm,gen", _DIRECT)
+def test_banded_driver_on_cuda_matches_cpu(dt, herm, gen):
+    _need_cuda()
+    from feastkit_tpu_torch.ops.banded import full_to_banded
+    rng = np.random.default_rng(4)
+    n, kd = 600, 3
+    A = _rand_band(rng, n, kd, herm)
+    rdt = {"f32": np.float32, "f64": np.float64}[dt]
+    cdt = {"f32": np.complex64, "f64": np.complex128}[dt]
+    A = A.astype(cdt if herm else rdt)
+    kw = {}
+    if gen:
+        B = _rand_band(rng, n, 1, herm) * 0.1 + 4 * np.eye(n)
+        kw = dict(B_bands=full_to_banded(B.astype(A.dtype), 1, 1), klb=1,
+                  kub=1)
+        import scipy.linalg as sla
+        w = sla.eigh(A.astype(complex), B, eigvals_only=True)
+    else:
+        w = np.linalg.eigvalsh(A.astype(complex))
+    iv = (float(w[199] + w[200]) / 2, float(w[215] + w[216]) / 2)
+    bands = full_to_banded(A, kd, kd)
+    rg = ft.feast_banded(bands, kd, kd, iv, 24, **kw)
+    rc = ft.feast_banded(bands, kd, kd, iv, 24, device="cpu", **kw)
+    bar = 1e-4 if dt == "f32" else 1e-9
+    assert rg.q.is_cuda and int(rg.info) == 0 and rg.M == rc.M == 16
+    assert np.abs(np.sort(rg.lam) - np.sort(rc.lam)).max() <= bar
+    assert np.abs(np.sort(rg.lam) - w[200:216]).max() <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kd,block", [(700, 3, None), (700, 3, 3),
+                                        (700, 3, 128), (4096, 2, None),
+                                        (1000, 16, 64)])
+@pytest.mark.parametrize("cdt", [torch.complex64, torch.complex128])
+def test_bcr_on_cuda_matches_dense_solve(n, kd, block, cdt):
+    """BCR on the card against torch.linalg.solve of the dense shifted
+    pencils (complex, non-Hermitian)."""
+    _need_cuda()
+    from feastkit_tpu_torch.ops import banded as OB
+    rng = np.random.default_rng(5)
+    A = _rand_band(rng, n, kd, True) + 0.3 * np.diag(
+        rng.standard_normal(n - 1), 1)
+    z = torch.tensor([0.5 + 1.0j, 2.0 - 0.3j], dtype=cdt).cuda()
+    bands = torch.as_tensor(OB.full_to_banded(A, kd, kd)).to("cuda", cdt)
+    eye = torch.zeros_like(bands)
+    eye[kd] = 1.0
+    D, L, U, b, _ = OB.banded_to_blocktridiag(
+        z[:, None, None] * eye[None] - bands[None], kd, kd, block=block)
+    levels, rlu, rpiv = OB.bcr_factor(D, L, U)
+    Npad = D.shape[-3] * b
+    rhs = torch.as_tensor(rng.standard_normal((n, 5))).to("cuda", cdt)
+    rp = torch.zeros(Npad, 5, dtype=cdt, device="cuda")
+    rp[:n] = rhs
+    x = OB.bcr_solve(levels, rlu, rpiv, rp.reshape(-1, b, 5))
+    x = x.reshape(2, Npad, 5)[:, :n]
+    Ad = torch.as_tensor(A).to("cuda", cdt)
+    I = torch.eye(n, dtype=cdt, device="cuda")
+    ref = torch.linalg.solve(z[:, None, None] * I - Ad, rhs)
+    tol = 1e-4 if cdt == torch.complex64 else 1e-11
+    assert float((x - ref).abs().max() / ref.abs().max()) <= tol

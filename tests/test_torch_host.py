@@ -234,19 +234,28 @@ def test_custom_contour_registry():
 def test_unported_paths_raise():
     A = _lap2d(20, 20)
     kw = dict(device="cpu")
-    with pytest.raises(NotImplementedError, match="items 9 and 13"):
-        ft.feast(A.toarray(), None, (0.01, 0.5), 16, **kw)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ft.feast(A, None, (0.01, 0.5), 16, backend="sharded", **kw)
+    w = np.linalg.eigvalsh(A.toarray())
+    # a dense operand runs the dense engine (item 9)
+    r = ft.feast(A.toarray(), None, (0.01, 0.5), 16, **kw)
+    assert r.M == int(((w >= 0.01) & (w <= 0.5)).sum()) and r.info == 0
+    # a sharded request on one device warns and runs serially, as in the
+    # JAX package; matrix-free operands are item 13
+    with pytest.warns(UserWarning, match="single device"):
+        r = ft.feast(A, None, (0.01, 0.5), 16, backend="sharded", **kw)
+    assert r.info == 0
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ft.feast(lambda x: A @ x, None, (0.01, 0.5), 16, **kw)
     # a sparse SPD B runs (item 8); one with no DIA form (more than 32
     # diagonals) still needs the host-scipy bounds of item 6
     wide_b = sp.eye(400) + sum(0.01 * (sp.eye(400, k=k) + sp.eye(400, k=-k))
                                for k in range(1, 21))
     with pytest.raises(NotImplementedError, match="item 6"):
         ft.feast(A, wide_b, (0.01, 0.5), 16, solver="cheb", **kw)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ft.feast(sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(400, 400)),
-                 None, (0.01, 0.5), 16, **kw)
+    # the tridiagonal CSR goes to the banded engine (item 11)
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(400, 400)).tocsr()
+    wt = 2.0 - 2.0 * np.cos(np.arange(1, 401) * np.pi / 401)
+    r = ft.feast(T, None, (0.01, 0.1), 48, **kw)
+    assert r.M == int(((wt >= 0.01) & (wt <= 0.1)).sum()) and r.info == 0
     fpm = ft.feastinit()
     fpm[14] = 2
     with pytest.raises(NotImplementedError, match="item 16"):

@@ -7,8 +7,8 @@
   against its analytic or dense eigenvalues (1e-8) with residuals <= 1e-8;
 * the auto route's ways in: ``FEAST_CONTOUR_POLY=0``, and the
   ``ChebInfeasible`` fallback above ``FEAST_SPARSE_DENSE_N`` (below it the
-  dense engine is not ported and the route says so), with the narrow-band
-  delegation still refused as not ported;
+  pencil is densified onto the dense engine), with a narrow-banded pencil
+  going to the banded engine instead;
 * ``FEAST_CHEB_DEGREE``: the degree the port's polynomial path picks under
   the switch equals the JAX package's (both stopped right after the pick).
 Inputs come from numpy seeds; the port runs on the CPU.
@@ -147,11 +147,13 @@ def test_contour_poly_off_takes_the_krylov_engine(monkeypatch):
     monkeypatch.setenv("FEAST_CONTOUR_POLY", "0")
     r = ft.feast(A, None, (Emin, Emax), 16, _fpm(), device="cpu")
     _check(r, exact, "gmres", "mg")
-    # a narrow-banded pencil would go to the banded direct engine
+    # a narrow-banded pencil goes to the banded direct engine instead
     A16, w16 = _lap2d(16)
-    Emin, Emax, _ = _lowest(w16, 8)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ft.feast(A16, None, (Emin, Emax), 16, _fpm(), device="cpu")
+    Emin, Emax, exact16 = _lowest(w16, 8)
+    r = ft.feast(A16, None, (Emin, Emax), 16, _fpm(), device="cpu")
+    assert r.krylov is None and r.M == len(exact16) and int(r.info) == 0
+    assert np.abs(np.sort(r.lam) - exact16).max() <= TOL
+    assert float(np.max(r.res)) <= TOL
 
 
 def test_cheb_infeasible_falls_back_to_krylov(monkeypatch, capsys):
@@ -160,8 +162,14 @@ def test_cheb_infeasible_falls_back_to_krylov(monkeypatch, capsys):
     A, w = _lap2d(20)
     Emin, Emax, exact = _lowest(w, 8)
     monkeypatch.setenv("FEAST_CHEB_DEGREE", "4")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ft.feast(A, None, (Emin, Emax), 16, _fpm(), device="cpu")
+    # at N <= FEAST_SPARSE_DENSE_N the pencil is densified onto the dense
+    # engine, with the JAX package's message
+    r = ft.feast(A, None, (Emin, Emax), 16, _fpm(f1=1), device="cpu")
+    assert "densifying onto the dense direct engine" in \
+        capsys.readouterr().out
+    assert r.krylov is None and r.M == len(exact) and int(r.info) == 0
+    assert np.abs(np.sort(r.lam) - exact).max() <= TOL
+    assert float(np.max(r.res)) <= TOL
     monkeypatch.setenv("FEAST_SPARSE_DENSE_N", "100")
     r = ft.feast(A, None, (Emin, Emax), 16, _fpm(f1=1), device="cpu")
     assert "using the Krylov contour engine" in capsys.readouterr().out

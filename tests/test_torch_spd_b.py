@@ -558,11 +558,17 @@ def test_auto_route_refusal_names_the_krylov_item(case, monkeypatch):
     A = sp.kron(sp.eye(2), A).tocsr() + sp.diags(
         [np.ones(50), np.ones(50)], [-50, 50], shape=(100, 100))
     B = sp.kron(sp.eye(2), B).tocsr()
-    # at N <= FEAST_SPARSE_DENSE_N the JAX package densifies onto its dense
-    # engine, which is not ported (item 9)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ft.sparse_feast_interval(A, B, 0.0, 1.0, 8, ft.feastinit(),
-                                 device="cpu")
+    # at N <= FEAST_SPARSE_DENSE_N the pencil is densified onto the dense
+    # engine, as in the JAX package
+    from feastkit_tpu_torch.solvers import dense as port_dense
+    dense_args = []
+    monkeypatch.setattr(port_dense, "dense_hermitian_feast",
+                        lambda *a, **k: dense_args.append(a) or "dense")
+    assert ft.sparse_feast_interval(A, B, 0.0, 1.0, 8, ft.feastinit(),
+                                    device="cpu") == "dense"
+    (A_d, B_d, *_), = dense_args
+    assert np.array_equal(A_d, A.toarray()) and np.array_equal(B_d,
+                                                               B.toarray())
     # above it the route falls back to the Krylov contour engine (item 10)
     monkeypatch.setenv("FEAST_SPARSE_DENSE_N", "50")
     seen = []
