@@ -15,6 +15,7 @@ Run from the repository root on a machine with a CUDA card:
                                              # commit) and of this one, timed
                                              # in turns
     python3 chip_smoke.py --direct           # phase 10 alone
+    python3 chip_smoke.py --hermitian        # phases 3c and 11 alone
     python3 chip_smoke.py --direct-sweep     # BCR blocks, dense LU batching
 
 Phases, each printed before the last line:
@@ -69,8 +70,16 @@ Phases, each printed before the last line:
      and the host's cost per call, the plan's body and the other in turns
      (other, own, own, other, by CUDA graph), the plain version's, the
      bound, the plan's reckoned L2 bytes per element and a torch.sparse.mm
-     (CSR) call on the same product (library_ms); and that a CUDA entry
-     refuses a wrong dtype, a non-contiguous operand and a CPU tensor;
+     (CSR) call on the same product (library_ms); the complex entries
+     dia_matvec_c64/c128 and dia_matvec_batched_c64/c128 the same way at
+     the Hermitian paths' shapes (unbatched at P=10: N = 1,048,576,
+     M = 72, offsets +-1, +-1024; batched g = 2 at the Hermitian Krylov
+     leg's P=7 shape, N = 16,384, M = 72, offsets +-1, +-128, which gives
+     their times in the kernels line, and at the Krylov path's P=8 shape,
+     M = 64) and the awkward shapes (also 7 diagonals with M = 3,
+     and offsets all negative), tolerance c64 1e-5, c128 1e-13, the
+     library time a complex CSR product; and that a CUDA entry refuses a
+     wrong dtype, a non-contiguous operand and a CPU tensor;
   4. the main path: feast(lap2d(1024), None, (Emin, Emax), 72, fpm) with
      fpm[3] = 8 and the default fpm[42] (mixed precision on CUDA) under the
      default switches, once cold and three times warm, the kernel launch
@@ -102,15 +111,15 @@ Phases, each printed before the last line:
   8. the Krylov contour engine: feast(lap2d(256), None, (Emin, Emax), 72,
      fpm, solver="gmres", solver_maxiter=250) with fpm[3] = 8 and the
      default fpm[42] (complex64 Krylov inside a complex128 refinement on
-     CUDA), once cold and twice warm; checks M = 52, eigenvalue
+     CUDA), once cold and once warm; checks M = 52, eigenvalue
      error <= 1e-8, residuals <= 1e-8, info 0, the multigrid
      preconditioner with 4 levels, and that each DIA entry's launches in
-     the first warm solve (counts set to 0 just before, read just after)
-     equal the count the solve's own Krylov record implies
-     (``krylov_dia_launches``); then one warm solve with its stages timed,
-     and one with FEAST_GROUP_MAX=1 (the unbatched entries carry every
-     apply, counted and held to its record the same way) that must agree
-     with the default node groups to 1e-8;
+     the cold solve (counts set to 0 just before, read just after) equal
+     the count the solve's own Krylov record implies
+     (``krylov_dia_launches``); the warm solve has its stages timed; then
+     one with FEAST_GROUP_MAX=1 (the unbatched entries carry every apply,
+     counted and held to its record the same way) that must agree with
+     the default node groups to 1e-8;
   9. the consistent-mass pencil at P = 7 (N = 16,384) through
      solver="gmres" with grid=(128, 128) (multigrid with a B stencil),
      against its analytic eigenvalues, its launches held to its record;
@@ -134,10 +143,36 @@ Phases, each printed before the last line:
      f32 and, as the JAX package's routing gives under mixed precision,
      BCR in f64); and lap2d(20) under FEAST_CHEB_DEGREE=4 (off the
      polynomial route, so densified onto the dense engine);
+  11. complex Hermitian pencils and operators beyond 32 diagonals, through
+     the entry points: (1) feast on the P=10 Laplacian under a seeded
+     diagonal unitary gauge D A D^* (five complex diagonals, the spectrum
+     exactly lap2d's; the polynomial path's unfused recurrence on the
+     complex DIA entries, c64 on the f32 rung and c128 on the fp64 rung)
+     once cold and twice warm (the first with every kernel's launches
+     counted, which must show the complex entries and no real DIA entry or
+     Chebyshev kernel; the second with its stages timed: each rung's
+     filter, its DIA launches inside the filter x their phase-3c time, the
+     torch glue of the unfused step, Rayleigh-Ritz, host set-up), checked
+     for M = 52, error <= 1e-8, residuals <= 1e-8 and info 0; (2) the P=9
+     Laplacian under a seeded symmetric permutation (hundreds of DIA
+     diagonals: the unfused recurrence on torch CSR products, no kernel
+     launched), cold and once warm; (3) the P=8 consistent-mass pencil
+     under one seeded permutation of A and B (the host scipy bounds of B~
+     and of the pencil's edge, the composite on CSR products), once; (4)
+     the P=7 Laplacian with a uniform phase on its +-1 bonds through
+     solver="gmres" (the mirrored node set, multigrid on the complex
+     stencil, the batched complex entries, launches held to the Krylov
+     record); (5) feast_hbev on a
+     Hermitian band (n = 65,536, kd = 4, complex64: the banded driver's
+     polynomial route, the c64 entry) against float64 LAPACK; (6) the
+     crowded Hermitian tridiagonal of tests/test_sparse_matfree.py
+     (n = 240) through feast_hcsrev: the banded engine (BCR);
   7. one JSON line {"kernels": [...]} with each kernel's launches on its
      path (the main path's, for the composite's own kernels the SPD-B
-     path's, for the DIA kernels the Krylov path's: phase 8's counted
-     solves), its error against its plain version and its times; the
+     path's, for the real DIA kernels the Krylov path's: phase 8's counted
+     solves; for the complex DIA entries phase 11's Hermitian P=10 leg,
+     unbatched, and its Krylov leg, batched), its error against its plain
+     version and its times; the
      column-major entries' ms, bound_ms and library_ms are those of the
      form without T0 and acc, and their "forms" give every form's times,
      bound and launches.
@@ -862,12 +897,14 @@ def _ptxas(source):
             spill = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            t = re.search(kernel + r"I([fd])((?:L[ib]\d+E)+)", name)
+            t = re.search(kernel + r"I(f|d|6float2|7double2)"
+                          r"((?:L[ib]\d+E)+)", name)
             if t:
                 args = [int(a) for a in re.findall(r"L[ib](\d+)E",
                                                    t.group(2))]
                 report.append(dict(
-                    dtype="f32" if t.group(1) == "f" else "f64",
+                    dtype={"f": "f32", "d": "f64", "6float2": "c64",
+                           "7double2": "c128"}[t.group(1)],
                     **dict(zip(fields, args)),
                     registers=int(m.group(1)), spill_stores=spill[0],
                     spill_loads=spill[1]))
@@ -1245,7 +1282,17 @@ DIA_KERNELS = {   # name -> (batched, dtype name, TPU kernel it replaces)
                                "feastkit_tpu/ops/pallas_kernels.py:206"),
     "dia_matvec_batched_f64": (True, "float64",
                                "feastkit_tpu/ops/pallas_kernels.py:206"),
+    "dia_matvec_c64": (False, "complex64",
+                       "feastkit_tpu/ops/pallas_kernels.py:91"),
+    "dia_matvec_c128": (False, "complex128",
+                        "feastkit_tpu/ops/pallas_kernels.py:91"),
+    "dia_matvec_batched_c64": (True, "complex64",
+                               "feastkit_tpu/ops/pallas_kernels.py:206"),
+    "dia_matvec_batched_c128": (True, "complex128",
+                                "feastkit_tpu/ops/pallas_kernels.py:206"),
 }
+REAL_DIA = tuple(n for n in DIA_KERNELS if n[-3:] in ("f32", "f64"))
+COMPLEX_DIA = tuple(n for n in DIA_KERNELS if n not in REAL_DIA)
 # the Krylov path's shapes at P = 8 (N = 65,536, five diagonals): the
 # Rayleigh-Ritz and residual products (fp64, M = M0 = 72), one c64 column
 # chunk of 64 as its (N, 128) real view at g = 1, and a node group of two
@@ -1261,17 +1308,33 @@ DIA_AWKWARD = (
     (100, (0,), 7, 3),                      # one diagonal
     (1089, (-34, -33, -32, -1, 0, 1, 32, 33, 34), 11, 2),   # nine
     (1089, (-40, -33, -7, -2, -1, 0, 1, 2, 7, 33, 40), 5, 3),  # eleven
+    (1000, (-7, -2, -1, 0, 1, 2, 7), 3, 2),  # seven, M = 3
+    (1000, (-5, -3, -1), 6, 2),             # negative offsets only
 )
 
 
-def _random_dia(N, offsets, seed):
+def _random_dia(N, offsets, seed, complex_values=False):
     rng = np.random.default_rng(seed)
-    d = np.zeros((len(offsets), N))
+    d = np.zeros((len(offsets), N), complex if complex_values else float)
     for k, o in enumerate(offsets):
         n = N - abs(o)
         if n > 0:
-            d[k, max(0, -o):max(0, -o) + n] = rng.random(n) - 0.5
+            v = rng.random(n) - 0.5
+            if complex_values:
+                v = v + 1j * (rng.random(n) - 0.5)
+            d[k, max(0, -o):max(0, -o) + n] = v
     return d
+
+
+def _dia_dtype(torch, name):
+    return getattr(torch, DIA_KERNELS[name][1])
+
+
+def _dia_operand(torch, name, N, offsets, seed):
+    """Random diagonals of entry ``name``'s dtype on the card."""
+    dtype = _dia_dtype(torch, name)
+    return torch.as_tensor(_random_dia(N, offsets, seed, dtype.is_complex),
+                           device="cuda").to(dtype)
 
 
 # lap2d(256)'s offsets, the Krylov path's operator at P = 8
@@ -1285,10 +1348,26 @@ DIA_CASES = tuple(
     ("krylov", name, 65536, DIA_LAP,
      (DIA_MAIN_SHAPES[name][0], 65536, DIA_MAIN_SHAPES[name][1])
      if batched else (65536, DIA_MAIN_SHAPES[name][1]))
-    for name, (batched, _, _) in DIA_KERNELS.items()) + (
+    for name in REAL_DIA for batched in (DIA_KERNELS[name][0],)) + (
     ("rr_p10", "dia_matvec_f64", 1048576, (-1024, -1, 0, 1, 1024),
      (1048576, 72)),
     ("lanczos_m1", "dia_matvec_f32", 65536, DIA_LAP, (65536, 1)))
+# the complex entries at the complex Hermitian paths' shapes: the P=10
+# polynomial path's recurrence, Rayleigh-Ritz and residual products
+# (unbatched, M = 72, offsets +-1, +-1024; complex64 on the f32 rung,
+# complex128 on the fp64 rung); a node group of two of the Hermitian
+# Krylov leg of phase 11 at P = 7 (all M0 = 72 columns, offsets +-1,
+# +-128; the inner complex64 Krylov and the complex128 refinement), the
+# batched entries' own path; and the same group at the Krylov path's P = 8
+# operator (one column chunk of 64)
+DIA_COMPLEX_CASES = tuple(
+    ("p10", name, 1048576, (-1024, -1, 0, 1, 1024), (1048576, 72))
+    for name in ("dia_matvec_c64", "dia_matvec_c128")) + tuple(
+    (label, name, n, offsets, (2, n, m))
+    for label, n, offsets, m in (
+        ("krylov_p7", 16384, (-128, -1, 0, 1, 128), 72),
+        ("krylov_p8", 65536, DIA_LAP, 64))
+    for name in ("dia_matvec_batched_c64", "dia_matvec_batched_c128"))
 
 
 def _rotating(entry, dia, offsets, xs):
@@ -1324,15 +1403,18 @@ def _dia_time(torch, entry, dia, offsets, xs):
 
 def _dia_bound(card_name, name, N, nd, shape):
     """Least ms of a DIA product: x and y once and the diagonals once over
-    the card's bytes rate, above its operations over the peak rate."""
+    the card's bytes rate, above its operations over the peak rate of the
+    entry's real precision (a complex multiply-add is 8 operations, a real
+    one 2)."""
     bw, peak32, peak64 = _card_rates(card_name)
-    f32 = name.endswith("f32")
-    size = 4 if f32 else 8
+    kind = name.rsplit("_", 1)[1]
+    size = {"f32": 4, "f64": 8, "c64": 8, "c128": 16}[kind]
+    peak = peak32 if kind in ("f32", "c64") else peak64
     elems = int(np.prod(shape))
     nbytes = (2 * elems + nd * N) * size
-    flops = 2 * nd * elems
-    by_bytes = nbytes / bw >= flops / (peak32 if f32 else peak64)
-    return (max(nbytes / bw, flops / (peak32 if f32 else peak64)) * 1e3,
+    flops = (8 if kind[0] == "c" else 2) * nd * elems
+    by_bytes = nbytes / bw >= flops / peak
+    return (max(nbytes / bw, flops / peak) * 1e3,
             "bytes" if by_bytes else "operations", nbytes)
 
 
@@ -1392,7 +1474,7 @@ def _dia_sweep_plans(D, torch, N, offsets, M, g, dtype):
     16-byte pieces up to 64 bytes a row per operand (and M), copies in
     flight 2, 4, 6 and 8, and the strips of the plan's rule, half and twice
     as many and one wave at the most resident blocks."""
-    vec = 4 if dtype == torch.float32 else 2
+    vec = 16 // D.itemsize(dtype)
     out = []
     for cols in sorted({c for c in (vec, 2 * vec, 4 * vec, 8 * vec, 16 * vec)
                         if c <= M and g * c // vec <= 256}):
@@ -1413,22 +1495,23 @@ def _dia_sweep_plans(D, torch, N, offsets, M, g, dtype):
 
 def dia_sweep(card_name, ptxas_dia):
     """--dia-sweep: the ring body's block shapes (_dia_sweep_plans) and the
-    flat body at every DIA_CASES shape but the Lanczos one, each timed on
-    the device by CUDA graph over four rotating operands and checked once
-    against the plain version; the plan's own choice marked."""
+    flat body at every DIA_CASES shape but the Lanczos one and at the
+    complex entries' shapes (DIA_COMPLEX_CASES), each timed on the device
+    by CUDA graph over four rotating operands and checked once against the
+    plain version; the plan's own choice marked."""
     import torch
     from feastkit_tpu_torch.ops import dia as D
     print("== DIA sweep: ring block shapes and the flat body", flush=True)
     rows = []
-    for label, name, N, offsets, shape in DIA_CASES[:-1]:
+    for label, name, N, offsets, shape in (DIA_CASES[:-1]
+                                           + DIA_COMPLEX_CASES):
         batched = DIA_KERNELS[name][0]
-        dtype = torch.float32 if name.endswith("f32") else torch.float64
-        tol = 1e-5 if dtype == torch.float32 else 1e-13
+        dtype = _dia_dtype(torch, name)
+        tol = 1e-5 if dtype in (torch.float32, torch.complex64) else 1e-13
         g = shape[0] if batched else 1
         M = shape[-1]
         wrapper = getattr(D, name)
-        dia = torch.as_tensor(_random_dia(N, offsets, 5),
-                              device="cuda").to(dtype)
+        dia = _dia_operand(torch, name, N, offsets, 5)
         xs = _planes(torch, dtype, shape, 4, 11)
         yp = D.dia_matvec_plain(dia, offsets, xs[0])
         bound, _, _ = _dia_bound(card_name, name, N, len(offsets), shape)
@@ -1517,11 +1600,14 @@ def phase_dia_kernels(card_name, ptxas_dia):
     body and the other in turns (other, own, own, other, by CUDA graph), the
     plain version's, the bound, the plan's reckoned L2 bytes per element
     and one torch.sparse.mm (CSR) call on the same product; the same at the
-    P=10 Rayleigh-Ritz and the Lanczos (M = 1) shapes."""
+    P=10 Rayleigh-Ritz and the Lanczos (M = 1) shapes, and for the complex
+    entries at DIA_COMPLEX_CASES' shapes (each entry's own path's shape
+    gives its row; the others go to the "dia_other_shapes" line)."""
     import torch
     from feastkit_tpu_torch.ops import dia as D
     print("== 3c. the DIA matvec kernels against their plain version "
-          "(Krylov path, P=8)", flush=True)
+          "(Krylov path, P=8; the complex entries at the Hermitian paths' "
+          "shapes)", flush=True)
     _print_ptxas("dia_matvec", ptxas_dia)
     check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
               for r in ptxas_dia), "no ring-body instantiation spills")
@@ -1529,22 +1615,25 @@ def phase_dia_kernels(card_name, ptxas_dia):
     N = A.shape[0]
     out = {}
     extra = {}
-    for label, name, n, offsets, shape in DIA_CASES:
-        batched, dname, _ = DIA_KERNELS[name]
-        dtype = getattr(torch, dname)
-        tol = 1e-5 if dtype == torch.float32 else 1e-13
+    for label, name, n, offsets, shape in DIA_CASES + DIA_COMPLEX_CASES:
+        batched = DIA_KERNELS[name][0]
+        dtype = _dia_dtype(torch, name)
+        tol = 1e-5 if dtype in (torch.float32, torch.complex64) else 1e-13
         wrapper = getattr(D, name)
-        dia = torch.as_tensor(_random_dia(n, offsets, 5),
-                              device="cuda").to(dtype)
+        dia = _dia_operand(torch, name, n, offsets, 5)
         x = _planes(torch, dtype, shape, 1, 7)[0]
         err, worst, plan = _dia_check(torch, D, wrapper, batched, dia,
                                       offsets, x, tol, f"{label} {shape}")
-        want = "ring" if label == "krylov" else "flat"
+        want = "ring" if label.startswith("krylov") else "flat"
         check(plan["body"] == want, f"{name} {label} takes the {want} body")
-        if label == "krylov":
+        # an entry's own path's shape: the Krylov path's for the real
+        # entries, P=10 for the unbatched complex entries, the Hermitian
+        # Krylov leg's (P=7) for the batched complex ones
+        main_case = (label == "krylov" and name not in COMPLEX_DIA) or (
+            label == "p10" and name in COMPLEX_DIA) or label == "krylov_p7"
+        if main_case:
             for an, aoffs, am, ag in DIA_AWKWARD:
-                dd = torch.as_tensor(_random_dia(an, aoffs, an + am),
-                                     device="cuda").to(dtype)
+                dd = _dia_operand(torch, name, an, aoffs, an + am)
                 xa = _planes(torch, dtype, (ag, an, am) if batched
                              else (an, am), 1, ag)[0]
                 _, r, _ = _dia_check(
@@ -1578,10 +1667,12 @@ def phase_dia_kernels(card_name, ptxas_dia):
         library_ms = None
         if label != "lanczos_m1":
             # the library yardstick: one CSR product on the (N, g M)
-            # operand, laid out beforehand
+            # operand, laid out beforehand (complex values for a complex
+            # entry: torch runs complex CSR on the card)
             import scipy.sparse as sp
+            dn = _random_dia(n, offsets, 5, dtype.is_complex)
             Acsr_np = sp.diags(
-                [_random_dia(n, offsets, 5)[k][max(0, -o):n - max(0, o)]
+                [dn[k][max(0, -o):n - max(0, o)]
                  for k, o in enumerate(offsets)], list(offsets),
                 shape=(n, n)).tocsr()
             with warnings.catch_warnings():   # "CSR support is in beta"
@@ -1621,10 +1712,10 @@ def phase_dia_kernels(card_name, ptxas_dia):
                    library_ms=library_ms, shape=list(shape),
                    body=plan["body"], plan=plan, turns=turns,
                    l2_bytes_per_element=traffic["l2_bytes_per_element"])
-        if label == "krylov":
+        if main_case:
             out[name] = row
         else:
-            extra[label] = row
+            extra[f"{label} {name}"] = row
         del dia, x, xs
         torch.cuda.empty_cache()
     print(json.dumps({"dia_other_shapes": extra}), flush=True)
@@ -1758,7 +1849,7 @@ def _krylov_breakdown(A, B, Emin, Emax, M0, fpm, dia_ms, device="cuda",
           lambda f: timed_fn(f, "host_q0", sync=False))
     D.reset_launch_counts()
     try:
-        _, wall = _krylov_solve(A, B, Emin, Emax, M0, fpm, device, **kw)
+        r, wall = _krylov_solve(A, B, Emin, Emax, M0, fpm, device, **kw)
     finally:
         for mod, name, orig in reversed(saved):
             setattr(mod, name, orig)
@@ -1775,14 +1866,16 @@ def _krylov_breakdown(A, B, Emin, Emax, M0, fpm, dia_ms, device="cuda",
           + f"; outside filter, Rayleigh-Ritz and host {outside:.3f} s "
           "(nested: krylov within filter; vcycle, gram_schmidt and lstsq "
           "within krylov)", flush=True)
-    return dict(wall_s=wall, other_s=outside, launches=counts, **times)
+    return dict(wall_s=wall, other_s=outside, launches=counts, M=r.M,
+                info=int(r.info), **times)
 
 
 def phase_krylov(dia_kernels, nx=256, device="cuda"):
     """Phase 8: the Krylov contour engine on the 2D Laplacian at P = 8 with
-    solver="gmres": once cold, then warm solves (the first counted), a
-    staged one, and one with FEAST_GROUP_MAX=1 (the unbatched entries carry
-    every apply) that must agree with the default node groups."""
+    solver="gmres": once cold (its launches counted, its peak memory
+    read), once warm with its stages timed, and once with
+    FEAST_GROUP_MAX=1 (the unbatched entries carry every apply), which
+    must agree with the default node groups."""
     import torch
     print(f"== 8. Krylov path: feast(lap2d({nx}), solver='gmres') with "
           "multigrid", flush=True)
@@ -1798,8 +1891,15 @@ def phase_krylov(dia_kernels, nx=256, device="cuda"):
     kw = dict(solver="gmres", solver_maxiter=250)
     print(f"   N={nx * nx} interval=({Emin:.6e}, {Emax:.6e}) M0={M0}",
           flush=True)
-    r, cold_s = _krylov_solve(A, None, Emin, Emax, M0, fpm, device, **kw)
-    print(f"   cold solve {cold_s:.2f} s", flush=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        gc.collect()    # no earlier phase's cyclic garbage in this peak
+        torch.cuda.reset_peak_memory_stats()
+    r, cold_s, counts, _ = _krylov_counted(A, None, Emin, Emax, M0, fpm,
+                                           "Krylov cold", device, **kw)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    print(f"   cold solve {cold_s:.2f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
     _check_result(r, exp, 1e-8, f"P={int(np.log2(nx))} Krylov cold")
     levels = {256: 4}.get(nx)
     print(f"   preconditioner {r.krylov['precond']} with "
@@ -1807,34 +1907,20 @@ def phase_krylov(dia_kernels, nx=256, device="cuda"):
     check(r.krylov["precond"] == "mg"
           and (levels is None or r.krylov["mg_levels"] == levels),
           f"multigrid preconditioner{f' with {levels} levels' if levels else ''}")
-    del r
-    if device == "cuda":
-        torch.cuda.empty_cache()
-        gc.collect()    # no earlier phase's cyclic garbage in this peak
-        torch.cuda.reset_peak_memory_stats()
-    r, warm_s, counts, _ = _krylov_counted(A, None, Emin, Emax, M0, fpm,
-                                           "Krylov warm", device, **kw)
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
-    print(f"   warm solve {warm_s:.2f} s, peak device memory "
-          f"{peak / 2**30:.2f} GiB", flush=True)
-    _check_result(r, exp, 1e-8, "Krylov warm")
     lam_default = np.sort(r.lam)
     groups = sorted({e["nodes"] for e in r.krylov["events"]
                      if e["op"] == "gmres"})
     print(f"   node groups {groups}, loops {r.loop}", flush=True)
     del r
-    warm = [warm_s]
-    for _ in range(1):
-        r, s = _krylov_solve(A, None, Emin, Emax, M0, fpm, device, **kw)
-        check(r.M == len(exp) and int(r.info) == 0,
-              "repeat warm Krylov solve agrees")
-        warm.append(s)
-        del r
-    print(f"   warm solves {[round(s, 3) for s in warm]} s, median "
-          f"{float(np.median(warm)):.3f} s", flush=True)
+    # the warm solve, its stages timed (the timers synchronise the device
+    # at each stage's edges)
     dia_ms = {n: k["ms"] for n, k in dia_kernels.items()}
     breakdown = _krylov_breakdown(A, None, Emin, Emax, M0, fpm, dia_ms,
                                   device, **kw)
+    check(breakdown["M"] == len(exp) and breakdown["info"] == 0,
+          "the warm Krylov solve agrees")
+    warm = [breakdown["wall_s"]]
+    print(f"   warm solve {warm[0]:.3f} s (with stage timers)", flush=True)
     with group_max(1):
         r1, g1_s, counts1, _ = _krylov_counted(
             A, None, Emin, Emax, M0, fpm, "Krylov FEAST_GROUP_MAX=1",
@@ -1846,7 +1932,7 @@ def phase_krylov(dia_kernels, nx=256, device="cuda"):
     check(gap <= 1e-8, "the group-1 solve agrees with the default groups")
     total = {n: counts[n] + counts1[n] for n in counts}
     if device == "cuda":
-        for name in DIA_KERNELS:
+        for name in REAL_DIA:
             check(total[name] > 0, f"{name} launched on the Krylov path "
                   f"({total[name]})")
         check(counts1["dia_matvec_batched_f32"] == 0
@@ -2179,23 +2265,33 @@ def phase_main_path(kernels):
 
 def _breakdown(A, B, Emin, Emax, M0, fpm):
     """One more warm solve with the solver's stages wrapped in timers (the
-    device synchronised at each stage's edges): where the time goes."""
+    device synchronised at each stage's edges): where the time goes; and
+    the DIA entries' launches inside each filter stage's timer
+    (``filter_launches``)."""
     import torch
+    from feastkit_tpu_torch.ops import dia as D
     from feastkit_tpu_torch.solvers import sparse
     times = {}
+    filter_launches = {}
 
-    def timed(name, bucket, sync=True):
+    def timed(name, bucket, sync=True, count=False):
         orig = getattr(sparse, name)
 
         def wrapper(*a, **k):
             if sync:
                 torch.cuda.synchronize()
+            before = D.launch_counts() if count else None
             t0 = time.perf_counter()
             out = orig(*a, **k)
             if sync:
                 torch.cuda.synchronize()
             key = bucket(k) if callable(bucket) else bucket
             times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+            if count:
+                seen = filter_launches.setdefault(key, {})
+                for n, v in D.launch_counts().items():
+                    if v > before[n]:
+                        seen[n] = seen.get(n, 0) + v - before[n]
             return out
         setattr(sparse, name, wrapper)
         return name, orig
@@ -2215,9 +2311,11 @@ def _breakdown(A, B, Emin, Emax, M0, fpm):
 
     saved_rr = sparse.make_rayleigh_ritz_update
     saved = [timed("_sparse_cheb_filter_host_fused",
-                   lambda k: f"filter_{k['rung']}"),
+                   lambda k: f"filter_{k['rung']}", count=True),
+             timed("_sparse_cheb_filter_host",
+                   lambda k: f"filter_{k['rung']}", count=True),
              timed("_sparse_cheb_filter_host_fused_gen",
-                   lambda k: f"filter_{k['rung']}"),
+                   lambda k: f"filter_{k['rung']}", count=True),
              timed("_b_spd_bounds", "b_bounds_lanczos"),
              timed("_pencil_upper_edge_fast", "pencil_edge_lanczos"),
              timed("cheb_inverse_coeffs", "host_coeffs", sync=False),
@@ -2242,7 +2340,8 @@ def _breakdown(A, B, Emin, Emax, M0, fpm):
     print(f"   breakdown of a warm solve ({wall:.2f} s): "
           + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
           + f", other {rest:.3f} s", flush=True)
-    return dict(wall_s=wall, other_s=rest, **times)
+    return dict(wall_s=wall, other_s=rest, filter_launches=filter_launches,
+                **times)
 
 
 def phase_p9():
@@ -2491,7 +2590,8 @@ def band_eigs(bands, kd, lo, hi):
     """Eigenvalues in [lo, hi] of a symmetric band in band storage, in
     float64 on the host (LAPACK's upper band storage is rows 0..kd)."""
     import scipy.linalg as sla
-    return np.sort(sla.eig_banded(np.asarray(bands[:kd + 1], np.float64),
+    dt = np.complex128 if np.iscomplexobj(bands) else np.float64
+    return np.sort(sla.eig_banded(np.asarray(bands[:kd + 1], dt),
                                   eigvals_only=True, select="v",
                                   select_range=(lo, hi)))
 
@@ -2550,6 +2650,8 @@ def direct_stages(times, device="cuda"):
     timed(banded, "bcr_solve", "filter_solves")
     timed(sparse, "_sparse_cheb_filter_host_fused", "filter_polynomial",
           "polynomial")
+    timed(sparse, "_sparse_cheb_filter_host", "filter_polynomial",
+          "polynomial")
     rr(hermitian)
     rr(sparse)
     try:
@@ -2560,15 +2662,19 @@ def direct_stages(times, device="cuda"):
 
 
 def _direct_leg(label, solve, exp, bar, tol, want_engine, device="cuda",
-                warm=3):
+                warm=3, launch_source="cheb"):
     """One leg: a cold solve, ``warm`` warm ones (the median reported, the
-    Chebyshev kernels' launches counted in the first, the peak device memory
-    over it), then one with its stages timed. Checks M, the eigenvalues
-    against the host's float64 ones (bar; for single precision times
-    max(1, |lam|)), every residual (<= tol), info 0, finite eigenvectors
-    and the engine that ran."""
+    Chebyshev kernels' launches counted in the first, or the DIA entries'
+    with ``launch_source="dia"``, the peak device memory over it), then one
+    with its stages timed. Checks M, the eigenvalues against the host's
+    float64 ones (bar; for single precision times max(1, |lam|)), every
+    residual (<= tol), info 0, finite eigenvectors and the engine that
+    ran."""
     import torch
     from feastkit_tpu_torch.ops import cheb_kernels as ck
+    from feastkit_tpu_torch.ops import dia as D
+    if launch_source == "dia":
+        ck = D
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
 
     def run():
@@ -2616,7 +2722,8 @@ def _direct_leg(label, solve, exp, bar, tol, want_engine, device="cuda",
           f"{[round(s, 4) for s in secs]} s, median {median:.4f} s, peak "
           f"{peak / 2**30:.3f} GiB; stages of one more ({staged:.4f} s): "
           f"{stages}, other {staged - sum(stages.values()):.4f} s; "
-          f"Chebyshev launches {launches}", flush=True)
+          f"{'DIA' if launch_source == 'dia' else 'Chebyshev'} launches "
+          f"{launches}", flush=True)
     check(r.M == len(exp), f"{label}: M = {len(exp)}")
     check(err <= bar, f"{label}: eigenvalue error <= {bar:g}")
     check(res <= tol, f"{label}: residuals <= tol {tol:.3g}")
@@ -2627,12 +2734,13 @@ def _direct_leg(label, solve, exp, bar, tol, want_engine, device="cuda",
     check(engines == [want_engine], f"{label}: the {want_engine} engine "
           "ran, and no other")
     if want_engine == "polynomial" and device == "cuda":
-        check(sum(launches.values()) > 0, f"{label}: the Chebyshev kernels "
+        check(sum(launches.values()) > 0, f"{label}: the "
+              f"{'DIA' if launch_source == 'dia' else 'Chebyshev'} kernels "
               "carried the filter")
     return dict(engine=want_engine, M=r.M, loops=r.loop, eig_err=err,
                 max_res=res, cold_s=cold, warm_s=secs, warm_median_s=median,
                 peak_bytes=peak, stages=stages, staged_s=staged,
-                cheb_launches=launches)
+                launches=launches)
 
 
 def phase_direct(device="cuda", scale=1):
@@ -2736,6 +2844,280 @@ def phase_direct(device="cuda", scale=1):
         if saved is not None:
             os.environ["FEAST_CHEB_DEGREE"] = saved
     return legs
+
+
+# -- phase 11: the complex Hermitian sparse path, operators beyond 32
+# diagonals ----------------------------------------------------------------
+
+def gauge_rotated(A, theta):
+    """D A D^* with D = diag(exp(i theta)): a tight-binding Hamiltonian in
+    a pure-gauge vector potential, with A's spectrum exactly."""
+    import scipy.sparse as sp
+    C = A.tocoo()
+    data = C.data * np.exp(1j * (theta[C.row] - theta[C.col]))
+    return sp.csr_matrix((data, (C.row, C.col)), shape=A.shape)
+
+
+def permuted(X, perm):
+    """P X P^T for the permutation ``perm`` (the ordering an unstructured
+    mesh generator leaves): the same spectrum, far more than 32 DIA
+    diagonals."""
+    return X[perm][:, perm].tocsr()
+
+
+def banded_hermitian_throughput(n=65536, kd=4):
+    """The banded throughput leg's band (``banded_throughput``) made
+    Hermitian: seeded complex64 off-diagonals, the same spikes."""
+    rng = np.random.default_rng(4)
+    bands = np.zeros((2 * kd + 1, n), np.complex64)
+    for d in range(1, kd + 1):
+        v = (rng.standard_normal(n - d) + 1j * rng.standard_normal(n - d)) \
+            * (0.5 / np.sqrt(2.0))
+        bands[kd - d, d:] = v
+        bands[kd + d, :n - d] = np.conj(v)
+    bands[kd] = 2 * kd + rng.standard_normal(n) * 0.5
+    bands[kd, rng.choice(n, 20, replace=False)] = np.linspace(28.0, 32.0, 20)
+    return bands
+
+
+def f3_fixture():
+    """tests/test_sparse_matfree.py's crowded Hermitian tridiagonal pencil
+    (n = 240) and its eigenvalues in [-0.35, 0.23]."""
+    import scipy.sparse as sp
+    n = 240
+    d = np.linspace(-1.0, 1.0, n)
+    A = sp.diags([np.full(n - 1, 0.08 - 0.05j), d.astype(complex),
+                  np.full(n - 1, 0.08 + 0.05j)], [-1, 0, 1]).tocsr()
+    w = np.linalg.eigvalsh(A.toarray())
+    return A, w[(w >= -0.35) & (w <= 0.23)]
+
+
+@contextlib.contextmanager
+def all_counts():
+    """The DIA and Chebyshev kernels' launch counts, set to 0 for the block
+    and read into the dict it yields just after."""
+    from feastkit_tpu_torch.ops import cheb_kernels as ck
+    from feastkit_tpu_torch.ops import dia as D
+    seen = {}
+    D.reset_launch_counts()
+    ck.reset_launch_counts()
+    try:
+        yield seen
+    finally:
+        seen.update(D.launch_counts())
+        seen.update(ck.launch_counts())
+
+
+def _hermitian_p10(dia_kernels, p):
+    """Leg 1: feast(A_g, None, (Emin, Emax), 72) on the gauge-rotated 2D
+    Laplacian at P = p (the polynomial path, the unfused recurrence on the
+    complex DIA kernels): once cold, twice warm (the first with the launch
+    counts, the second with its stages timed)."""
+    import torch
+    import feastkit_tpu_torch as ft
+    nx = 2 ** p
+    A = lap2d(nx)
+    N = nx * nx
+    A = gauge_rotated(A, np.random.default_rng(12).uniform(
+        0.0, 2.0 * np.pi, N))
+    Emin, Emax, exp = interval_lowest(lap2d_eigs(nx))
+    M0 = 72
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    fpm[1] = 1
+    print(f"   leg 1: gauge-rotated lap2d({nx}), N={N}, five complex "
+          f"diagonals, interval=({Emin:.6e}, {Emax:.6e}) M0={M0}",
+          flush=True)
+    r, cold_s = _run_feast(A, None, Emin, Emax, M0, fpm)
+    print(f"   cold solve {cold_s:.2f} s", flush=True)
+    _check_result(r, exp, 1e-8, f"Hermitian P={p} cold")
+    check(len(exp) == 52 or p != 10, "fixture: 52 pairs")
+    del r
+    torch.cuda.empty_cache()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    with all_counts() as counts:
+        r, warm_s = _run_feast(A, None, Emin, Emax, M0, fpm)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"   warm solve {warm_s:.2f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    _check_result(r, exp, 1e-8, f"Hermitian P={p} warm")
+    check(r.q.dtype == torch.complex128, "complex128 eigenvectors")
+    check(counts["dia_matvec_c64"] > 0 and counts["dia_matvec_c128"] > 0,
+          "the complex64 (f32 rung) and complex128 (fp64 rung, "
+          "Rayleigh-Ritz) DIA entries carried the products")
+    check(all(counts[n] == 0 for n in REAL_DIA) and all(
+        counts[n] == 0 for n in KERNELS),
+        "no real DIA entry and no Chebyshev kernel launched")
+    del r
+    breakdown = _breakdown(A, None, Emin, Emax, M0, fpm)
+    warm = [warm_s, breakdown["wall_s"]]
+    ms = {n: dia_kernels[n]["ms"] for n in ("dia_matvec_c64",
+                                             "dia_matvec_c128")}
+    stages = {}
+    for rung, name in (("f32", "dia_matvec_c64"), ("f64", "dia_matvec_c128")):
+        filt = breakdown.get(f"filter_{rung}", 0.0)
+        # the launches inside the rung's filter timer only (not those of
+        # Rayleigh-Ritz and the residuals)
+        n = breakdown["filter_launches"].get(f"filter_{rung}", {}).get(
+            name, 0)
+        dia_s = n * ms[name] / 1e3
+        stages[rung] = dict(filter_s=filt, dia_launches=n, dia_ms=ms[name],
+                            dia_s=dia_s, glue_s=filt - dia_s)
+        print(f"   {rung} rung: filter {filt:.3f} s; {name} {n} launches "
+              f"inside the filter x {ms[name]:.4f} ms (phase 3c, CUDA "
+              f"graph) = {dia_s:.3f} s; the unfused step's torch glue "
+              f"{filt - dia_s:.3f} s", flush=True)
+    print(f"   warm solves {[round(s, 3) for s in warm]} s (the second with "
+          f"stage timers), median {float(np.median(warm)):.3f} s",
+          flush=True)
+    return dict(N=N, cold_s=cold_s, warm_s=warm,
+                warm_median_s=float(np.median(warm)), peak_bytes=peak,
+                launches={k: v for k, v in counts.items() if v},
+                breakdown=breakdown, stages=stages)
+
+
+def _permuted_leg(p, warm=1):
+    """Leg 2: the 2D Laplacian at P = p under a seeded symmetric
+    permutation (far more than 32 diagonals): the unfused recurrence on
+    torch CSR products."""
+    import feastkit_tpu_torch as ft
+    nx = 2 ** p
+    N = nx * nx
+    A = permuted(lap2d(nx), np.random.default_rng(21).permutation(N))
+    offs = np.unique(A.tocoo().col.astype(np.int64) - A.tocoo().row)
+    Emin, Emax, exp = interval_lowest(lap2d_eigs(nx))
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    fpm[1] = 1
+    print(f"   leg 2: permuted lap2d({nx}), N={N}, {len(offs)} DIA "
+          f"diagonals, interval=({Emin:.6e}, {Emax:.6e}) M0=72", flush=True)
+    check(len(offs) > 32, "more than 32 diagonals")
+    r, cold_s = _run_feast(A, None, Emin, Emax, 72, fpm)
+    _check_result(r, exp, 1e-8, f"permuted P={p} cold")
+    secs = []
+    for i in range(warm):
+        with all_counts() as counts:
+            r, s = _run_feast(A, None, Emin, Emax, 72, fpm)
+        secs.append(s)
+    _check_result(r, exp, 1e-8, f"permuted P={p} warm")
+    check(all(v == 0 for v in counts.values()),
+          "no Chebyshev kernel and no DIA entry launched (CSR products)")
+    print(f"   cold {cold_s:.2f} s, warm {[round(s, 3) for s in secs]} s",
+          flush=True)
+    return dict(N=N, diagonals=len(offs), cold_s=cold_s, warm_s=secs,
+                loops=r.loop)
+
+
+def _permuted_mass_leg(p):
+    """Leg 3: the consistent-mass pencil at P = p under one seeded
+    symmetric permutation of A and B (B on more than 32 diagonals): the
+    host scipy bounds of B~ and of the pencil's upper edge, then the
+    unfused composite q(B~) A~ on CSR products."""
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.solvers import sparse
+    A, B, w = consistent_mass_pencil(p)
+    N = A.shape[0]
+    perm = np.random.default_rng(22).permutation(N)
+    A, B = permuted(A, perm), permuted(B, perm)
+    gaps = np.nonzero(np.diff(w) > 1e-12)[0]
+    hi = gaps[np.searchsorted(gaps, 50)]
+    Emax = float(0.5 * (w[hi] + w[hi + 1]))
+    exp = w[w <= Emax]
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    fpm[1] = 1
+    print(f"   leg 3: permuted consistent-mass pencil, P={p}, N={N}",
+          flush=True)
+    seen = []
+    saved = sparse._pencil_upper_edge, sparse._b_spd_bounds
+
+    def edge(*a, **k):
+        seen.append("host pencil edge")
+        return saved[0](*a, **k)
+
+    def bounds(B_data, B_idx, N, B_dia, offsets_B, device):
+        seen.append("host B bounds" if offsets_B is None else "device")
+        return saved[1](B_data, B_idx, N, B_dia, offsets_B, device)
+    sparse._pencil_upper_edge, sparse._b_spd_bounds = edge, bounds
+    try:
+        with all_counts() as counts:
+            r, secs = _run_feast(A, B, 0.0, Emax, 72, fpm)
+    finally:
+        sparse._pencil_upper_edge, sparse._b_spd_bounds = saved
+    print(f"   one solve {secs:.2f} s; bounds {seen}", flush=True)
+    _check_result(r, exp, 1e-8, f"permuted consistent mass P={p}")
+    check(len(exp) == 52, "fixture: 52 pairs")
+    check(seen == ["host B bounds", "host pencil edge"],
+          "the host scipy bounds of B~ and of the pencil's edge ran")
+    check(all(v == 0 for v in counts.values()),
+          "no Chebyshev kernel and no DIA entry launched (CSR products)")
+    return dict(N=N, seconds=secs, loops=r.loop, bounds=seen)
+
+
+def _hermitian_krylov_leg(p):
+    """Leg 4: the Laplacian at P = p with a uniform phase on its +-1 bonds
+    (a constant complex stencil, so the multigrid plan sees it) through
+    solver="gmres": the mirrored node set on the complex DIA entries."""
+    import feastkit_tpu_torch as ft
+    nx = 2 ** p
+    N = nx * nx
+    theta = 0.1 * (np.arange(N) % nx)
+    A = gauge_rotated(lap2d(nx), theta)
+    Emin, Emax, exp = interval_lowest(lap2d_eigs(nx))
+    M0 = 72
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    fpm[1] = 1
+    print(f"   leg 4: lap2d({nx}) with phase 0.1 on the +-1 bonds, N={N}, "
+          "solver='gmres'", flush=True)
+    r, secs, counts, _ = _krylov_counted(
+        A, None, Emin, Emax, M0, fpm, f"Hermitian Krylov P={p}",
+        solver="gmres", solver_maxiter=250)
+    _check_result(r, exp, 1e-8, f"Hermitian Krylov P={p}")
+    print(f"   preconditioner {r.krylov['precond']} "
+          f"({r.krylov['mg_levels']} levels)", flush=True)
+    check(r.krylov["hermitian"] and r.krylov["precond"] == "mg",
+          "the Hermitian engine with the multigrid preconditioner")
+    check(counts["dia_matvec_batched_c64"] > 0
+          and counts["dia_matvec_batched_c128"] > 0
+          and all(counts[n] == 0 for n in REAL_DIA),
+          "the batched complex DIA entries carried the node groups, no "
+          "real entry launched")
+    return dict(N=N, seconds=secs, loops=r.loop, launches=counts,
+                precond=r.krylov["precond"], mg_levels=r.krylov["mg_levels"])
+
+
+def phase_hermitian(dia_kernels, device="cuda"):
+    """Phase 11: complex Hermitian pencils and operators beyond 32
+    diagonals through the entry points a user calls."""
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.core.parameters import feast_tolerance
+    print("== 11. complex Hermitian sparse pencils, operators on more than "
+          "32 diagonals", flush=True)
+    out = {"hermitian_p10": _hermitian_p10(dia_kernels, 10)}
+    out["permuted_p9"] = _permuted_leg(9)
+    out["permuted_mass_p8"] = _permuted_mass_leg(8)
+    out["hermitian_krylov_p7"] = _hermitian_krylov_leg(7)
+    tol = feast_tolerance(ft.feastdefault(ft.feastinit()), np.complex64)
+    bands = banded_hermitian_throughput()
+    exp = band_eigs(bands, 4, 25.0, 35.0)
+    out["banded_hermitian_c64"] = _direct_leg(
+        "banded Hermitian throughput feast_hbev complex64 n=65536 kd=4",
+        lambda: ft.feast_hbev(bands, 4, 4, 25.0, 35.0, 24), exp, 1e-5, tol,
+        "polynomial", device, launch_source="dia")
+    check(len(exp) == 20, "banded Hermitian leg: 20 eigenvalues")
+    check(out["banded_hermitian_c64"]["launches"].get("dia_matvec_c64", 0)
+          > 0, "banded Hermitian leg: the complex64 DIA entry carried the "
+          "filter")
+    A, exp = f3_fixture()
+    out["f3_hcsrev"] = _direct_leg(
+        "F3 fixture feast_hcsrev n=240", lambda: ft.feast_hcsrev(
+            A, -0.35, 0.23, 90), exp, 1e-9,
+        feast_tolerance(ft.feastdefault(ft.feastinit()), np.complex128),
+        "bcr", device)
+    return out
 
 
 def torch_tensor(X, device):
@@ -2868,6 +3250,16 @@ def main(argv):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--hermitian" in argv:
+        dia_kernels = phase_dia_kernels(smi.split(",")[0],
+                                        ptxas["dia_matvec"])
+        print(json.dumps({"hermitian": phase_hermitian(dia_kernels)}),
+              flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--direct" in argv or "--direct-sweep" in argv:
         out = {}
         if "--direct-sweep" in argv:
@@ -2909,6 +3301,14 @@ def main(argv):
         print(json.dumps({"krylov": krylov, "gen_krylov": gen_krylov}),
               flush=True)
         print(json.dumps({"direct": phase_direct()}), flush=True)
+        # the complex entries' own paths: the Hermitian polynomial leg for
+        # the unbatched ones, the Hermitian Krylov leg for the batched ones
+        herm = phase_hermitian(dia_kernels)
+        for name in ("dia_matvec_c64", "dia_matvec_c128"):
+            counts[name] = herm["hermitian_p10"]["launches"].get(name, 0)
+        for name in ("dia_matvec_batched_c64", "dia_matvec_batched_c128"):
+            counts[name] = herm["hermitian_krylov_p7"]["launches"][name]
+        print(json.dumps({"hermitian": herm}), flush=True)
     rows = []
     copy_tbs = kernels.pop("copy_tbs")
     for name, k in kernels.items():

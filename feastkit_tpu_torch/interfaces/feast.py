@@ -101,9 +101,10 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
     """All eigenpairs of A x = lam B x with lam in [Emin, Emax].
 
     Args:
-      A, B: scipy.sparse matrices (the sparse driver: B None, a positive
-        diagonal, or a sparse symmetric positive-definite matrix; the
-        Krylov contour engine through ``solver="gmres"`` / ``"bicgstab"``)
+      A, B: scipy.sparse matrices, real symmetric or complex Hermitian
+        (the sparse driver: B None, a positive diagonal, or a sparse
+        symmetric positive-definite matrix; the Krylov contour engine
+        through ``solver="gmres"`` / ``"bicgstab"``)
         or dense numpy arrays / tensors (the dense driver: real symmetric
         or complex Hermitian, B symmetric / Hermitian positive definite).
         B=None is the standard problem.

@@ -279,25 +279,39 @@ def make_cheb_filter(apply_A, lo, hi, coeffs):
     return filt
 
 
+def _map_scalars(lo, hi, X):
+    """sc = 2 / (hi - lo) and sh = (hi + lo) / (hi - lo), computed in X's
+    real precision (as the JAX package computes them from its traced
+    lo / hi)."""
+    rdt = np.float32 if X.dtype in (torch.float32, torch.complex64) \
+        else np.float64
+    lo_, hi_ = rdt(lo), rdt(hi)
+    return float(rdt(2.0) / (hi_ - lo_)), float((hi_ + lo_) / (hi_ - lo_))
+
+
 def _ahat(apply_A, lo, hi, X):
-    sc = 2.0 / (hi - lo)
-    sh = (hi + lo) / (hi - lo)
-    return sc * apply_A(X) - sh * X
+    sc, sh = _map_scalars(lo, hi, X)
+    return (sc * apply_A(X)).sub_(X, alpha=sh)
 
 
 def _cheb_init(apply_A, lo, hi, Q, coeffs):
     """(T0, T1, acc) after the k=0,1 terms."""
     T1 = _ahat(apply_A, lo, hi, Q)
-    return Q, T1, float(coeffs[0]) * Q + float(coeffs[1]) * T1
+    return Q, T1, torch.add(float(coeffs[0]) * Q, T1, alpha=float(coeffs[1]))
 
 
 def make_cheb_stepper(apply_A, lo, hi):
-    """One recurrence step (carry, c_k) -> carry."""
+    """One recurrence step (carry, c_k) -> carry: T2 = 2 Ahat T1 - T0 and
+    acc += c_k T2, with the same roundings as the JAX package's
+    2 (sc A T1 - sh T1) - T0 (a factor 2 is exact), in place on the new T2
+    and on acc (the carry owns acc)."""
 
     def step(carry, ck):
         T0, T1, acc = carry
-        T2 = 2.0 * _ahat(apply_A, lo, hi, T1) - T0
-        return T1, T2, acc + float(ck) * T2
+        sc, sh = _map_scalars(lo, hi, T1)
+        T2 = (2.0 * sc) * apply_A(T1)
+        T2.sub_(T1, alpha=2.0 * sh).sub_(T0)
+        return T1, T2, acc.add_(T2, alpha=float(ck))
 
     return step
 

@@ -1,4 +1,5 @@
-// DIA (diagonal-offset) sparse matvec for Hopper (sm_90a), f32 and fp64.
+// DIA (diagonal-offset) sparse matvec for Hopper (sm_90a): f32, fp64,
+// complex64 and complex128.
 //
 // Replaces two Pallas TPU kernels of feastkit_tpu/ops/pallas_kernels.py:
 //   dia_matvec_f32 / dia_matvec_f64         <- _dia_kernel   (:91, via
@@ -7,7 +8,12 @@
 //       _dia_matvec_batched :226, the custom_vmap rule of dia_matvec)
 // The fp64 entries also replace the XLA shifted-add product the JAX package
 // takes for 64-bit data (Mosaic has no 64-bit types); Hopper has native
-// fp64.
+// fp64. The complex entries
+//   dia_matvec_c64 / dia_matvec_c128, dia_matvec_batched_c64 / _c128
+// compute in one pass what the JAX package's dia_matvec_any composes from
+// four real kernel calls for complex diagonals (Mosaic has no complex
+// type): diagonals and operands in torch's interleaved layout (float2 /
+// double2), each term y += d x as four fused multiply-adds.
 //
 // One launch computes, for row-aligned DIA diagonals (nd, N) with offsets
 // off_k and g row-major (N, M) operands x[b] (g = 1 for the unbatched
@@ -16,9 +22,10 @@
 //   y[b, i, j] = sum_k diags[k, i] * x[b, i + off_k, j]
 //
 // where terms with i + off_k outside [0, N) are dropped (the diagonal is
-// zero there). Complex operands come in as their real view: a complex
-// (N, K) tensor is a real (N, 2K) one with the same real diagonals, so one
-// launch does the whole complex product.
+// zero there). A complex operand with real diagonals comes in as its real
+// view: a complex (N, K) tensor is a real (N, 2K) one with the same real
+// diagonals, so one real launch does the whole product; complex diagonals
+// take the complex entries.
 //
 // What bounds it: memory. Each output element needs nd diagonal values and
 // nd x values for 2 nd operations: 0.25 operation per byte in f32, far
@@ -79,7 +86,10 @@
 // not do.
 //
 // The diagonal count is a template parameter for 3, 5, 7 and 9 diagonals,
-// with a run-time loop for any other count up to 32, in both bodies.
+// with a run-time loop for any other count up to 32, in both bodies, and
+// the value type one of float, double, float2 (complex64) and double2
+// (complex128). A ring row is whole 16-byte pieces in every type: V = 4
+// f32, 2 fp64 or complex64 and 1 complex128 columns a piece.
 //
 // Plain C interface (bound with ctypes). Each entry point launches on the
 // given stream, does not synchronise, and returns cudaGetLastError() (or
@@ -97,6 +107,64 @@ constexpr int kMaxDepth = 8;
 struct DiaOffsets {
   long long v[kMaxDiags];
 };
+
+// ------------------------------------------------------- value arithmetic
+
+// the value types' zero, and c + a b: one fused multiply-add for a real
+// type, four for a complex one ((a + ib)(c + id) = ac - bd + i(ad + bc))
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return T(0);
+}
+template <>
+__device__ __forceinline__ float2 zero<float2>() {
+  return make_float2(0.f, 0.f);
+}
+template <>
+__device__ __forceinline__ double2 zero<double2>() {
+  return make_double2(0.0, 0.0);
+}
+
+__device__ __forceinline__ float mul_add(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+
+__device__ __forceinline__ double mul_add(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+__device__ __forceinline__ float2 mul_add(float2 a, float2 b, float2 c) {
+  c.x = fmaf(a.x, b.x, c.x);
+  c.x = fmaf(-a.y, b.y, c.x);
+  c.y = fmaf(a.x, b.y, c.y);
+  c.y = fmaf(a.y, b.x, c.y);
+  return c;
+}
+
+__device__ __forceinline__ double2 mul_add(double2 a, double2 b, double2 c) {
+  c.x = fma(a.x, b.x, c.x);
+  c.x = fma(-a.y, b.y, c.x);
+  c.y = fma(a.x, b.y, c.y);
+  c.y = fma(a.y, b.x, c.y);
+  return c;
+}
+
+// the flat body's term: acc + d x where ok, else acc (a real type adds a
+// zero term, as its body always has)
+template <typename T>
+__device__ __forceinline__ T add_term(T acc, T d, T x, bool ok) {
+  return acc + (ok ? d * x : T(0));
+}
+template <>
+__device__ __forceinline__ float2 add_term<float2>(float2 acc, float2 d,
+                                                   float2 x, bool ok) {
+  return ok ? mul_add(d, x, acc) : acc;
+}
+template <>
+__device__ __forceinline__ double2 add_term<double2>(double2 acc, double2 d,
+                                                     double2 x, bool ok) {
+  return ok ? mul_add(d, x, acc) : acc;
+}
 
 // ---------------------------------------------------------------- flat body
 
@@ -122,7 +190,7 @@ dia_matvec_kernel(const T* __restrict__ diags, DiaOffsets offs, int nd,
           ? static_cast<unsigned int>(e) / static_cast<unsigned int>(m)
           : e / static_cast<unsigned long long>(m));
   const int count = ND > 0 ? ND : nd;
-  T acc = T(0);
+  T acc = zero<T>();
 #pragma unroll
   for (int k = 0; k < (ND > 0 ? ND : kMaxDiags); ++k) {
     if (ND == 0 && k >= count) break;
@@ -132,16 +200,16 @@ dia_matvec_kernel(const T* __restrict__ diags, DiaOffsets offs, int nd,
     // branch-free: an out-of-range neighbour reads element e itself
     const long long src = ok ? static_cast<long long>(e) + off * m
                              : static_cast<long long>(e);
-    const T term = __ldg(diags + static_cast<long long>(k) * n + row) *
-                   __ldg(xb + src);
-    acc += ok ? term : T(0);
+    acc = add_term(acc, __ldg(diags + static_cast<long long>(k) * n + row),
+                   __ldg(xb + src), ok);
   }
   y[base + e] = acc;
 }
 
 // ---------------------------------------------------------------- ring body
 
-// V values of T in 16 bytes: one thread's piece of a ring row
+// V values of T in 16 bytes: one thread's piece of a ring row (a
+// complex128 piece is one value)
 template <typename T>
 struct alignas(16) Vec {
   static constexpr int kWidth = static_cast<int>(16 / sizeof(T));
@@ -191,7 +259,7 @@ __device__ __forceinline__ void copy16(void* dst, const void* src,
                : "memory");
 }
 
-// one element (4 or 8 bytes) from device memory into shared memory; with
+// one element (4, 8 or 16 bytes) from device memory into shared memory; with
 // valid false nothing is read and the element is zero
 template <typename T>
 __device__ __forceinline__ void copy_elem(T* dst, const T* src, bool valid) {
@@ -220,14 +288,6 @@ __device__ __forceinline__ void copy_wait(int pending) {
   }
 }
 
-__device__ __forceinline__ float mul_add(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-
-__device__ __forceinline__ double mul_add(double a, double b, double c) {
-  return fma(a, b, c);
-}
-
 // One ring row's piece for output row r (ring position base): the sum over
 // the diagonals, each value (from the diagonal stage: k's value of the row
 // at dcol[k R]) applied to the thread's V columns. EDGE: terms whose
@@ -240,7 +300,7 @@ __device__ __forceinline__ Vec<T> ring_row(const Vec<T>* ring, int base,
                                            int r) {
   Vec<T> acc;
 #pragma unroll
-  for (int v = 0; v < Vec<T>::kWidth; ++v) acc.v[v] = T(0);
+  for (int v = 0; v < Vec<T>::kWidth; ++v) acc.v[v] = zero<T>();
   const int R = p.chunk;
   auto term = [&](int k) {
     const int off = p.off[k];
@@ -546,6 +606,34 @@ int dia_matvec_batched_f64(const double* diags, const long long* offsets,
                            long long m, long long g, const int* plan,
                            void* stream) {
   return launch<double>(diags, offsets, nd, x, y, n, m, g, plan, stream);
+}
+
+// the complex entries: interleaved (re, im) values, float2 for complex64
+// and double2 for complex128, diagonals and operands alike
+int dia_matvec_c64(const float2* diags, const long long* offsets, int nd,
+                   const float2* x, float2* y, long long n, long long m,
+                   const int* plan, void* stream) {
+  return launch<float2>(diags, offsets, nd, x, y, n, m, 1, plan, stream);
+}
+
+int dia_matvec_c128(const double2* diags, const long long* offsets, int nd,
+                    const double2* x, double2* y, long long n, long long m,
+                    const int* plan, void* stream) {
+  return launch<double2>(diags, offsets, nd, x, y, n, m, 1, plan, stream);
+}
+
+int dia_matvec_batched_c64(const float2* diags, const long long* offsets,
+                           int nd, const float2* x, float2* y, long long n,
+                           long long m, long long g, const int* plan,
+                           void* stream) {
+  return launch<float2>(diags, offsets, nd, x, y, n, m, g, plan, stream);
+}
+
+int dia_matvec_batched_c128(const double2* diags, const long long* offsets,
+                            int nd, const double2* x, double2* y,
+                            long long n, long long m, long long g,
+                            const int* plan, void* stream) {
+  return launch<double2>(diags, offsets, nd, x, y, n, m, g, plan, stream);
 }
 
 const char* dia_error_string(int err) {

@@ -1,5 +1,5 @@
 """Row-aligned DIA (diagonal-offset) storage and its matvec: CUDA kernels,
-plain version, complex and batched entries.
+plain version, real and complex, unbatched and batched entries.
 
 Counterpart of ``feastkit_tpu/ops/pallas_kernels.py``. ``diags`` is (nd, N)
 with a static ``offsets`` tuple; row k holds diagonal offsets[k] aligned to
@@ -13,7 +13,12 @@ rows: diags[k, i] = A[i, i + offsets[k]] (zero where out of range), so
 * ``dia_matvec_batched_f32`` / ``dia_matvec_batched_f64`` replace
   ``_dia_kernel_b`` (:206, via ``_dia_matvec_batched`` :226, the
   ``custom_vmap`` rule the JAX package's node-group dispatch runs) on
-  (g, N, M) operands that share the diagonals.
+  (g, N, M) operands that share the diagonals;
+* ``dia_matvec_c64`` / ``dia_matvec_c128`` and their batched entries
+  ``dia_matvec_batched_c64`` / ``_c128`` are the same two kernels on
+  complex diagonals and operands: in one pass the product the JAX
+  package's ``dia_matvec_any`` (pallas_kernels.py:270) composes from four
+  real kernel calls, Mosaic having no complex type.
 
 The fp64 entries also stand where the JAX package takes an XLA shifted-add
 product for 64-bit data (Mosaic has no 64-bit types): on the card every DIA
@@ -34,10 +39,10 @@ thread per element) elsewhere, such as the M = 1 Lanczos vectors. The
 wrapper caches the plan and its ctypes arguments per shape. Each wrapper
 counts its launches in its ``launches`` attribute, and by body in
 ``body_launches``. :func:`dia_matvec_any` takes any real/complex
-combination: real diagonals times a complex x is ONE launch on the real
+combination in ONE launch: real diagonals times a complex x on the real
 view of x (a complex (N, K) tensor is a real (N, 2K) one), where the JAX
-package makes two calls; complex diagonals keep its four-product
-decomposition.
+package makes two calls; complex diagonals on a complex entry, a real x
+promoted first.
 """
 from __future__ import annotations
 
@@ -55,7 +60,9 @@ from .cuda_build import sm_count as _sm_count
 __all__ = ["bands_to_dia", "bcoo_to_dia", "dia_matvec", "dia_matvec_plain",
            "dia_matvec_batched", "dia_matvec_any", "dia_matvec_f32",
            "dia_matvec_f64", "dia_matvec_batched_f32",
-           "dia_matvec_batched_f64", "dia_plan", "reckoned_traffic",
+           "dia_matvec_batched_f64", "dia_matvec_c64", "dia_matvec_c128",
+           "dia_matvec_batched_c64", "dia_matvec_batched_c128",
+           "dia_plan", "reckoned_traffic", "itemsize",
            "ring_chunks", "ring_bytes", "launch_counts", "body_counts",
            "reset_launch_counts"]
 
@@ -117,11 +124,9 @@ def dia_matvec_plain(diags: torch.Tensor, offsets, x: torch.Tensor
 def _library():
     from .cuda_build import load
     lib = load("dia_matvec")
-    for name, batched in (("dia_matvec_f32", False),
-                          ("dia_matvec_f64", False),
-                          ("dia_matvec_batched_f32", True),
-                          ("dia_matvec_batched_f64", True)):
-        fn = getattr(lib, name)
+    for w in _WRAPPERS:
+        batched = "_batched_" in w.__name__
+        fn = getattr(lib, w.__name__)
         fn.argtypes = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
                         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_int64, ctypes.c_int64]
@@ -134,6 +139,11 @@ def _library():
 
 
 # ----------------------------------------------------------------- the plan
+
+def itemsize(dtype) -> int:
+    """Bytes of one value of ``dtype`` (a complex value is two reals)."""
+    return torch.empty((), dtype=dtype).element_size()
+
 
 _THREADS = 256                # threads a block, at most
 # the ring body's fields, in the order csrc/dia_matvec.cu's launch_ring
@@ -176,14 +186,15 @@ def dia_plan(offsets, N, M, g=1, dtype=torch.float32, sms=_SMS, *,
     alone, and every plan names its ``body``.
 
     The ring body takes a shape whose rows are whole 16-byte pieces (M a
-    multiple of ``vec`` = 4 f32 or 2 fp64 columns, and at least two) and
-    whose indices fit 32 bits (g N M and nd N below 2^31), where two of its
-    blocks fit a multiprocessor's shared memory. Its fields: ``cols``
-    columns of each operand a block (``_ROW_BYTES`` of each operand's row,
-    at most M); ``lanes`` = g cols / vec threads a row, ``chunk`` = 256 //
-    lanes rows an iteration, ``threads`` = lanes chunk; ``halo`` = max
-    |offset| over the ``nd`` diagonals inside the matrix, ``lag`` =
-    ceil(halo / chunk); ``depth`` chunks of copies in flight (6 for one
+    multiple of ``vec`` = 4 f32, 2 fp64 or complex64, or 1 complex128
+    columns, and at least two pieces) and whose indices fit 32 bits (g N M
+    and nd N below 2^31), where two of its blocks fit a multiprocessor's
+    shared memory. Its fields: ``cols`` columns of each operand a block
+    (``_ROW_BYTES`` of each operand's row, at most M; the ``itemsize`` of
+    ``dtype`` sets both); ``lanes`` = g cols / vec threads a row,
+    ``chunk`` = 256 // lanes rows an iteration, ``threads`` = lanes chunk;
+    ``halo`` = max |offset| over the ``nd`` diagonals inside the matrix,
+    ``lag`` = ceil(halo / chunk); ``depth`` chunks of copies in flight (6 for one
     operand, 4 for a batch, fewer down to 2 where two blocks would not fit
     otherwise); ``ring`` = :func:`ring_chunks` chunks of ``lanes`` 16-byte
     pieces a row, and the diagonal values of depth + 1 chunks
@@ -203,8 +214,8 @@ def dia_plan(offsets, N, M, g=1, dtype=torch.float32, sms=_SMS, *,
     the card tests); an override the ring body cannot take raises."""
     N, M, g = int(N), int(M), int(g)
     offsets = tuple(int(d) for d in offsets)
-    itemsize = torch.finfo(dtype).bits // 8
-    vec = 16 // itemsize
+    size = itemsize(dtype)
+    vec = 16 // size
     inside = [d for d in offsets if abs(d) < N]
     halo = max((abs(d) for d in inside), default=0)
     flat = dict(body="flat", nd=len(offsets), halo=halo, vec=vec,
@@ -230,11 +241,11 @@ def dia_plan(offsets, N, M, g=1, dtype=torch.float32, sms=_SMS, *,
         lag = -(-halo // chunk)
         ring = ring_chunks(lag, dpt)
         return lanes, chunk, lag, ring, ring_bytes(ring, chunk, lanes, dpt,
-                                                   len(inside), itemsize)
+                                                   len(inside), size)
 
     auto = cols is None and depth is None
     if cols is None:
-        cols = min(_ROW_BYTES // itemsize, M, _THREADS * vec // g // vec * vec)
+        cols = min(_ROW_BYTES // size, M, _THREADS * vec // g // vec * vec)
     dpt = _auto_depth(g) if depth is None else int(depth)
     if cols % vec or cols <= 0 or g * cols // vec > _THREADS \
             or not 1 <= dpt <= _MAX_DEPTH:
@@ -283,18 +294,18 @@ def reckoned_traffic(plan, N, M, g=1):
     the matrix once per row and column group. The flat body: nd neighbours
     of x and y per element, and the nd diagonal values once per warp's row
     (a broadcast to min(M, 32) threads)."""
-    itemsize = 16 // plan["vec"]
+    size = 16 // plan["vec"]
     nd = plan["nd"]
     if plan["body"] == "flat":
         per = nd + 1 + nd / min(M, 32)
-        return dict(l2_bytes_per_element=itemsize * per, halo_share=0.0)
+        return dict(l2_bytes_per_element=size * per, halo_share=0.0)
     R, L, tile = plan["chunk"], plan["lag"], plan["tile"]
     rows = 0
     for s0 in range(0, N, tile):
         rows += min(s0 + tile + L * R, N) - max(s0 - L * R, 0)
     x_el = rows * g * M
     per = (x_el + g * N * M + nd * N * plan["groups"]) / (g * N * M)
-    return dict(l2_bytes_per_element=itemsize * per,
+    return dict(l2_bytes_per_element=size * per,
                 halo_share=rows / N - 1.0)
 
 
@@ -413,8 +424,41 @@ def dia_matvec_batched_f64(diags, offsets, x):
                    offsets, x)
 
 
-_WRAPPERS = (dia_matvec_f32, dia_matvec_f64, dia_matvec_batched_f32,
-             dia_matvec_batched_f64)
+def dia_matvec_c64(diags, offsets, x):
+    """y = A x for complex64 diagonals and a row-major (N, M) complex64
+    operand."""
+    return _matvec(dia_matvec_c64, torch.complex64, False, diags, offsets, x)
+
+
+def dia_matvec_c128(diags, offsets, x):
+    """y = A x for complex128 diagonals and a row-major (N, M) complex128
+    operand."""
+    return _matvec(dia_matvec_c128, torch.complex128, False, diags, offsets,
+                   x)
+
+
+def dia_matvec_batched_c64(diags, offsets, x):
+    """y[b] = A x[b] for (g, N, M) complex64 operands sharing complex64
+    diagonals."""
+    return _matvec(dia_matvec_batched_c64, torch.complex64, True, diags,
+                   offsets, x)
+
+
+def dia_matvec_batched_c128(diags, offsets, x):
+    """y[b] = A x[b] for (g, N, M) complex128 operands sharing complex128
+    diagonals."""
+    return _matvec(dia_matvec_batched_c128, torch.complex128, True, diags,
+                   offsets, x)
+
+
+_WRAPPERS = (dia_matvec_f32, dia_matvec_f64, dia_matvec_c64,
+             dia_matvec_c128, dia_matvec_batched_f32, dia_matvec_batched_f64,
+             dia_matvec_batched_c64, dia_matvec_batched_c128)
+_DTYPES = {"f32": torch.float32, "f64": torch.float64,
+           "c64": torch.complex64, "c128": torch.complex128}
+# (batched, dtype) -> the entry of csrc/dia_matvec.cu
+_ENTRY = {("_batched_" in w.__name__, _DTYPES[w.__name__.rsplit("_", 1)[1]]):
+          w for w in _WRAPPERS}
 
 
 def launch_counts() -> dict:
@@ -435,53 +479,48 @@ def reset_launch_counts() -> None:
 reset_launch_counts()
 
 
-def _real_entry(x, batched):
-    if x.dtype == torch.float32:
-        return dia_matvec_batched_f32 if batched else dia_matvec_f32
-    if x.dtype == torch.float64:
-        return dia_matvec_batched_f64 if batched else dia_matvec_f64
-    raise TypeError(f"the DIA matvec takes float32 or float64, got {x.dtype}")
+def _entry(x, batched):
+    try:
+        return _ENTRY[batched, x.dtype]
+    except KeyError:
+        raise TypeError("the DIA matvec takes float32 or float64, or "
+                        f"complex64 or complex128, got {x.dtype}") from None
 
 
 def dia_matvec(diags: torch.Tensor, offsets, x: torch.Tensor
                ) -> torch.Tensor:
-    """y = A x for a real (N, M) or (N,) operand of the diagonals' dtype
-    (the f32 or the fp64 entry; a strided operand is copied first)."""
+    """y = A x for an (N, M) or (N,) operand of the diagonals' dtype (the
+    entry of that dtype; a strided operand is copied first)."""
     if x.dim() == 1:
         return dia_matvec(diags, offsets, x[:, None])[:, 0]
-    return _real_entry(x, False)(diags.contiguous(), offsets, x.contiguous())
+    return _entry(x, False)(diags.contiguous(), offsets, x.contiguous())
 
 
 def dia_matvec_batched(diags: torch.Tensor, offsets, x: torch.Tensor
                        ) -> torch.Tensor:
-    """y[b] = A x[b] for real (g, N, M) operands of the diagonals' dtype
-    (a strided operand is copied first)."""
-    return _real_entry(x, True)(diags.contiguous(), offsets, x.contiguous())
+    """y[b] = A x[b] for (g, N, M) operands of the diagonals' dtype (a
+    strided operand is copied first)."""
+    return _entry(x, True)(diags.contiguous(), offsets, x.contiguous())
 
 
 def dia_matvec_any(diags: torch.Tensor, offsets, x: torch.Tensor
                    ) -> torch.Tensor:
     """DIA matvec for any real/complex combination, on (N, M) or (g, N, M)
-    operands (the batched entry for the latter).
+    operands (the batched entry for the latter), one launch each.
 
-    Real diagonals times a complex x: one launch on the real view of x,
-    (..., N, K) complex -> (..., N, 2K) real. Complex diagonals: the full
-    complex product from four real ones (as the JAX package decomposes
-    it). A real x with complex diagonals: two."""
+    Real diagonals times a complex x: the real entry on the real view of x,
+    (..., N, K) complex -> (..., N, 2K) real. Complex diagonals: the
+    complex entry of their dtype, a real x promoted to it first (the JAX
+    package composes these products from four and two real kernel
+    calls)."""
     batched = x.dim() == 3
-
-    def mv(d, v):
-        return (dia_matvec_batched if batched else dia_matvec)(d, offsets, v)
-
-    a_c, x_c = diags.is_complex(), x.is_complex()
-    if not a_c and not x_c:
-        return mv(diags, x)
-    if not a_c:
+    mv = dia_matvec_batched if batched else dia_matvec
+    if not diags.is_complex():
+        if not x.is_complex():
+            return mv(diags, offsets, x)
         xr = torch.view_as_real(x.contiguous())
-        y = mv(diags, xr.reshape(*x.shape[:-1], 2 * x.shape[-1]))
+        y = mv(diags, offsets, xr.reshape(*x.shape[:-1], 2 * x.shape[-1]))
         return torch.view_as_complex(y.reshape(*x.shape, 2))
-    dr, di = diags.real.contiguous(), diags.imag.contiguous()
-    if not x_c:
-        return torch.complex(mv(dr, x), mv(di, x))
-    xr, xi = x.real.contiguous(), x.imag.contiguous()
-    return torch.complex(mv(dr, xr) - mv(di, xi), mv(dr, xi) + mv(di, xr))
+    if not x.is_complex():
+        x = x.to(diags.dtype)
+    return mv(diags, offsets, x)

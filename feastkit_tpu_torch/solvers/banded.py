@@ -7,13 +7,13 @@ the nodes) and solved every refinement loop. BCR has no cheap adjoint
 solve, so a Hermitian pencil factors the mirrored nodes conj(z_e) too
 (conjugate-node doubling); a real symmetric one takes Re(sum_e 2 W_e X_e).
 
-At throughput scale (N >= 4096, ``FEAST_CONTOUR_POLY`` on) a real symmetric
-pencil takes the polynomial route of the sparse driver on its DIA form
-(``solvers/sparse._sparse_cheb_interval``, the Chebyshev kernels on the
-card); when that route is infeasible the driver answers with BCR. It never
-returns to the sparse router. Until the complex polynomial path and the
-unfused recurrence are ported (ROADMAP.md, queue 1 item 6), a Hermitian
-pencil or one on more than 32 diagonals stays on BCR at every N.
+At throughput scale (N >= 4096, ``FEAST_CONTOUR_POLY`` on) a pencil takes
+the polynomial route of the sparse driver on its sparse form
+(``solvers/sparse._sparse_cheb_interval``), as in the JAX package: a real
+symmetric one on at most 32 diagonals in the fused Chebyshev kernels, a
+Hermitian one or one on more than 32 diagonals in the unfused recurrence
+(the complex DIA kernels, or CSR products). When that route is infeasible
+the driver answers with BCR. It never returns to the sparse router.
 
 The general and complex-symmetric drivers (``feast_gbev`` / ``gbgv`` /
 ``sbev_complex`` / ``sbgv_complex``) are queue 1 item 12, the stochastic
@@ -36,7 +36,6 @@ from ..kernel.hermitian import feast_hermitian_core
 from ..ops.banded import (banded_matvec, banded_to_blocktridiag, bcr_factor,
                           bcr_solve)
 from ..ops.chebfilter import ChebInfeasible
-from ..ops.dia import _MAX_DIAGS
 from .dense import _TORCH_DTYPE
 from .sparse import _contour_poly_default, _not_ported, _sparse_cheb_interval
 
@@ -161,17 +160,15 @@ def _banded_interval_driver(A_bands, kl, ku, B_bands, klb, kub, Emin, Emax,
                           "the banded driver", 16)
     contour = feast_get_custom_contour(fpm) or feast_contour(Emin, Emax,
                                                              fpm)
-    diags = max(kl, klb) + max(ku, kub) + 1
-    if (N >= 4096 and _contour_poly_default() and not hermitian
-            and diags <= _MAX_DIAGS):
-        # an eligible banded pencil is a DIA sparse operator: realize the
-        # contour's rational filter as one Chebyshev series on it
+    if N >= 4096 and _contour_poly_default():
+        # a banded pencil is a sparse operator: realize the contour's
+        # rational filter as one Chebyshev series on it
         try:
             return _sparse_cheb_interval(
                 _bands_csr(A_np, kl, ku, work), None if B_np is None
                 else _bands_csr(B_np, klb, kub, work), Emin, Emax, M0, fpm,
-                hermitian=False, Q0=Q0, contour=contour, route=True,
-                device=device)
+                hermitian=bool(hermitian), Q0=Q0, contour=contour,
+                route=True, device=device)
         except ChebInfeasible as e:
             if config.print_level >= 1:
                 print(f"feast banded: contour-polynomial route "

@@ -1,16 +1,30 @@
-"""Sparse symmetric interval FEAST: the polynomial-filter path and the
-Krylov contour engine (PyTorch).
+"""Sparse symmetric and Hermitian interval FEAST: the polynomial-filter path
+and the Krylov contour engine (PyTorch).
 
-Counterpart of the real-symmetric half of ``feastkit_tpu/solvers/sparse.py``:
-the auto route of ``sparse_feast_interval`` (the rational-contour filter
-realized as one Chebyshev polynomial, or the Jackson indicator when that is
-cheaper), ``solver="cheb"`` / ``"contour_poly"``, and the refinement of
+Counterpart of the interval half of ``feastkit_tpu/solvers/sparse.py``
+(``feast_scsrev`` / ``scsrgv`` / ``hcsrev`` / ``hcsrgv``): the auto route
+of ``sparse_feast_interval`` (the rational-contour filter realized as one
+Chebyshev polynomial, or the Jackson indicator when that is cheaper),
+``solver="cheb"`` / ``"contour_poly"``, and the refinement of
 ``_sparse_cheb_interval`` for standard, positive-diagonal-B and
 sparse-SPD-B (consistent-mass) pencils: the host-driven ladder loop under
 mixed precision, else ``kernel/hermitian.feast_hermitian_core`` (the JAX
 package's fused run, ``_sparse_cheb_jit``: no stall exit, no best state).
+Complex Hermitian operators (``hermitian=None`` means "complex data";
+``hermitian=True`` on real data runs in complex work precision, as in the
+JAX package) run at native complex64 / complex128.
 
-Every filter application runs the fused Chebyshev-step kernels of
+A real operator on at most 32 diagonals (and, for the SPD-B composite, a B
+on at most 32) has its filter applications in the fused Chebyshev-step
+kernels. Everything else runs the JAX package's UNFUSED recurrence
+(``_sparse_cheb_filter_host``, which the JAX package takes for Hermitian
+operands, sparse.py:2027): a host loop over the coefficients on the
+operator's products, the complex DIA kernels of ``ops/dia.py`` for a
+complex operator, a torch CSR product (the JAX package's BCOO product) for
+one with more than 32 diagonals, and the composite q(B~) A~ on them for a
+sparse SPD B.
+
+Every fused filter application runs the fused Chebyshev-step kernels of
 ``ops/cheb_kernels.py`` on CUDA tensors (their plain versions on CPU
 tensors): one 1-step launch for the k=1 init, then 4-step passes where the
 shape fits the 4-step kernel, else 2-step passes, else 1-step launches
@@ -26,7 +40,9 @@ TPU"), and stays off on the CPU.
 A sparse SPD B (``_b_sparse_spd``) is solved as in the JAX package: both
 operators are congruenced to unit diagonal, f32 Lanczos runs on the
 solve's device bound B~ and the pencil's upper edge
-(``_b_spd_bounds``, ``_pencil_upper_edge_fast``), and the filter runs on
+(``_b_spd_bounds``, ``_pencil_upper_edge_fast``; a B or A with no DIA
+form takes the JAX package's host scipy route instead: ``eigsh`` for B~,
+``_pencil_upper_edge`` for the pencil), and the filter runs on
 the composite q(B~) A~ with q a Chebyshev polynomial inverse of B~
 (``ops/cheb_gen.py``: per outer step one A pass, the inner recurrence in B
 and one combine kernel), while Rayleigh-Ritz and the residuals use the
@@ -39,11 +55,13 @@ The Krylov contour engine (``solver="gmres"`` / ``"bicgstab"``, fpm[43]=1,
 filter resolves the interval at N > ``FEAST_SPARSE_DENSE_N``) is the JAX
 package's off-TPU path ``_sparse_hermitian_jit``: ``_sparse_ops`` builds
 the operators (the DIA kernels of ``ops/dia.py``, or a CSR product for more
-than 32 diagonals) and the half-contour filter of ``_make_sparse_solve_all``
+than 32 diagonals) and the contour filter of ``_make_sparse_solve_all``
 (per node group one batched GMRES / BiCGStab solve, multigrid or Jacobi
 preconditioned, complex64 Krylov inside a complex128 refinement under
-mixed precision), and ``kernel/hermitian.feast_hermitian_core`` refines
-around it.
+mixed precision): the half contour with Re(sum 2 W X) for a real pencil,
+the mirrored node set [Z, conj Z] with a complex accumulator for a
+Hermitian one. ``kernel/hermitian.feast_hermitian_core`` refines around
+it.
 
 Two hand-offs leave this module for the direct engines, as in the JAX
 package: a narrow-banded pencil (half bandwidth <= 16, N <= 16384) that
@@ -53,11 +71,12 @@ its own polynomial route at N >= 4096), and a pencil of N <=
 ``FEAST_SPARSE_DENSE_N`` that leaves the polynomial route is densified
 onto the dense engine (``solvers/dense.dense_hermitian_feast``).
 
-Paths the JAX package has and this port does not yet (each raises
-``NotImplementedError`` naming its ROADMAP.md queue 1 item): complex
-Hermitian operators, and the polynomial path for operators (A or a sparse
-B) with more than 32 diagonals (item 6) and the stochastic count
-fpm[14]=2 (item 16). Sharded meshes (item 15) are refused by ``feast()``.
+The JAX package's real embedding of complex Hermitian pencils
+(``_sparse_embedded_hermitian``) and its ``f64_lu_unavailable`` gate exist
+because a TPU has no complex128; they are not ported. Not ported yet
+(raising ``NotImplementedError`` naming its ROADMAP.md queue 1 item): the
+stochastic count fpm[14]=2 (item 16). Sharded meshes (item 15) are
+refused by ``feast()``.
 """
 from __future__ import annotations
 
@@ -83,18 +102,18 @@ from ..ops.cheb_kernels import (cheb_f32_2_chunk, cheb_f32_4_chunk,
                                 cheb_f32_chunk, cheb_f64_2_chunk,
                                 cheb_f64_4_chunk, cheb_f64_chunk,
                                 multistep_plan, transpose_planes)
-from ..ops.chebfilter import (ChebInfeasible, binva_enclosure,
+from ..ops.chebfilter import (ChebInfeasible, _cheb_init, binva_enclosure,
                               build_cheb_filter_coeffs, cheb_inverse_coeffs,
                               gershgorin_interval, make_apply_binv_a,
-                              rational_filter_cheb_coeffs)
+                              make_cheb_stepper, rational_filter_cheb_coeffs)
 from ..ops.dia import bcoo_to_dia, dia_matvec, dia_matvec_any
 from ..ops.gmres import bicgstab_block, gmres_block
 from ..ops.multigrid import (GridStencil, detect_grid_stencil,
                              make_shifted_vcycle, plan_mg_levels)
+from .dense import _TORCH_DTYPE
 
-__all__ = ["feast_scsrev", "feast_scsrgv", "sparse_coo_arrays",
-           "sparse_feast_interval"]
-
+__all__ = ["feast_scsrev", "feast_scsrgv", "feast_hcsrev", "feast_hcsrgv",
+           "sparse_coo_arrays", "sparse_feast_interval"]
 
 def _not_ported(what, item):
     return NotImplementedError(
@@ -256,17 +275,34 @@ def _b_spd_bounds(B_data, B_idx, N, B_dia, offsets_B, device):
     """Spectrum enclosure [b_lo, b_hi] of the unit-diagonal-scaled B.
     Gershgorin first (free); when the discs touch zero (e.g. P1 2D mass
     matrices, where interior off-diagonal row sums EQUAL the diagonal) a
-    fixed-step f32 Lanczos on ``device`` refines the ends. Raises a
-    ValueError when B is not positive definite enough for the polynomial
-    inverse."""
+    fixed-step f32 Lanczos on ``device`` refines the ends (its failure
+    raises), or, for a B with no DIA form (``offsets_B`` None), host scipy
+    ``eigsh`` with the JAX package's deterministic start vector (its route
+    for such a B; on failure Gershgorin's ends stay, as there).
+    Raises a ValueError when B is not positive definite enough for the
+    polynomial inverse."""
     b_lo, b_hi = gershgorin_interval(B_data, B_idx, N)
-    if b_lo <= 0.02 * b_hi:
+    if b_lo <= 0.02 * b_hi and offsets_B is not None:
         B32 = torch.as_tensor(np.asarray(B_dia, np.float32)).to(device)
         al, be = _lanczos_tridiag(lambda x: dia_matvec(B32, offsets_B, x),
                                   lambda x: x, _lanczos_v0(N, device),
                                   min(128, N))
         lo_e, hi_e = _tridiag_edges(al.cpu().numpy(), be.cpu().numpy())
         b_lo, b_hi = 0.9 * lo_e, min(1.1 * hi_e, b_hi)
+    elif b_lo <= 0.02 * b_hi:
+        import scipy.sparse as sp
+        import scipy.sparse.linalg as spl
+        Bs = sp.coo_matrix((B_data, (B_idx[:, 0], B_idx[:, 1])),
+                           shape=(N, N)).tocsr()
+        v0 = np.cos(0.7 * np.arange(N)) + 0.5
+        try:
+            lo_e = float(spl.eigsh(Bs, k=1, which="SA", tol=1e-4, v0=v0,
+                                   return_eigenvectors=False)[0])
+            hi_e = float(spl.eigsh(Bs, k=1, which="LA", tol=1e-4, v0=v0,
+                                   return_eigenvectors=False)[0])
+            b_lo, b_hi = 0.9 * lo_e, min(1.1 * hi_e, b_hi)
+        except Exception:                                # noqa: BLE001
+            pass
     if b_lo <= 1e-6 * b_hi:
         raise ValueError(
             "solver='cheb' with a sparse B requires a well-conditioned "
@@ -274,6 +310,38 @@ def _b_spd_bounds(B_data, B_idx, N, B_dia, offsets_B, device):
             f"[{b_lo:.3g}, {b_hi:.3g}] is not safely positive — use the "
             "contour solvers (gmres/bicgstab) for this pencil")
     return b_lo, b_hi
+
+
+def _pencil_upper_edge(A_data, A_idx, B_data, B_idx, N):
+    """Host Lanczos estimate of lambda_max(B^-1 A) for the scaled SPD-B
+    pencil, for operands with no DIA form (counterpart of
+    ``_pencil_upper_edge``): scipy ``eigsh`` on (A, B) with a Jacobi-CG
+    solve in B, the JAX package's deterministic start vector. None on any
+    failure (the enclosure then stays the Gershgorin quotient bound, as in
+    the JAX package)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+    try:
+        As = sp.coo_matrix((np.real(A_data).astype(np.float64),
+                            (A_idx[:, 0], A_idx[:, 1])), shape=(N, N)).tocsr()
+        Bs = sp.coo_matrix((np.real(B_data).astype(np.float64),
+                            (B_idx[:, 0], B_idx[:, 1])), shape=(N, N)).tocsr()
+        dinv = 1.0 / Bs.diagonal()
+        jac = spl.LinearOperator((N, N), matvec=lambda v: dinv * v)
+
+        def bsolve(x):
+            y, info = spl.cg(Bs, x, rtol=1e-8, maxiter=200, M=jac)
+            if info != 0:
+                raise RuntimeError(f"CG in B failed (info={info})")
+            return y
+
+        Minv = spl.LinearOperator((N, N), matvec=bsolve)
+        v0 = np.cos(0.7 * np.arange(N)) + 0.5
+        return float(spl.eigsh(As, k=1, M=Bs, Minv=Minv, which="LA",
+                               tol=1e-3, maxiter=150, v0=v0,
+                               return_eigenvectors=False)[0])
+    except Exception:                                    # noqa: BLE001
+        return None
 
 
 def _densify(X):
@@ -459,11 +527,33 @@ def _sparse_cheb_filter_host_fused_gen(ctx, Q, *, rung, n_coeffs=None):
     return acc.t().contiguous()
 
 
+def _sparse_cheb_filter_host(ctx, Q, *, rung, n_coeffs=None):
+    """One filter application rho(C) Q by the UNFUSED recurrence on rung
+    "f32" or "f64" (counterpart of ``_sparse_cheb_filter_host`` with
+    ``_sparse_cheb_init_jit`` / ``_sparse_cheb_chunk_jit``): a host loop
+    over the coefficients, each step one product of the rung's operator C
+    (A~, or the composite q(B~) A~) and the torch glue of the three-term
+    recurrence (``ops/chebfilter._cheb_init`` / ``make_cheb_stepper``), in
+    the rung's dtype (complex64 / complex128 for a Hermitian operator).
+    ``n_coeffs`` truncates the series (the rational filter's shorter
+    f32-rung expansion). The JAX package's chunked dispatches bound the
+    work per TPU dispatch; a host loop needs no such budget."""
+    r = ctx[rung]
+    coeffs = r["coeffs"] if n_coeffs is None else r["coeffs"][:n_coeffs]
+    carry = _cheb_init(r["apply"], r["lo"], r["hi"], Q.to(r["dtype"]),
+                       coeffs)
+    step = make_cheb_stepper(r["apply"], r["lo"], r["hi"])
+    for ck in coeffs[2:]:
+        carry = step(carry, ck)
+    return carry[2]
+
+
 def _backxform(apply_A, apply_B, dscale, Q, lam):
     """Congruence back-transform for B = D^1/2 B~ D^1/2 (B~ = I for a
     diagonal B): with s = D^-1/2, x_j = s y_j / ||s y_j|| and the ORIGINAL
     pencil's residual ||A x - lam B x|| / max(|lam|, 1) =
-    ||(A~ y - lam B~ y) / s|| / (...)."""
+    ||(A~ y - lam B~ y) / s|| / (...). Q real or complex (a Hermitian
+    pencil's basis); s and lam enter in Q's dtype."""
     s = dscale[:, None].to(Q.dtype)
     nrm = torch.linalg.vector_norm(s * Q, dim=0)
     nrm = torch.where(nrm > 0, nrm, torch.ones_like(nrm))
@@ -478,11 +568,15 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                           device, Q0=None, contour=None,
                           route=False) -> FeastResult:
     """Polynomial-filtered FEAST for standard, positive-diagonal-B and
-    sparse-SPD-B pencils (counterpart of the JAX package's
-    ``_sparse_cheb_interval``, host-loop branch). ``contour``: realize that
-    contour's rational filter as a Chebyshev series; ``route=True`` (the
-    auto route) also builds the indicator and keeps the cheaper one, and
-    reports an ineligible configuration as ChebInfeasible."""
+    sparse-SPD-B pencils, real symmetric or complex Hermitian (counterpart
+    of the JAX package's ``_sparse_cheb_interval``, host-loop branch).
+    ``contour``: realize that contour's rational filter as a Chebyshev
+    series; ``route=True`` (the auto route) also builds the indicator and
+    keeps the cheaper one, and reports an ineligible configuration as
+    ChebInfeasible. The fused kernels carry a real operator on at most 32
+    diagonals (and a B on at most 32 for the SPD-B composite); every other
+    operator runs the unfused recurrence (``_sparse_cheb_filter_host``),
+    as the JAX package decides (``_fuse_base``, sparse.py:2027)."""
     elig_err = ChebInfeasible if route else ValueError
     fpm = _ensure_fpm(fpm)
     b_kind, b_diag = _b_diagonal(B)
@@ -503,44 +597,39 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
             "solver='cheb' with a sparse SPD B currently supports real "
             "symmetric A (complex Hermitian A + sparse B: use the contour "
             "solvers)")
-    if hermitian:
-        raise _not_ported("the complex Hermitian sparse path", 6)
     f64 = _is_double(_peek_dtype(A).dtype)
     rdtype = np.float64 if f64 else np.float32
     tdtype = torch.float64 if f64 else torch.float32
     cdtype = np.complex128 if f64 else np.complex64
+    work = np.dtype(cdtype if hermitian else rdtype)
+    wdtype = _TORCH_DTYPE[work]
+    lo_dtype = torch.complex64 if hermitian else torch.float32
 
-    A_data, A_idx, shape = sparse_coo_arrays(A, rdtype)
+    A_data, A_idx, shape = sparse_coo_arrays(A, work)
     N = shape[0]
     if b_kind in ("diagonal", "spd"):
         dscale = 1.0 / np.sqrt(b_diag.astype(np.float64))
         A_data = (A_data * (dscale[A_idx[:, 0]] * dscale[A_idx[:, 1]])
-                  ).astype(rdtype)
+                  ).astype(work)
     if not 0 < M0 <= N:
         raise ValueError(f"M0 must be in 1..N={N}, got {M0}")
     if not Emax > Emin:
         raise ValueError(f"Emin={Emin} must be < Emax={Emax}")
     outA = bcoo_to_dia(A_data, A_idx, N)
-    if outA is None:
-        raise _not_ported("an operator with more than 32 diagonals (the "
-                          "unfused BCOO recurrence)", 6)
-    A_dia_np, offsets = outA
+    A_dia_np, offsets = outA if outA else (None, None)
 
     config = FeastConfig.from_fpm(fpm, dtype=cdtype)
-    qinfo = qinfo_lo = None
+    qinfo = qinfo_lo = qc = qc_lo = None
+    offsets_B = None
     if b_kind == "spd":
         # unit-diagonal congruence of B and a polynomial inverse
         # q(B~) ~= B~^-1: the recurrence filters the composite q(B~) A~
         # while Rayleigh-Ritz and the residuals use the exact pencil
-        B_data, B_idx, _ = sparse_coo_arrays(B, rdtype)
+        B_data, B_idx, _ = sparse_coo_arrays(B, work)
         B_data = (B_data * (dscale[B_idx[:, 0]] * dscale[B_idx[:, 1]])
-                  ).astype(rdtype)
+                  ).astype(work)
         outB = bcoo_to_dia(B_data, B_idx, N)
-        if outB is None:
-            raise _not_ported("a sparse SPD B with more than 32 diagonals "
-                              "(the host-scipy bounds and the unfused BCOO "
-                              "composite)", 6)
-        B_dia_np, offsets_B = outB
+        B_dia_np, offsets_B = outB if outB else (None, None)
         try:
             b_lo, b_hi = _b_spd_bounds(B_data, B_idx, N, B_dia_np,
                                        offsets_B, device)
@@ -559,10 +648,16 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                                  max(qinfo["rel_err"], qinfo_lo["rel_err"]))
         # tighten the upper edge with a measured pencil eigenvalue (the
         # degree scales as sqrt(enclosure span)); 1.1x over the Lanczos
-        # estimate, which converges from below, keeps the spectrum inside
-        hi_e = _pencil_upper_edge_fast(A_dia_np, offsets, B_dia_np,
-                                       offsets_B, qc, b_lo, b_hi, N, device)
-        if hi_e > max(float(Emax), 0.0):
+        # estimate, which converges from below, keeps the spectrum inside.
+        # Operands with no DIA form take the host Lanczos (None on
+        # failure: the quotient bound stays), as in the JAX package.
+        if offsets is not None and offsets_B is not None:
+            hi_e = _pencil_upper_edge_fast(A_dia_np, offsets, B_dia_np,
+                                           offsets_B, qc, b_lo, b_hi, N,
+                                           device)
+        else:
+            hi_e = _pencil_upper_edge(A_data, A_idx, B_data, B_idx, N)
+        if hi_e is not None and hi_e > max(float(Emax), 0.0):
             hi = min(hi, (1.1 + qinfo["rel_err"]) * hi_e)
     else:
         lo, hi = gershgorin_interval(A_data, A_idx, N)
@@ -634,33 +729,65 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
     if config.mode == 2:
         raise _not_ported("the stochastic eigenvalue count fpm[14]=2", 16)
 
-    A_dia = torch.as_tensor(A_dia_np, dtype=tdtype).to(device)
-
-    def apply_A(X):
-        return dia_matvec(A_dia, offsets, X)
-
-    if b_kind == "spd":
-        B_dia = torch.as_tensor(B_dia_np, dtype=tdtype).to(device)
-        # the f32 rung runs the shorter inverse, unless f32 is the top rung
-        ctx = _cheb_gen_context(A_dia, offsets, B_dia, offsets_B, coeffs,
-                                lo, hi, b_lo, b_hi, qc,
-                                qc_lo if f64 else qc, M0)
-        filt = _sparse_cheb_filter_host_fused_gen
-
-        def apply_B(X):
-            return dia_matvec(B_dia, offsets_B, X)
-    else:
-        ctx = _cheb_fused_context(A_dia, offsets, coeffs, lo, hi, M0)
-        filt = _sparse_cheb_filter_host_fused
-
-        def apply_B(X):      # identity: a diagonal B is congruenced away
-            return X
-
     # rung-truncated series for the f32 rung (rational filters only)
     n_lo = (int(cinfo["degree_lo"]) + 1
             if cinfo.get("degree_lo") else None)
     rung_top = "f64" if f64 else "f32"
     use_lp = _mixed_enabled(config, device, f64)
+    fused = (not hermitian and offsets is not None
+             and (b_kind != "spd" or offsets_B is not None))
+    if fused:
+        A_dia = torch.as_tensor(A_dia_np, dtype=tdtype).to(device)
+
+        def apply_A(X):
+            return dia_matvec(A_dia, offsets, X)
+
+        if b_kind == "spd":
+            B_dia = torch.as_tensor(B_dia_np, dtype=tdtype).to(device)
+            # the f32 rung runs the shorter inverse, unless f32 is the top
+            # rung
+            ctx = _cheb_gen_context(A_dia, offsets, B_dia, offsets_B,
+                                    coeffs, lo, hi, b_lo, b_hi, qc,
+                                    qc_lo if f64 else qc, M0)
+            filt = _sparse_cheb_filter_host_fused_gen
+
+            def apply_B(X):
+                return dia_matvec(B_dia, offsets_B, X)
+        else:
+            ctx = _cheb_fused_context(A_dia, offsets, coeffs, lo, hi, M0)
+            filt = _sparse_cheb_filter_host_fused
+    else:
+        # the unfused recurrence (a Hermitian operator, or an operand with
+        # no DIA form): each rung's operator in its own dtype, the
+        # composite q(B~) A~ on them for a sparse SPD B (the shorter
+        # inverse on the f32 rung, unless f32 is the top rung)
+        def operators(dtype):
+            opA = _operator(A_data, A_idx, A_dia_np, offsets, N, dtype,
+                            device)
+            opB = None if b_kind != "spd" else _operator(
+                B_data, B_idx, B_dia_np, offsets_B, N, dtype, device)
+            return opA, opB
+
+        def rung(dtype, ops, q):
+            # lo, hi and the coefficients enter the recurrence in its
+            # operand's precision (ops/chebfilter._map_scalars)
+            opA, opB = ops
+            op = opA if opB is None else make_apply_binv_a(opA, opB, b_lo,
+                                                           b_hi, q)
+            return dict(apply=op, lo=lo, hi=hi, dtype=dtype, coeffs=coeffs)
+
+        top_ops = operators(wdtype)
+        apply_A = top_ops[0]
+        if b_kind == "spd":
+            apply_B = top_ops[1]
+        ctx = {rung_top: rung(wdtype, top_ops, qc)}
+        if use_lp:
+            ctx["f32"] = rung(lo_dtype, operators(lo_dtype), qc_lo)
+        filt = _sparse_cheb_filter_host
+    if b_kind != "spd":
+        def apply_B(X):      # identity: a diagonal B is congruenced away
+            return X
+
     lp_avail = use_lp
     # switch to the top rung at 2x the predicted f32 floor
     # sqrt(degree) * eps_f32 (or 30 tol, whichever is larger)
@@ -671,13 +798,14 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         # the recurrence's rounding, sets that rung's floor
         lp_switch = max(lp_switch, 2.0 * float(qinfo_lo["rel_err"]))
 
-    q0_np = initial_subspace(fpm, Q0, N, M0, rdtype)
-    if use_lp and config.mode != 1 and Q0 is None and int(fpm[5]) == 0:
+    q0_np = initial_subspace(fpm, Q0, N, M0, work)
+    if use_lp and config.mode != 1 and Q0 is None and int(fpm[5]) == 0 \
+            and not hermitian:
         # as the JAX package ships it on the ladder: the seeded subspace's
         # f32 bits, widened (Gaussian noise has no information in its f64
         # mantissa tail, and both packages then start from one subspace)
         q0_np = q0_np.astype(np.float32)
-    Q0_t = torch.as_tensor(q0_np).to(device=device, dtype=tdtype)
+    Q0_t = torch.as_tensor(q0_np).to(device=device, dtype=wdtype)
     del q0_np
 
     if config.mode == 1 or not use_lp:
@@ -709,7 +837,7 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
             state = state._replace(Q=None)
             rung = "f32" if use_lp else rung_top
             Qp = filt(ctx, Q_in, rung=rung,
-                      n_coeffs=n_lo if rung == "f32" else None).to(tdtype)
+                      n_coeffs=n_lo if rung == "f32" else None).to(wdtype)
             Q_in = None
             state = update(state, Qp)
             Qp = None
@@ -755,7 +883,7 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         # f32 rung's noise is irrelevant under the mixed schedule
         vrung = "f32" if lp_avail else rung_top
         Qp = filt(ctx, state.Q, rung=vrung,
-                  n_coeffs=n_lo if vrung == "f32" else None).to(tdtype)
+                  n_coeffs=n_lo if vrung == "f32" else None).to(wdtype)
         state = verify_spurious_from(state, Qp)
         Qp = None
 
@@ -801,29 +929,33 @@ def _solver_fn(name):
 
 def _csr_matvec(A, X):
     """A @ X for a torch CSR matrix and (N, K) or (g, N, K) X, real or
-    complex (through its real view): one sparse product on an (N, cols)
-    operand."""
-    shape = X.shape
-    Xr = torch.view_as_real(X.contiguous()) if X.is_complex() else X
-    Xr = Xr.reshape(*shape[:-1], -1)
+    complex: one sparse product on an (N, cols) operand. A real CSR takes a
+    complex X through its real view (a complex (N, K) tensor is a real
+    (N, 2K) one); a complex CSR takes a complex X as it is (a real X is
+    promoted first)."""
+    if A.is_complex():
+        Xr = X.to(A.dtype)
+    else:
+        Xr = torch.view_as_real(X.contiguous()) if X.is_complex() else X
+        Xr = Xr.reshape(*X.shape[:-1], -1)
     if Xr.dim() == 3:
         g, N, c = Xr.shape
         Y = (A @ Xr.permute(1, 0, 2).reshape(N, g * c)).reshape(N, g, c)
         Y = Y.permute(1, 0, 2).contiguous()
     else:
         Y = A @ Xr.contiguous()
-    if X.is_complex():
-        return torch.view_as_complex(Y.reshape(*shape, 2))
+    if X.is_complex() and not A.is_complex():
+        return torch.view_as_complex(Y.reshape(*X.shape, 2))
     return Y
 
 
 def _make_apply(csr, dia, offsets):
     """Matvec closure on (N, K) or (g, N, K) operands, real or complex
     (counterpart of ``_make_apply``). An operator on at most 32 diagonals
-    applies through the DIA kernels (``ops/dia.py``; real diagonals times a
-    complex operand as one launch on its real view), a node group of one
-    through the unbatched entry; a wider one through a torch CSR product,
-    the counterpart of the JAX package's BCOO product."""
+    applies through the DIA kernels (``ops/dia.py``: one launch for any
+    real / complex combination), a node group of one through the
+    unbatched entry; a wider one through a torch CSR product, the
+    counterpart of the JAX package's BCOO product."""
     if offsets is None:
         return lambda X: _csr_matvec(csr, X)
 
@@ -833,6 +965,22 @@ def _make_apply(csr, dia, offsets):
             return dia_matvec_any(dia, offsets, X[0]).unsqueeze(0)
         return dia_matvec_any(dia, offsets, X)
     return apply
+
+
+def _operator(data, idx, dia, offsets, N, dtype, device):
+    """The operator of host COO (data, idx) in ``dtype`` on ``device``:
+    its DIA diagonals ``dia`` on the DIA kernels where it has a DIA form
+    (``offsets``), else a torch CSR product."""
+    if offsets is not None:
+        return _make_apply(None, torch.as_tensor(dia).to(
+            device=device, dtype=dtype), offsets)
+    with warnings.catch_warnings():    # "CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        idx = np.asarray(idx, np.int64)
+        csr = torch.sparse_coo_tensor(
+            torch.as_tensor(idx.T), torch.as_tensor(data).to(dtype),
+            (N, N)).coalesce().to_sparse_csr().to(device)
+    return _make_apply(csr, None, None)
 
 
 def _unpack_stencil(mg):
@@ -976,10 +1124,12 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
                            col_block=None, flag_tol=None, mg_A=None,
                            mg_B=None, mixed=False, apply_A_lo=None,
                            apply_B_lo=None, ir_max=5, mg_opts=(2, 2, 0.8, 1),
-                           group_max=2, device="cpu", record=None):
+                           group_max=2, device="cpu", record=None,
+                           hermitian=False):
     """filter_partial(Z, W, rhs, Q, lam, tol_hint) -> (sum_e Re(W_e X_e),
     conv) with X_e = (z_e B - A)^-1 rhs (counterpart of
-    ``_make_sparse_solve_all``).
+    ``_make_sparse_solve_all``); ``hermitian``: the complex sum
+    sum_e W_e X_e (the mirrored node set of a Hermitian pencil).
 
     The nodes are solved in groups of g = min(ne, group_max), each group
     one batched solve on a (g, N, cols) carry (a group of one runs the
@@ -1162,7 +1312,8 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
         warm = Q is not None and lam is not None
         ne = Z.shape[0]
         g = max(1, min(ne, int(group_max)))
-        acc = torch.zeros(rhs.shape, dtype=rhs.real.dtype, device=rhs.device)
+        acc = torch.zeros(rhs.shape, dtype=rhs.dtype if hermitian
+                          else rhs.real.dtype, device=rhs.device)
         convs = []
         for b0 in range(0, ne, g):
             zg, wg = Z[b0:b0 + g], W[b0:b0 + g]
@@ -1176,7 +1327,7 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
                                         tol_hint=tol_hint), rhs, X0g)
             del X0g
             for i in range(zg.shape[0]):        # the JAX package's order
-                acc += (wg[i] * X[i]).real
+                acc += wg[i] * X[i] if hermitian else (wg[i] * X[i]).real
             convs.append(conv.reshape(-1))
             del X
         return acc, torch.all(torch.cat(convs))
@@ -1187,28 +1338,24 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
 def _sparse_ops(A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
                 Zne, Wne, *, N, config, standard, solver, solver_tol,
                 solver_maxiter, solver_restart, offsets_A, offsets_B,
-                precond, mg_A=None, mg_B=None, device, f64, record=None):
-    """(apply_A, apply_B, filter_apply) of the Krylov engine for a real
-    symmetric pencil (counterpart of ``_sparse_ops``): the operators on the
-    solve's device (DIA kernels or CSR), the half-contour filter
-    filter_apply(Q, lam, tol_hint) = (Re sum_e 2 W_e (z_e B - A)^-1 B Q,
-    all inner solves converged), with the Ritz warm start and the adaptive
-    inner tolerance as ``FeastConfig`` has them."""
+                precond, mg_A=None, mg_B=None, device, f64, record=None,
+                hermitian=False):
+    """(apply_A, apply_B, filter_apply) of the Krylov engine (counterpart
+    of ``_sparse_ops``): the operators on the solve's device (DIA kernels
+    or CSR) and the contour filter with the Ritz warm start and the
+    adaptive inner tolerance as ``FeastConfig`` has them. A real symmetric
+    pencil takes the half contour, filter_apply(Q, lam, tol_hint) =
+    (Re sum_e 2 W_e (z_e B - A)^-1 B Q, all inner solves converged); a
+    Hermitian one (complex operators) the mirrored node set
+    Zall = [Z, conj Z], Wall = [W, conj W] with the complex sum."""
     rdt = torch.float64 if f64 else torch.float32
     cdt = torch.complex128 if f64 else torch.complex64
+    wdt = cdt if hermitian else rdt
+    lo_dt = torch.complex64 if hermitian else torch.float32
     mixed = _mixed_enabled(config, device, f64)
 
     def operator(data, idx, dia, offsets, dtype):
-        if offsets is not None:
-            return _make_apply(None, torch.as_tensor(dia).to(
-                device=device, dtype=dtype), offsets)
-        with warnings.catch_warnings():    # "CSR support is in beta"
-            warnings.simplefilter("ignore", UserWarning)
-            idx = np.asarray(idx, np.int64)
-            csr = torch.sparse_coo_tensor(
-                torch.as_tensor(idx.T), torch.as_tensor(data, dtype=dtype),
-                (N, N)).coalesce().to_sparse_csr().to(device)
-        return _make_apply(csr, None, None)
+        return _operator(data, idx, dia, offsets, N, dtype, device)
 
     def counted(apply, name):
         """The real operator, its applications noted in ``record`` (the
@@ -1225,20 +1372,19 @@ def _sparse_ops(A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
     # the shifted solves take the operators as they are (their Krylov
     # calls are recorded as a whole); the core and the filter's right-hand
     # side take the counted ones
-    apply_A_c = operator(A_data, A_idx, A_dia, offsets_A, rdt)
+    apply_A_c = operator(A_data, A_idx, A_dia, offsets_A, wdt)
     apply_A = counted(apply_A_c, "A")
-    apply_A_lo = (operator(A_data, A_idx, A_dia, offsets_A, torch.float32)
+    apply_A_lo = (operator(A_data, A_idx, A_dia, offsets_A, lo_dt)
                   if mixed else None)
     apply_B_c = apply_B_lo = None
     if standard:
         def apply_B(X):
             return X
     else:
-        apply_B_c = operator(B_data, B_idx, B_dia, offsets_B, rdt)
+        apply_B_c = operator(B_data, B_idx, B_dia, offsets_B, wdt)
         apply_B = counted(apply_B_c, "B")
         if mixed:
-            apply_B_lo = operator(B_data, B_idx, B_dia, offsets_B,
-                                  torch.float32)
+            apply_B_lo = operator(B_data, B_idx, B_dia, offsets_B, lo_dt)
     # bound the Krylov memory: (restart+1) N cols at the Krylov itemsize
     # (complex64 under mixed precision), <= ~1.5 GB (the JAX package's
     # rule, per node)
@@ -1256,13 +1402,18 @@ def _sparse_ops(A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
         ir_max=config.ir_max,
         mg_opts=(config.mg_nu_pre, config.mg_nu_post, config.mg_omega,
                  config.mg_cycles),
-        group_max=config.group_max, device=device, record=record)
+        group_max=config.group_max, device=device, record=record,
+        hermitian=hermitian)
     Z = torch.as_tensor(np.asarray(Zne), dtype=cdt, device=device)
-    W2 = 2.0 * torch.as_tensor(np.asarray(Wne), dtype=cdt, device=device)
+    W = torch.as_tensor(np.asarray(Wne), dtype=cdt, device=device)
+    if hermitian:
+        Zall, Wall = torch.cat([Z, Z.conj()]), torch.cat([W, W.conj()])
+    else:
+        Zall, Wall = Z, 2.0 * W
 
     def filter_apply(Q, lam=None, tol_hint=None):
-        acc, ok = filter_partial(Z, W2, apply_B(Q).to(cdt), Q=Q, lam=lam,
-                                 tol_hint=tol_hint)
+        acc, ok = filter_partial(Zall, Wall, apply_B(Q).to(cdt), Q=Q,
+                                 lam=lam, tol_hint=tol_hint)
         return acc.to(Q.dtype), ok
 
     filter_apply.takes_ritz = bool(config.warm_start)
@@ -1275,33 +1426,36 @@ def _sparse_krylov_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                             solver, solver_tol, solver_maxiter,
                             solver_restart, Q0, grid, precond, auto_inner,
                             device) -> FeastResult:
-    """The Krylov tail of ``sparse_feast_interval`` for real symmetric
-    pencils: structure detection, the preconditioner plan, the inner
-    tolerance default (0.02 tol, floored at 10 eps), the contour, the
-    seeded subspace and the FEAST core around the Krylov filter."""
+    """The Krylov tail of ``sparse_feast_interval`` for real symmetric and
+    complex Hermitian pencils (``hermitian=None``: complex data; True on
+    real data runs in complex work precision, as in the JAX package):
+    structure detection, the narrow-band hand-off to the banded driver
+    (before any dtype decision, as the JAX package orders it), the
+    preconditioner plan, the inner tolerance default (0.02 tol, floored at
+    10 eps), the contour, the seeded subspace and the FEAST core around the
+    Krylov filter."""
     is_complex = np.iscomplexobj(_peek_dtype(A)) or (
         B is not None and np.iscomplexobj(_peek_dtype(B)))
-    if is_complex and hermitian is not False:
-        raise _not_ported("the complex Hermitian sparse path", 6)
-    # real data declared Hermitian is the same math on the real path (as
-    # the JAX package runs it where complex128 is unavailable)
+    if hermitian is None:
+        hermitian = is_complex
     f64 = _is_double(_peek_dtype(A).dtype)
     rdtype = np.float64 if f64 else np.float32
     cdtype = np.complex128 if f64 else np.complex64
-    A_data, A_idx, shape = sparse_coo_arrays(A, rdtype)
+    work = np.dtype(cdtype if hermitian else rdtype)
+    A_data, A_idx, shape = sparse_coo_arrays(A, work)
     N = shape[0]
     standard = B is None
     if standard:
         B_data, B_idx = A_data, A_idx
     else:
-        B_data, B_idx, _ = sparse_coo_arrays(B, rdtype)
+        B_data, B_idx, _ = sparse_coo_arrays(B, work)
     if not 0 < M0 <= N:
         raise ValueError(f"M0 must be in 1..N={N}, got {M0}")
     if not Emax > Emin:
         raise ValueError(f"Emin={Emin} must be < Emax={Emax}")
     (A_dia, offsets_A, B_dia, offsets_B, diagA, diagB, precond_auto, mg_A,
      mg_B) = _structured_forms(A_data, A_idx, B_data, B_idx, N, standard,
-                               rdtype, grid=grid)
+                               work, grid=grid)
     if auto_inner and grid is None:
         bwA = _narrow_band(offsets_A, N)
         bwB = (0, 0) if standard else _narrow_band(offsets_B, N)
@@ -1326,7 +1480,7 @@ def _sparse_krylov_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                          10 * float(np.finfo(rdtype).eps))
     from ..core.aux import feast_get_custom_contour
     contour = feast_get_custom_contour(fpm) or feast_contour(Emin, Emax, fpm)
-    q0_np = initial_subspace(fpm, Q0, N, M0, rdtype)
+    q0_np = initial_subspace(fpm, Q0, N, M0, work)
     if config.mode == 2:
         raise _not_ported("the stochastic eigenvalue count fpm[14]=2", 16)
     record = []
@@ -1337,7 +1491,7 @@ def _sparse_krylov_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         solver_maxiter=int(solver_maxiter),
         solver_restart=int(solver_restart), offsets_A=offsets_A,
         offsets_B=offsets_B, precond=precond, mg_A=mg_A, mg_B=mg_B,
-        device=device, f64=f64, record=record)
+        device=device, f64=f64, record=record, hermitian=hermitian)
     if config.print_level >= 1:
         print(f"feast krylov: solver={solver} precond={precond}"
               + (f" ({mg_A[3]} levels)" if precond == "mg" else "")
@@ -1362,13 +1516,16 @@ def _sparse_krylov_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
     result.krylov = dict(solver=solver, precond=precond,
                          mg_levels=mg_A[3] if precond == "mg" else None,
                          restart=int(solver_restart), standard=standard,
+                         hermitian=bool(hermitian),
                          a_dia=offsets_A is not None,
                          b_dia=offsets_B is not None, events=record)
     return result
 
 
-DIA_ENTRIES = ("dia_matvec_f32", "dia_matvec_f64", "dia_matvec_batched_f32",
-               "dia_matvec_batched_f64")
+DIA_ENTRIES = ("dia_matvec_f32", "dia_matvec_f64", "dia_matvec_c64",
+               "dia_matvec_c128", "dia_matvec_batched_f32",
+               "dia_matvec_batched_f64", "dia_matvec_batched_c64",
+               "dia_matvec_batched_c128")
 
 
 def krylov_dia_launches(krylov) -> dict:
@@ -1380,16 +1537,19 @@ def krylov_dia_launches(krylov) -> dict:
     steps 2 + 2 t times; a shifted application is one launch per operator
     on the DIA kernels (A, and B for a generalized pencil), on the batched
     entry for a node group and on the unbatched one for a single node, in
-    the Krylov call's precision (complex64 -> the f32 entry, complex128 ->
-    fp64). The operators' applications outside the filter (Rayleigh-Ritz,
-    residuals, B times the subspace) are one unbatched launch each."""
+    the Krylov call's precision: for a real pencil complex64 -> the f32
+    entry, complex128 -> fp64 (the real view); for a Hermitian one the
+    c64 / c128 entries. The operators' applications outside the filter
+    (Rayleigh-Ritz, residuals, B times the subspace) are one unbatched
+    launch each."""
     want = dict.fromkeys(DIA_ENTRIES, 0)
     on_dia = {"A": int(krylov["a_dia"]), "B": int(krylov["b_dia"])}
     per_shift = on_dia["A"] + (0 if krylov["standard"] else on_dia["B"])
+    types = ("c64", "c128") if krylov.get("hermitian") else ("f32", "f64")
     for ev in krylov["events"]:
         single = ev["dtype"] in ("torch.complex64", "torch.float32")
         name = ("dia_matvec_batched_" if ev["nodes"] > 1 else "dia_matvec_") \
-            + ("f32" if single else "f64")
+            + types[0 if single else 1]
         if ev["op"] == "gmres":
             n = per_shift * (2 + ev["trips"] * (ev["restart"] + 2))
         elif ev["op"] == "bicgstab":
@@ -1406,8 +1566,9 @@ def sparse_feast_interval(A, B, Emin, Emax, M0, fpm=None, *, hermitian=None,
                           solver=None, solver_tol=None, solver_maxiter=None,
                           solver_restart=30, Q0=None, grid=None,
                           precond=None, device=None) -> FeastResult:
-    """Sparse symmetric interval driver (counterpart of the JAX package's
-    ``sparse_feast_interval``). ``solver=None`` takes the auto route: the
+    """Sparse symmetric / Hermitian interval driver (counterpart of the JAX
+    package's ``sparse_feast_interval``; ``hermitian=None`` decides from
+    the operands' dtypes). ``solver=None`` takes the auto route: the
     polynomial realization of the contour filter (or the indicator when
     cheaper); a configuration it cannot resolve falls back, for
     N > FEAST_SPARSE_DENSE_N (default 2048), to the Krylov contour engine.
@@ -1487,3 +1648,15 @@ def feast_scsrgv(A, B, Emin, Emax, M0, fpm=None, **kw) -> FeastResult:
     """Sparse real-symmetric generalized problem (feast_scsrgv!)."""
     return sparse_feast_interval(A, B, Emin, Emax, M0, fpm,
                                  hermitian=False, **kw)
+
+
+def feast_hcsrev(A, Emin, Emax, M0, fpm=None, **kw) -> FeastResult:
+    """Sparse complex-Hermitian standard problem (feast_hcsrev!)."""
+    return sparse_feast_interval(A, None, Emin, Emax, M0, fpm,
+                                 hermitian=True, **kw)
+
+
+def feast_hcsrgv(A, B, Emin, Emax, M0, fpm=None, **kw) -> FeastResult:
+    """Sparse complex-Hermitian generalized problem (feast_hcsrgv!)."""
+    return sparse_feast_interval(A, B, Emin, Emax, M0, fpm,
+                                 hermitian=True, **kw)

@@ -797,3 +797,113 @@ def test_bcr_on_cuda_matches_dense_solve(n, kd, block, cdt):
     ref = torch.linalg.solve(z[:, None, None] * I - Ad, rhs)
     tol = 1e-4 if cdt == torch.complex64 else 1e-11
     assert float((x - ref).abs().max() / ref.abs().max()) <= tol
+
+
+_DIA_COMPLEX = [("dia_matvec_c64", torch.complex64, 1e-5, False),
+                ("dia_matvec_c128", torch.complex128, 1e-13, False),
+                ("dia_matvec_batched_c64", torch.complex64, 1e-5, True),
+                ("dia_matvec_batched_c128", torch.complex128, 1e-13, True)]
+
+
+def _complex_operands(N, offs, M, g, dtype, batched):
+    rng = np.random.default_rng(N + M + g + 1)
+    d = np.zeros((len(offs), N), complex)
+    for k, o in enumerate(offs):
+        if abs(o) < N:
+            n = N - abs(o)
+            d[k, max(0, -o):N - max(0, o)] = (rng.random(n) - 0.5
+                                              + 1j * (rng.random(n) - 0.5))
+    shape = (g, N, M) if batched else (N, M)
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return (torch.as_tensor(d).to(dtype).cuda(),
+            torch.as_tensor(x).to(dtype).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,tol,batched", _DIA_COMPLEX)
+@pytest.mark.parametrize("body", ["plan", "ring", "flat"])
+@pytest.mark.parametrize("N,offs,M,g", _DIA_AWKWARD + [
+    (1000, (-7, -2, -1, 0, 1, 2, 7), 3, 2), (1000, (-5, -3, -1), 6, 2)])
+def test_dia_complex_entries_match_plain(name, dtype, tol, batched, body, N,
+                                         offs, M, g):
+    # the complex entries under their own plan (one launch, counted on its
+    # body) and each body forced by a plan, against the plain version; a
+    # complex64 row is two columns a 16-byte piece, a complex128 one
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    d, x = _complex_operands(N, offs, M, g, dtype, batched)
+    gg = g if batched else 1
+    wrapper = getattr(D, name)
+    yp = D.dia_matvec_plain(d, offs, x)
+    if body == "plan":
+        plan = D.dia_plan(offs, N, M, gg, dtype, D._sm_count(0))
+        before = (wrapper.launches, dict(wrapper.body_launches))
+        y = wrapper(d, offs, x)
+        assert wrapper.launches == before[0] + 1
+        assert wrapper.body_launches[plan["body"]] == \
+            before[1][plan["body"]] + 1
+    else:
+        vec = 2 if dtype == torch.complex64 else 1
+        if body == "ring" and (M % vec or M < 2 * vec):
+            with pytest.raises(ValueError, match="ring body"):
+                D.dia_plan(offs, N, M, gg, dtype, body="ring")
+            return
+        plan = D.dia_plan(offs, N, M, gg, dtype, body=body)
+        y = D._launch(wrapper, d, offs, x, batched, plan=plan)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and y.dtype == dtype and y.is_cuda
+    assert float((y - yp).abs().max() / yp.abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("real_x", [False, True])
+def test_dia_matvec_any_complex_diagonals_one_launch(dtype, real_x):
+    # complex diagonals: one launch of the complex entry (a real x promoted
+    # first), no real entry
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    N, offs = 1073, (-37, -1, 0, 1, 37)
+    d, x = _complex_operands(N, offs, 8, 2, dtype, True)
+    if real_x:
+        x = x.real.contiguous()
+    before = D.launch_counts()
+    y = D.dia_matvec_any(d, offs, x)
+    after = D.launch_counts()
+    entry = "dia_matvec_batched_" + ("c64" if dtype == torch.complex64
+                                     else "c128")
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == entry) for k in after}
+    yp = D.dia_matvec_plain(d, offs, x.to(dtype))
+    tol = 1e-5 if dtype == torch.complex64 else 1e-13
+    assert float((y - yp).abs().max() / yp.abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_hermitian_feast_on_cuda_matches_cpu():
+    # the gauge-rotated Laplacian (five complex diagonals) on the
+    # polynomial path: the unfused recurrence on the complex entries
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    nx = 32
+    Dx = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    A = (sp.kron(Dx, sp.eye(nx)) + sp.kron(sp.eye(nx), Dx)).tocoo()
+    theta = np.random.default_rng(3).uniform(0.0, 2.0 * np.pi, nx * nx)
+    A = sp.csr_matrix((A.data * np.exp(1j * (theta[A.row] - theta[A.col])),
+                       (A.row, A.col)), shape=A.shape)
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    fpm[42] = 2
+    D.reset_launch_counts()
+    ck.reset_launch_counts()
+    rg = ft.feast(A, None, (0.001, 0.2), 24, fpm)
+    counts = D.launch_counts()
+    rc = ft.feast(A, None, (0.001, 0.2), 24, fpm, device="cpu")
+    assert rg.q.is_cuda and rg.q.is_complex() and rg.info == 0
+    assert rg.M == rc.M > 0
+    assert counts["dia_matvec_c64"] > 0 and counts["dia_matvec_c128"] > 0
+    assert all(v == 0 for k, v in counts.items() if k[-3:] in ("f32",
+                                                               "f64"))
+    assert all(v == 0 for v in ck.launch_counts().values())
+    assert np.abs(np.sort(rg.lam) - np.sort(rc.lam)).max() <= 1e-8
+    assert rg.res.max() <= 1e-8

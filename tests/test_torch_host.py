@@ -16,6 +16,7 @@ import pytest
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
+import scipy.linalg as sla  # noqa: E402
 import scipy.sparse as sp  # noqa: E402
 
 import feastkit_tpu_torch as ft  # noqa: E402
@@ -36,9 +37,14 @@ def _one_torch_thread():
     # The suite runs files in parallel worker processes on a few cores;
     # torch's default intra-op pool (one spinning thread per core) then
     # starves its neighbours. The port's CPU tensors here are small.
+    # numpy's and scipy's OpenBLAS pools (a spinning thread per core
+    # each) would too, and worse: beside busy cores a small SVD runs
+    # hundreds of times slower on them than on one thread
+    from threadpoolctl import threadpool_limits
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 
@@ -245,12 +251,15 @@ def test_unported_paths_raise():
     assert r.info == 0
     with pytest.raises(NotImplementedError, match="item 13"):
         ft.feast(lambda x: A @ x, None, (0.01, 0.5), 16, **kw)
-    # a sparse SPD B runs (item 8); one with no DIA form (more than 32
-    # diagonals) still needs the host-scipy bounds of item 6
+    # a sparse SPD B runs (item 8), and one with no DIA form (41
+    # diagonals) through the unfused composite on CSR products (item 6)
     wide_b = sp.eye(400) + sum(0.01 * (sp.eye(400, k=k) + sp.eye(400, k=-k))
                                for k in range(1, 21))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ft.feast(A, wide_b, (0.01, 0.5), 16, solver="cheb", **kw)
+    r = ft.feast(A, wide_b, (0.01, 0.5), 16, solver="cheb", **kw)
+    wb = sla.eigh(A.toarray(), wide_b.toarray(), eigvals_only=True)
+    wb = wb[(wb >= 0.01) & (wb <= 0.5)]
+    assert r.M == len(wb) > 0 and r.info == 0
+    assert np.abs(np.sort(r.lam) - wb).max() <= 1e-10
     # the tridiagonal CSR goes to the banded engine (item 11)
     T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(400, 400)).tocsr()
     wt = 2.0 - 2.0 * np.cos(np.arange(1, 401) * np.pi / 401)

@@ -50,9 +50,14 @@ def _one_torch_thread():
     # The suite runs files in parallel worker processes on a few cores;
     # torch's default intra-op pool (one spinning thread per core) then
     # starves its neighbours. The port's CPU tensors here are small.
+    # numpy's and scipy's OpenBLAS pools (a spinning thread per core
+    # each) would too, and worse: beside busy cores a small SVD runs
+    # hundreds of times slower on them than on one thread
+    from threadpoolctl import threadpool_limits
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(n)
 
 
