@@ -16,6 +16,7 @@ Run from the repository root on a machine with a CUDA card:
                                              # in turns
     python3 chip_smoke.py --direct           # phase 10 alone
     python3 chip_smoke.py --hermitian        # phases 3c and 11 alone
+    python3 chip_smoke.py --general          # phases 3c and 12 alone
     python3 chip_smoke.py --direct-sweep     # BCR blocks, dense LU batching
 
 Phases, each printed before the last line:
@@ -167,12 +168,36 @@ Phases, each printed before the last line:
      polynomial route, the c64 entry) against float64 LAPACK; (6) the
      crowded Hermitian tridiagonal of tests/test_sparse_matfree.py
      (n = 240) through feast_hcsrev: the banded engine (BCR);
+  12. the general-contour family through the entry points with the
+     default device: (1) feast_general on A = (1 + 0.5i) T (x) I + I (x) T
+     at P=8 (N = 65,536, five constant complex diagonals, non-Hermitian,
+     normal and complex symmetric, eigenvalues exactly (1 + 0.5i) mu_j +
+     mu_k), the circle (0.005, 0.0055446) holding 44 of them, M0 = 72,
+     fpm[3] = 8: the Krylov engine on the full contour (16 nodes, complex64
+     GMRES inside a complex128 refinement, multigrid), once cold with
+     every DIA entry's launches held to the solve's Krylov record and the
+     peak device memory, once warm with its stages timed (filter, GMRES,
+     Gram-Schmidt, V-cycle, SVD, reduced eig, Rayleigh-Ritz, host set-up)
+     and its DIA launches x their phase-3c time at its own shapes; M = 44,
+     info 0, residuals <= 1e-8, eigenvalue error <= 1e-7; (2) the same
+     operator at P=7 with complex_symmetric=True (the transpose pairing),
+     44 inside, once, counted; (3) T + 0.5i T^2 (n = 8192, kd = 2) as CSR
+     through feast_gcsrev around 21 mid-spectrum eigenvalues: the
+     narrow-band hand-off to BCR; (4) config 5 dense (bench.py's
+     _general_bench: n = 1024 complex64, feast_general, 16 inside) and (5)
+     its polynomial leg (_pep_bench: n = 512 complex64, feast_polynomial
+     with method "companion" and "direct"), each once cold and three times
+     warm (the median), then once with its stages timed, against the
+     stated eigenvalues (complex128 1e-7, complex64 1e-5 x max(1, |lam|));
+     phase 3c holds the complex entries leg (1) launches at its shapes;
   7. one JSON line {"kernels": [...]} with each kernel's launches on its
      path (the main path's, for the composite's own kernels the SPD-B
      path's, for the real DIA kernels the Krylov path's: phase 8's counted
      solves; for the complex DIA entries phase 11's Hermitian P=10 leg,
-     unbatched, and its Krylov leg, batched), its error against its plain
-     version and its times; the
+     unbatched, and its Krylov leg, batched; "path" names it; the complex
+     entries leg (1) of phase 12 launches carry a "general_p8" object with
+     that leg's launches and phase 3c's times at its shapes), its error
+     against its plain version and its times; the
      column-major entries' ms, bound_ms and library_ms are those of the
      form without T0 and acc, and their "forms" give every form's times,
      bound and launches.
@@ -1358,16 +1383,19 @@ DIA_CASES = tuple(
 # complex128 on the fp64 rung); a node group of two of the Hermitian
 # Krylov leg of phase 11 at P = 7 (all M0 = 72 columns, offsets +-1,
 # +-128; the inner complex64 Krylov and the complex128 refinement), the
-# batched entries' own path; and the same group at the Krylov path's P = 8
-# operator (one column chunk of 64)
+# batched entries' own path; and the general Krylov leg of phase 12 at
+# P = 8, whose shapes these are: a node group of two on one column chunk
+# of 64 (offsets +-1, +-256; complex64 GMRES, complex128 refinement) and
+# its Rayleigh-Ritz and residual products (unbatched complex128, M = 72)
 DIA_COMPLEX_CASES = tuple(
     ("p10", name, 1048576, (-1024, -1, 0, 1, 1024), (1048576, 72))
     for name in ("dia_matvec_c64", "dia_matvec_c128")) + tuple(
     (label, name, n, offsets, (2, n, m))
     for label, n, offsets, m in (
         ("krylov_p7", 16384, (-128, -1, 0, 1, 128), 72),
-        ("krylov_p8", 65536, DIA_LAP, 64))
-    for name in ("dia_matvec_batched_c64", "dia_matvec_batched_c128"))
+        ("general_p8", 65536, DIA_LAP, 64))
+    for name in ("dia_matvec_batched_c64", "dia_matvec_batched_c128")) + (
+    ("general_p8", "dia_matvec_c128", 65536, DIA_LAP, (65536, 72)),)
 
 
 def _rotating(entry, dia, offsets, xs):
@@ -1602,7 +1630,8 @@ def phase_dia_kernels(card_name, ptxas_dia):
     and one torch.sparse.mm (CSR) call on the same product; the same at the
     P=10 Rayleigh-Ritz and the Lanczos (M = 1) shapes, and for the complex
     entries at DIA_COMPLEX_CASES' shapes (each entry's own path's shape
-    gives its row; the others go to the "dia_other_shapes" line)."""
+    gives its row; the others go to the "dia_other_shapes" line). Returns
+    (rows, the other shapes' rows keyed "label entry")."""
     import torch
     from feastkit_tpu_torch.ops import dia as D
     print("== 3c. the DIA matvec kernels against their plain version "
@@ -1624,7 +1653,8 @@ def phase_dia_kernels(card_name, ptxas_dia):
         x = _planes(torch, dtype, shape, 1, 7)[0]
         err, worst, plan = _dia_check(torch, D, wrapper, batched, dia,
                                       offsets, x, tol, f"{label} {shape}")
-        want = "ring" if label.startswith("krylov") else "flat"
+        want = "ring" if label.startswith(("krylov", "general")) \
+            else "flat"
         check(plan["body"] == want, f"{name} {label} takes the {want} body")
         # an entry's own path's shape: the Krylov path's for the real
         # entries, P=10 for the unbatched complex entries, the Hermitian
@@ -1741,7 +1771,7 @@ def phase_dia_kernels(card_name, ptxas_dia):
             print(f"  ok: a CUDA entry refuses {what}", flush=True)
         else:
             raise AssertionError(f"a CUDA entry accepted {what}")
-    return out
+    return out, extra
 
 
 def _sync():
@@ -3120,6 +3150,413 @@ def phase_hermitian(dia_kernels, device="cuda"):
     return out
 
 
+# -- phase 12: the general-contour family ---------------------------------
+
+GENERAL_BETA = 0.5
+
+
+def general_stencil(p, beta=GENERAL_BETA):
+    """(A, its eigenvalues): A = (1 + i beta) T_x (x) I + I (x) T_y on the
+    2^p x 2^p grid (rows of nx, so the +-1 diagonals carry the complex
+    coefficient), T = tridiag(-1, 2, -1): five constant complex diagonals,
+    non-Hermitian, normal and complex symmetric, with the eigenvalues
+    exactly (1 + i beta) mu_j + mu_k, mu_j = 4 sin^2(j pi / (2 nx + 2))."""
+    import scipy.sparse as sp
+    nx = 2 ** p
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    A = ((1 + 1j * beta) * sp.kron(sp.eye(nx), T)
+         + sp.kron(T, sp.eye(nx))).tocsr()
+    mu = 4 * np.sin(np.arange(1, nx + 1) * np.pi / (2 * (nx + 1))) ** 2
+    return A, ((1 + 1j * beta) * mu[None, :] + mu[:, None]).ravel()
+
+
+def general_band(n=8192, beta=GENERAL_BETA):
+    """(A as CSR, its eigenvalues): T + i beta T^2 with T = tridiag(-1, 2,
+    -1) (half bandwidth 2, normal and complex symmetric), eigenvalues
+    mu_k + i beta mu_k^2."""
+    import scipy.sparse as sp
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(n, n))
+    mu = 4 * np.sin(np.arange(1, n + 1) * np.pi / (2 * (n + 1))) ** 2
+    return (T + 1j * beta * (T @ T)).tocsr(), mu + 1j * beta * mu ** 2
+
+
+def general_config5_dense(n=1024):
+    """The JAX package's bench.py ``_general_bench`` (BASELINE config 5):
+    diag(linspace(-1, 1)) plus strictly upper complex noise of scale
+    0.01/sqrt(n), complex64: the eigenvalues are the diagonal."""
+    rng = np.random.default_rng(2)
+    d = np.linspace(-1.0, 1.0, n)
+    A = np.triu(rng.standard_normal((n, n))
+                + 1j * rng.standard_normal((n, n)), 1).astype(np.complex64)
+    A *= 0.01 / np.sqrt(n)
+    A += np.diag(d.astype(np.complex64))
+    return A, d.astype(complex)
+
+
+def general_config5_pep(n=512):
+    """The JAX package's bench.py ``_pep_bench``: [K, C, M] with K =
+    diag(uniform(0.5, 2)), C = 0.05 I, M = I, complex64; the eigenvalues
+    -0.025 +- i sqrt(k - 0.000625)."""
+    rng = np.random.default_rng(4)
+    k = rng.uniform(0.5, 2.0, n)
+    K = np.diag(k).astype(np.complex64)
+    C = (0.05 * np.eye(n)).astype(np.complex64)
+    M = np.eye(n, dtype=np.complex64)
+    root = np.sqrt(k - 0.000625 + 0j)
+    return [K, C, M], np.concatenate([-0.025 + 1j * root, -0.025 - 1j * root])
+
+
+def _in_circle(w, Emid, r):
+    return w[np.abs(w - Emid) <= r]
+
+
+def _match_err(got, exp, rel=False):
+    """Largest eigenvalue distance under the optimal pairing (complex
+    eigenvalues whose real parts tie to rounding do not sort stably);
+    ``rel``: relative to max(1, |lam|)."""
+    from scipy.optimize import linear_sum_assignment
+    got, exp = np.asarray(got), np.asarray(exp)
+    if len(got) != len(exp):
+        return float("inf")
+    D = np.abs(got[:, None] - exp[None, :])
+    if rel:
+        D = D / np.maximum(1.0, np.abs(exp))[None, :]
+    ri, ci = linear_sum_assignment(D)
+    return float(D[ri, ci].max(initial=0.0))
+
+
+def _general_check(r, exp, bar, tol, label, rel=False):
+    """M, info 0, the eigenvalue error against the stated truth (<= bar,
+    relative to max(1, |lam|) with ``rel``), residuals <= tol, finite (N, M)
+    eigenvectors on the card; returns (error, max residual)."""
+    import torch
+    err = _match_err(r.lam, exp, rel)
+    res = float(np.max(r.res)) if r.M else 0.0
+    print(f"   {label}: M={r.M} info={int(r.info)} loops={r.loop} "
+          f"eigenvalue error {err:.3e}{' relative' if rel else ''}, max "
+          f"residual {res:.3e}", flush=True)
+    check(r.M == len(exp), f"{label}: M = {len(exp)}")
+    check(int(r.info) == 0, f"{label}: info = 0")
+    check(err <= bar, f"{label}: eigenvalue error <= {bar:g}")
+    check(res <= tol, f"{label}: residuals <= {tol:.3g}")
+    check(r.q.shape[1] == r.M and bool(torch.isfinite(r.q).all())
+          and r.q.is_cuda, f"{label}: finite (N, M) eigenvectors on the "
+          "card")
+    return err, res
+
+
+@contextlib.contextmanager
+def general_stages(times):
+    """Time a general solve's stages for the block (the device synchronised
+    at each stage's edges): the filter (each application; within it, for
+    the Krylov engine, GMRES, and within GMRES the V-cycles, Gram-Schmidt
+    and the Hessenberg least squares; for the direct engines the
+    factorizations and the solves), the thin SVD and the reduced eig of
+    Rayleigh-Ritz, Rayleigh-Ritz in all (a loop less its filter
+    application), host set-up and Q0; ``times["engines"]`` records the
+    engines that ran."""
+    import torch
+    from feastkit_tpu_torch.kernel import general
+    from feastkit_tpu_torch.ops import gmres
+    from feastkit_tpu_torch.solvers import (banded, dense, dense_general,
+                                            sparse)
+    engines = times.setdefault("engines", [])
+    saved = []
+    in_body = [False]
+
+    def add(key, dt):
+        times[key] = times.get(key, 0.0) + dt
+
+    def timed_fn(fn, key, engine=None, sync=True):
+        def wrapper(*a, **k):
+            if engine and engine not in engines:
+                engines.append(engine)
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            add(key, dt)
+            if key == "filter" and in_body[0]:
+                add("filter_in_loops", dt)
+            return out
+        return wrapper
+
+    def patch(mod, name, make):
+        orig = getattr(mod, name)
+        saved.append((mod, name, orig))
+        setattr(mod, name, make(orig))
+
+    def body_factory(orig):
+        def factory(*a, **k):
+            body = orig(*a, **k)
+
+            def timed_body(*ba, **bk):
+                in_body[0] = True
+                try:
+                    return timed_fn(body, "loops")(*ba, **bk)
+                finally:
+                    in_body[0] = False
+            return timed_body
+        return factory
+
+    patch(general, "_filter_with_ok", lambda f: timed_fn(f, "filter"))
+    patch(general, "thin_svd", lambda f: timed_fn(f, "svd"))
+    patch(general, "generalized_eig", lambda f: timed_fn(f, "reduced_eig"))
+    patch(general, "make_general_body", body_factory)
+    def marked(fn, engine):
+        def wrapper(*a, **k):
+            if engine not in engines:
+                engines.append(engine)
+            return fn(*a, **k)
+        return wrapper
+
+    patch(sparse, "_make_sparse_solve_all", lambda f: marked(f, "krylov"))
+    patch(sparse, "gmres_block", lambda f: timed_fn(f, "gmres"))
+    patch(sparse, "bicgstab_block", lambda f: timed_fn(f, "gmres"))
+    patch(gmres, "_gram_schmidt", lambda f: timed_fn(f, "gram_schmidt"))
+    patch(gmres, "_hessenberg_lstsq", lambda f: timed_fn(f, "lstsq"))
+    patch(sparse, "make_shifted_vcycle",
+          lambda f: lambda *a, **k: timed_fn(f(*a, **k), "vcycle"))
+    patch(dense, "_factor", lambda f: timed_fn(f, "factor", "dense"))
+    patch(dense_general, "lu_factor",
+          lambda f: timed_fn(f, "factor", "dense"))
+    patch(dense, "_solve", lambda f: timed_fn(f, "solves"))
+    patch(banded, "banded_to_blocktridiag",
+          lambda f: timed_fn(f, "factor", "bcr"))
+    patch(banded, "bcr_factor", lambda f: timed_fn(f, "factor"))
+    patch(banded, "bcr_solve", lambda f: timed_fn(f, "solves"))
+    for name in ("sparse_coo_arrays", "_structured_forms", "_plan_mg",
+                 "contour_tensors"):
+        patch(sparse, name,
+              lambda f: timed_fn(f, "host_setup", sync=False))
+    for mod in (sparse, dense_general, banded):
+        patch(mod, "initial_subspace",
+              lambda f: timed_fn(f, "host_q0", sync=False))
+    try:
+        yield times
+    finally:
+        for mod, name, orig in reversed(saved):
+            setattr(mod, name, orig)
+        if "loops" in times:
+            times["rayleigh_ritz"] = times["loops"] - times.get(
+                "filter_in_loops", 0.0)
+
+
+def _timed_call(solve):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = solve()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def _general_krylov_leg(label, A, exp, Emid, r, M0, dia_ms, warm,
+                        complex_symmetric=False):
+    """A sparse general solve through feast_general with the default
+    device: once cold with every DIA entry's launches counted (set to 0
+    just before, read just after) and held to the solve's Krylov record,
+    the peak device memory over it; then, with ``warm``, once warm with
+    its stages timed and its DIA launches x their phase-3c time at this
+    leg's shapes (``dia_ms``: phase 3c's rows there, by entry)."""
+    import torch
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.ops import dia as D
+    from feastkit_tpu_torch.solvers.sparse import krylov_dia_launches
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    fpm[1] = 1
+    gc.collect()    # no earlier phase's cyclic garbage in this peak
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    D.reset_launch_counts()
+    res, cold = _timed_call(lambda: ft.feast_general(
+        A, None, Emid, r, M0, fpm, complex_symmetric=complex_symmetric))
+    counts = D.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    k = res.krylov
+    want = krylov_dia_launches(k)
+    ev = k["events"]
+    calls = sum(1 for e in ev if e["op"] == "gmres")
+    trips = sum(e.get("trips", 0) for e in ev if e["op"] == "gmres")
+    print(f"   {label}: cold {cold:.2f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB; precond {k['precond']} "
+          f"({k['mg_levels']} levels), {calls} GMRES calls, {trips} restart "
+          f"cycles; DIA launches { {n: v for n, v in counts.items() if v} }"
+          f", by body {D.body_counts()}", flush=True)
+    tol = 1e-8
+    err, mres = _general_check(res, exp, 1e-7, tol, f"{label} cold")
+    check(counts == want, f"{label}: DIA launches equal the count the "
+          f"solve's Krylov record implies {want}")
+    check(k["general"] and k["complex"] and k["precond"] == "mg",
+          f"{label}: the general engine, complex work, multigrid")
+    check(counts["dia_matvec_batched_c64"] > 0
+          and counts["dia_matvec_batched_c128"] > 0
+          and counts["dia_matvec_c128"] > 0
+          and all(counts[n] == 0 for n in REAL_DIA),
+          f"{label}: the batched complex entries carried the node groups "
+          "(complex64 GMRES, complex128 refinement), the unbatched "
+          "complex128 one Rayleigh-Ritz and the residuals; no real entry")
+    out = dict(N=A.shape[0], M=res.M, info=int(res.info), loops=res.loop,
+               eig_err=err, max_res=mres, cold_s=cold, peak_bytes=peak,
+               precond=k["precond"], mg_levels=k["mg_levels"],
+               gmres_calls=calls, restart_cycles=trips,
+               launches={n: v for n, v in counts.items() if v})
+    del res
+    if not warm:
+        return out
+    stages = {}
+    with general_stages(stages):
+        D.reset_launch_counts()
+        res, warm_s = _timed_call(lambda: ft.feast_general(
+            A, None, Emid, r, M0, fpm, complex_symmetric=complex_symmetric))
+        launched = D.launch_counts()
+    engines = stages.pop("engines")
+    _general_check(res, exp, 1e-7, tol, f"{label} warm")
+    per_entry = {n: dict(launches=v, ms=dia_ms[n]["ms"],
+                         shape=dia_ms[n]["shape"],
+                         seconds=v * dia_ms[n]["ms"] / 1e3)
+                 for n, v in launched.items() if v}
+    dia_s = sum(e["seconds"] for e in per_entry.values())
+    stages = {key: round(v, 4) for key, v in sorted(stages.items())}
+    print(f"   {label}: warm {warm_s:.2f} s (stage timers on), engines "
+          f"{engines}; stages {stages}", flush=True)
+    for n, e in per_entry.items():
+        print(f"   {label}: {n} {e['launches']} launches x {e['ms']:.4f} ms "
+              f"(phase 3c, CUDA graph, shape {tuple(e['shape'])}) = "
+              f"{e['seconds']:.3f} s", flush=True)
+    print(f"   {label}: DIA launches x their phase-3c time {dia_s:.3f} s of "
+          f"the {stages.get('filter', 0.0):.3f} s filter", flush=True)
+    out.update(warm_s=warm_s, stages=stages, dia_launches_x_ms_s=dia_s,
+               dia_per_entry=per_entry)
+    return out
+
+
+def _general_direct_leg(label, solve, exp, bar, tol, want_engine, warm=3,
+                        rel=False):
+    """A direct-engine general leg: one cold solve, ``warm`` warm ones (the
+    median), the peak device memory over them, then one with its stages
+    timed; checks M, info 0, the eigenvalues against the stated truth,
+    residuals and the engine that ran."""
+    import torch
+    r, cold = _timed_call(solve)
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(warm):
+        r, s = _timed_call(solve)
+        secs.append(s)
+    peak = torch.cuda.max_memory_allocated()
+    stages = {}
+    with general_stages(stages):
+        _, staged = _timed_call(solve)
+    engines = stages.pop("engines")
+    stages = {key: round(v, 4) for key, v in sorted(stages.items())}
+    median = float(np.median(secs))
+    print(f"   {label}: engines {engines}; cold {cold:.4f} s, warm "
+          f"{[round(s, 4) for s in secs]} s, median {median:.4f} s, peak "
+          f"{peak / 2**30:.3f} GiB; stages of one more ({staged:.4f} s): "
+          f"{stages}", flush=True)
+    err, res = _general_check(r, exp, bar, tol, label, rel)
+    check(engines == [want_engine], f"{label}: the {want_engine} engine "
+          "ran, and no other")
+    return dict(engine=want_engine, M=r.M, loops=r.loop, eig_err=err,
+                max_res=res, cold_s=cold, warm_s=secs, warm_median_s=median,
+                peak_bytes=peak, stages=stages, staged_s=staged)
+
+
+# the path whose run gives each DIA entry's launches and times in the
+# kernels line
+DIA_PATHS = {
+    "dia_matvec_f32": "Krylov P=8 (phase 8)",
+    "dia_matvec_f64": "Krylov P=8 (phase 8)",
+    "dia_matvec_batched_f32": "Krylov P=8 (phase 8)",
+    "dia_matvec_batched_f64": "Krylov P=8 (phase 8)",
+    "dia_matvec_c64": "Hermitian P=10 (phase 11 leg 1)",
+    "dia_matvec_c128": "Hermitian P=10 (phase 11 leg 1)",
+    "dia_matvec_batched_c64": "Hermitian Krylov P=7 (phase 11 leg 4)",
+    "dia_matvec_batched_c128": "Hermitian Krylov P=7 (phase 11 leg 4)",
+}
+
+
+def general_dia_rows(dia_other):
+    """Phase 3c's rows of the complex entries at the general Krylov leg's
+    shapes (phase 12, P=8), keyed by entry."""
+    return {key.split(" ", 1)[1]: dict(row) for key, row in dia_other.items()
+            if key.startswith("general_p8 ")}
+
+
+def phase_general(dia_general, p=8, p_sym=7):
+    """Phase 12: the general-contour family through the entry points with
+    the default device."""
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.core.parameters import feast_tolerance
+    print("== 12. the general-contour family: feast_general, the sparse "
+          "engine on the complex DIA entries, the narrow-band hand-off, "
+          "config 5 (dense general, polynomial)", flush=True)
+    out = {}
+    # (1) P=8 through feast_general: 44 eigenvalues inside the circle, the
+    # nearest outside 7.1% of r from its edge and the nearest inside 6.6%
+    A, lam = general_stencil(p)
+    Emid, r = 0.005, 0.0055446
+    exp = _in_circle(lam, Emid, r)
+    print(f"   leg 1: (1 + {GENERAL_BETA}i) T (x) I + I (x) T at P={p}, "
+          f"N={A.shape[0]}, circle ({Emid}, {r}), {len(exp)} eigenvalues "
+          f"inside, M0=72, fpm[3]=8", flush=True)
+    check(len(exp) == 44 or p != 8, "leg 1 fixture: 44 eigenvalues inside")
+    out["general_p8"] = _general_krylov_leg(
+        f"general P={p}", A, exp, Emid, r, 72, dia_general, warm=True)
+    # (2) the transpose pairing at P=7: 44 inside
+    A, lam = general_stencil(p_sym)
+    Emid, r = 0.0195, 0.022230
+    exp = _in_circle(lam, Emid, r)
+    print(f"   leg 2: the same operator at P={p_sym} with "
+          f"complex_symmetric=True, circle ({Emid}, {r}), {len(exp)} "
+          "inside", flush=True)
+    check(len(exp) == 44 or p_sym != 7,
+          "leg 2 fixture: 44 eigenvalues inside")
+    out["complex_symmetric_p7"] = _general_krylov_leg(
+        f"complex symmetric P={p_sym}", A, exp, Emid, r, 72, None,
+        warm=False, complex_symmetric=True)
+    tol64 = feast_tolerance(ft.feastdefault(ft.feastinit()), np.complex128)
+    tol32 = feast_tolerance(ft.feastdefault(ft.feastinit()), np.complex64)
+    # (3) the narrow-band hand-off: T + i beta T^2 (n = 8192, kd = 2) as
+    # CSR, a circle around the mid-spectrum eigenvalue and its ten
+    # neighbours each side, the edge half-way to the next ones
+    A, lam = general_band()
+    Emid = complex(lam[len(lam) // 2])
+    d = np.sort(np.abs(lam - Emid))
+    r = float(d[20] + d[21]) / 2
+    exp = _in_circle(lam, Emid, r)
+    out["narrow_band"] = _general_direct_leg(
+        f"narrow band feast_gcsrev n={A.shape[0]} kd=2, {len(exp)} inside",
+        lambda: ft.feast_gcsrev(A, Emid, r, 40), exp, 1e-7, tol64, "bcr",
+        warm=1)
+    # (4) config 5, dense: bench.py's _general_bench
+    A, d = general_config5_dense()
+    exp = _in_circle(d, 0.0, 0.016)
+    out["config5_dense"] = _general_direct_leg(
+        f"config 5 dense feast_general n=1024 complex64, {len(exp)} "
+        "inside", lambda: ft.feast_general(A, None, 0.0, 0.016, 24), exp,
+        1e-5, tol32, "dense", rel=True)
+    # (5) config 5, polynomial: bench.py's _pep_bench, both methods
+    coeffs, lam = general_config5_pep()
+    Emid, r = -0.025 + 1.05j, 0.011
+    exp = _in_circle(lam, Emid, r)
+    for method in ("companion", "direct"):
+        out[f"config5_pep_{method}"] = _general_direct_leg(
+            f"config 5 feast_polynomial n=512 complex64 method={method}, "
+            f"{len(exp)} inside", lambda: ft.feast_polynomial(
+                coeffs, Emid, r, 24, method=method), exp, 1e-5, tol32,
+            "dense", rel=True)
+    return out
+
+
 def torch_tensor(X, device):
     import torch
     return torch.as_tensor(X).to(device)
@@ -3251,10 +3688,20 @@ def main(argv):
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
     if "--hermitian" in argv:
-        dia_kernels = phase_dia_kernels(smi.split(",")[0],
-                                        ptxas["dia_matvec"])
+        dia_kernels, _ = phase_dia_kernels(smi.split(",")[0],
+                                           ptxas["dia_matvec"])
         print(json.dumps({"hermitian": phase_hermitian(dia_kernels)}),
               flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if "--general" in argv:
+        _, dia_other = phase_dia_kernels(smi.split(",")[0],
+                                         ptxas["dia_matvec"])
+        print(json.dumps({"general": phase_general(
+            general_dia_rows(dia_other))}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3277,7 +3724,9 @@ def main(argv):
     nd9 = {k: gen_kernels.pop(k) for k in list(gen_kernels)
            if k.endswith("_nd9")}
     kernels.update(gen_kernels)
-    dia_kernels = phase_dia_kernels(smi.split(",")[0], ptxas["dia_matvec"])
+    dia_kernels, dia_other = phase_dia_kernels(smi.split(",")[0],
+                                               ptxas["dia_matvec"])
+    dia_general = general_dia_rows(dia_other)
     rr_ms = phase_rayleigh_ritz()
     counts = {name: None for name in (*KERNELS, *DIA_KERNELS)}
     form_counts = {}
@@ -3309,6 +3758,12 @@ def main(argv):
         for name in ("dia_matvec_batched_c64", "dia_matvec_batched_c128"):
             counts[name] = herm["hermitian_krylov_p7"]["launches"][name]
         print(json.dumps({"hermitian": herm}), flush=True)
+        general = phase_general(dia_general)
+        # the general leg's launches of the complex entries, beside their
+        # times at its own shapes
+        for name, row in dia_general.items():
+            row["launches"] = general["general_p8"]["launches"].get(name, 0)
+        print(json.dumps({"general": general}), flush=True)
     rows = []
     copy_tbs = kernels.pop("copy_tbs")
     for name, k in kernels.items():
@@ -3336,7 +3791,14 @@ def main(argv):
             bound_by=k["bound_by"], library_ms=k["library_ms"],
             steps_per_launch=0, ms_per_step=k["ms"], csr_spmm_ms=None,
             shape=k["shape"], eager_ms=k["eager_ms"], host_us=k["host_us"],
-            body=k["body"], turns_ms=k["turns"]))
+            body=k["body"], turns_ms=k["turns"],
+            path=DIA_PATHS[name]))
+        if name in dia_general:
+            # the general Krylov leg (phase 12, P=8) at its own shape
+            g = dia_general[name]
+            rows[-1]["general_p8"] = {key: g.get(key) for key in (
+                "launches", "shape", "max_abs_err", "ms", "eager_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"rayleigh_ritz_ms": rr_ms, "copy_tbs": copy_tbs,
                       "multistep_nine_diagonals": nd9,
                       "two_step_p9": {n: kernels[n].pop("p9") for n in (

@@ -14,12 +14,14 @@ import torch
 
 from .core.backend import resolve_device
 from .core.parameters import FeastParameters
+from .kernel.general import GeneralState
 from .kernel.hermitian import HermitianState
 from .ops.banded import BCRLevel
 from .ops.multigrid import GridStencil
 
 __all__ = ["fpm_from_reference", "dia_from_reference",
-           "state_from_reference", "carry_from_reference_packed",
+           "state_from_reference", "general_state_from_reference",
+           "carry_from_reference_packed",
            "stencil_from_reference", "bcr_from_reference"]
 
 
@@ -49,6 +51,14 @@ def state_from_reference(state, *, device=None) -> HermitianState:
         epsout=t(state.epsout), trace=t(state.trace),
         converged=t(state.converged).to(torch.bool),
         inner_ok=t(state.inner_ok).to(torch.bool))
+
+
+def general_state_from_reference(state, *, device=None) -> GeneralState:
+    """A reference ``GeneralState``'s leaves (complex lam and trace) -> the
+    port's tensors, for one body step from the same state."""
+    device = resolve_device(device)
+    h = state_from_reference(state, device=device)
+    return GeneralState(*h)
 
 
 def carry_from_reference_packed(planes, plan, N, M, *, device=None):

@@ -359,6 +359,8 @@ class FeastConfig:
     #   realization's
     group_max: int = 2           # contour nodes solved together in one
     #   batched Krylov solve (FEAST_GROUP_MAX)
+    aspect_ratio: float = 1.0    # fpm[18]/100: the general region's ellipse
+    rotation_deg: int = 0        # fpm[19]: and its rotation
 
     @staticmethod
     def from_fpm(fpm: FeastParameters, dtype=None) -> "FeastConfig":
@@ -379,4 +381,6 @@ class FeastConfig:
             adaptive_inner_tol=int(os.environ.get("FEAST_ADAPTIVE_TOL", 1)),
             cheb_degree=int(os.environ.get("FEAST_CHEB_DEGREE", 0)),
             group_max=int(os.environ.get("FEAST_GROUP_MAX", 2)),
+            aspect_ratio=fpm[18] / 100.0,
+            rotation_deg=fpm[19],
         )

@@ -64,10 +64,12 @@ def residuals(apply_A, apply_B, lam, q):
     return torch.linalg.vector_norm(r, dim=0) / torch.clamp(lam.abs(), min=1.0)
 
 
-def inside_first_order(lam, inside):
+def inside_first_order(lam, inside, *, general: bool = False):
     """Permutation putting inside pairs first, each group ascending in lam
-    (stable, like the JAX package's lexsort)."""
-    by_lam = torch.argsort(lam, stable=True)
+    (real case) or in |lam|^2 (general case), stable, like the JAX
+    package's lexsort."""
+    key = lam.abs() ** 2 if general else lam
+    by_lam = torch.argsort(key, stable=True)
     primary = (~inside[by_lam]).to(torch.int8)
     return by_lam[torch.argsort(primary, stable=True)]
 

@@ -1,7 +1,8 @@
 """Result, status and contour types of the PyTorch port.
 
 Counterpart of ``feastkit_tpu/core/types.py``: the same ``FeastError``
-codes, the same ``FeastResult`` fields and the same trimming rule. The port
+codes, the same ``FeastResult`` and ``FeastGeneralResult`` fields and the
+same trimming rule. The port
 returns eigenvalues and residuals as host numpy arrays and eigenvectors as
 a ``torch.Tensor`` on the device the solve ran on.
 """
@@ -77,11 +78,45 @@ class FeastResult:
         return self.q
 
 
+@dataclasses.dataclass
+class FeastGeneralResult:
+    """Result of a general (complex contour) FEAST solve: ``lam`` is
+    complex, the eigenvalues inside the region in |lam| order."""
+
+    lam: Any
+    q: Any
+    M: int
+    res: Any
+    info: FeastError
+    epsout: float
+    loop: int
+
+    lam_full: Any = None
+    q_full: Any = None
+    res_full: Any = None
+    inside: Any = None
+    inner_converged: bool = True
+    krylov: Any = None   # Krylov engine only (see FeastResult.krylov)
+
+    @property
+    def converged(self) -> bool:
+        return self.info == FeastError.SUCCESS
+
+    @property
+    def eigenvalues(self):
+        return self.lam
+
+    @property
+    def eigenvectors(self):
+        return self.q
+
+
 def _trim(result_cls, lam_full, q_full, res_full, inside, info, epsout, loop,
           inner_ok=True):
     """Trim the inside-first ordered M0-sized buffers to the M valid
-    entries. ``lam_full``, ``res_full`` and ``inside`` are host arrays;
-    ``q_full`` may be a device tensor and is sliced, not copied."""
+    entries (``result_cls`` FeastResult or FeastGeneralResult).
+    ``lam_full``, ``res_full`` and ``inside`` are host arrays; ``q_full``
+    may be a device tensor and is sliced, not copied."""
     lam_full = np.asarray(lam_full)
     res_full = np.asarray(res_full)
     inside = np.asarray(inside).astype(bool)

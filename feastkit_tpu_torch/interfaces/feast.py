@@ -1,15 +1,20 @@
-"""High-level API of the PyTorch port: ``feast``, ``feast_banded``,
+"""High-level API of the PyTorch port: ``feast``, ``feast_general``,
+``feast_banded``, ``feast_custom_contour``, ``feast_polynomial``,
 ``feast_validate_interval`` and ``feast_summary``.
 
 Counterpart of ``feastkit_tpu/interfaces/feast.py``. ``feast(A, B,
 (Emin, Emax), M0, fpm)`` routes by storage type: scipy.sparse operands to
 the sparse interval driver, dense ones (numpy arrays or tensors) to the
 dense driver after the symmetric / Hermitian checks and the Gershgorin
-check of the interval. Backend selection (``backend=``, ``parallel=``,
-``strict_backend=``) is the JAX package's, over the devices of the solve's
-type. Everything runs on ``device`` (``None`` means CUDA). Matrix-free
-operands and the sharded backend belong to engines not ported yet and
-raise ``NotImplementedError``.
+check of the interval. ``feast_general(A, B, Emid, r, M0, fpm)`` routes
+general and complex-symmetric problems the same way: sparse operands to
+the sparse general driver, dense ones to the dense general driver (the
+transpose pairing where A is complex symmetric and not Hermitian).
+Backend selection (``backend=``, ``parallel=``, ``strict_backend=``) is
+the JAX package's, over the devices of the solve's type. Everything runs
+on ``device`` (``None`` means CUDA). Matrix-free operands and the sharded
+backend belong to engines not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,12 +25,13 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..core.aux import with_custom_contour
 from ..core.backend import resolve_device, select_parallel_backend
 from ..core.parameters import _ensure_fpm
-from ..core.types import FeastResult
+from ..core.types import Contour, FeastGeneralResult, FeastResult
 
-__all__ = ["feast", "feast_banded", "feast_summary",
-           "feast_validate_interval"]
+__all__ = ["feast", "feast_general", "feast_banded", "feast_custom_contour",
+           "feast_polynomial", "feast_summary", "feast_validate_interval"]
 
 _VALID_BACKENDS = ("auto", "serial", "sharded", "threads", "distributed",
                    "mpi")
@@ -130,10 +136,8 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
     Emin, Emax = float(interval[0]), float(interval[1])
     if not Emax > Emin:
         raise ValueError(f"Emin={Emin} must be < Emax={Emax}")
-    if hasattr(A, "matvec") or callable(A):
-        raise NotImplementedError(
-            "feast() on matrix-free operators is not ported to "
-            "feastkit_tpu_torch yet (ROADMAP.md, queue 1 item 13)")
+    if _is_matfree(A):
+        raise _matfree_not_ported("feast()")
     device = resolve_device(device)
     if sp.issparse(A):
         _resolve_backend(backend, parallel, strict_backend, device,
@@ -167,6 +171,107 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
                                  Q0=Q0, device=device, **kw)
 
 
+def _matfree_not_ported(what):
+    return NotImplementedError(
+        f"{what} on matrix-free operators is not ported to "
+        "feastkit_tpu_torch yet (ROADMAP.md, queue 1 item 13)")
+
+
+def _is_matfree(A) -> bool:
+    return hasattr(A, "matvec") or callable(A)
+
+
+def _complex_symmetric(A) -> bool:
+    """A complex, A == A^T and A != A^H (numpy's allclose tolerances)."""
+    if isinstance(A, torch.Tensor):
+        return bool(A.is_complex() and torch.allclose(A, A.mT)
+                    and not torch.allclose(A, A.mH))
+    A = np.asarray(A)
+    return bool(np.iscomplexobj(A) and np.allclose(A, A.T)
+                and not np.allclose(A, A.conj().T))
+
+
+def feast_general(A, B=None, Emid=0.0, r=1.0, M0=None, fpm=None, *,
+                  backend=None, parallel=None, strict_backend=False,
+                  complex_symmetric=None, device=None, **kw
+                  ) -> FeastGeneralResult:
+    """All eigenpairs of a general A x = lam B x inside the rotated
+    ellipse (Emid, r, fpm[18], fpm[19]).
+
+    Sparse operands (scipy.sparse) go to the sparse general driver
+    (``solvers/sparse.sparse_feast_general``: the narrow-band hand-off to
+    BCR, else the Krylov contour engine on the DIA kernels), dense ones
+    (numpy arrays or tensors) to the dense general driver; a dense complex
+    A that is symmetric and not Hermitian takes the transpose pairing
+    unless ``complex_symmetric`` says otherwise (for sparse operands it is
+    False unless given). Backend selection as in ``feast``: "auto" is
+    sharded for sparse operands on two or more devices, which (like any
+    sharded request that resolves so) raises NotImplementedError.
+    ``device=None`` means CUDA; ``kw`` goes to the driver."""
+    fpm = _ensure_fpm(fpm)
+    if _is_matfree(A):
+        raise _matfree_not_ported("feast_general()")
+    device = resolve_device(device)
+    if sp.issparse(A):
+        _resolve_backend(backend, parallel, strict_backend, device,
+                         auto_sharded=True)
+        from ..solvers.sparse import sparse_feast_general
+        N = A.shape[0]
+        M0r = min(int(M0 or max(8, N // 10)), N)
+        return sparse_feast_general(A, B, Emid, r, M0r, fpm,
+                                    bilinear=bool(complex_symmetric),
+                                    device=device, **kw)
+    N = A.shape[0]
+    if M0 is None:
+        M0 = min(N, max(8, N // 10))
+    M0 = min(int(M0), N)
+    _resolve_backend(backend, parallel, strict_backend, device,
+                     auto_sharded=False)
+    if complex_symmetric is None:
+        complex_symmetric = _complex_symmetric(A)
+    from ..solvers.dense_general import dense_general_feast
+    return dense_general_feast(A, B, Emid, r, M0, fpm,
+                               bilinear=bool(complex_symmetric),
+                               device=device, **kw)
+
+
+def feast_custom_contour(A, B, Zne, Wne, M0, fpm=None, *, general=None,
+                         Emid=None, r=None, interval=None, **kw):
+    """Solve with an explicit user contour: (Zne, Wne) registered in the
+    fpm[29] registry for the call, routed to ``feast`` (pass
+    ``interval=(Emin, Emax)``) or ``feast_general`` (``Emid`` and ``r``
+    serve only the inside test; by default the centre of the nodes and
+    their largest distance from it)."""
+    contour = Contour(np.asarray(Zne, complex), np.asarray(Wne, complex))
+    fpm = _ensure_fpm(fpm)
+    if general is None:
+        general = interval is None
+    with with_custom_contour(fpm, contour):
+        if general:
+            if Emid is None or r is None:
+                Emid = complex(contour.Zne.mean())
+                r = float(np.abs(contour.Zne - Emid).max())
+            return feast_general(A, B, Emid, r, M0, fpm, **kw)
+        return feast(A, B, interval, M0, fpm, **kw)
+
+
+def feast_polynomial(coeffs, Emid, r, M0, fpm=None, *, method="companion",
+                     **kw) -> FeastGeneralResult:
+    """Polynomial eigenproblem sum_k lam^k A_k x = 0 inside the ellipse
+    (Emid, r). ``method``: "companion" (the first-companion linearization
+    to a d N pencil on the dense general driver, machine precision) or
+    "direct" (the Beyn moment scheme on the N-dimensional polynomial
+    resolvent: d times less memory, accuracy limited by the quadrature).
+    "matfree", or a coefficient given as an operator, raises
+    NotImplementedError (not ported)."""
+    from ..solvers import dense_general as _dg
+    if method == "matfree" or any(_is_matfree(c) for c in coeffs):
+        raise _matfree_not_ported("feast_polynomial()")
+    if method == "direct":
+        return _dg.feast_pep_direct(coeffs, Emid, r, M0, fpm, **kw)
+    return _dg.feast_pep(coeffs, Emid, r, M0, fpm, **kw)
+
+
 def feast_banded(A_bands, kl, ku, interval, M0, fpm=None, *, B_bands=None,
                  klb=0, kub=0, **kw) -> FeastResult:
     """Banded symmetric / Hermitian FEAST on [Emin, Emax]: band storage
@@ -190,7 +295,9 @@ def feast_banded(A_bands, kl, ku, interval, M0, fpm=None, *, B_bands=None,
 def feast_summary(result, file=None):
     """Human-readable run summary (same text as the JAX package)."""
     file = file or sys.stdout
-    print("FEAST Hermitian eigensolver summary", file=file)
+    kind = "general" if isinstance(result, FeastGeneralResult) \
+        else "Hermitian"
+    print(f"FEAST {kind} eigensolver summary", file=file)
     print(f"  eigenvalues found (M) : {result.M}", file=file)
     print(f"  refinement loops      : {result.loop}", file=file)
     print(f"  max relative residual : {result.epsout:.3e}", file=file)

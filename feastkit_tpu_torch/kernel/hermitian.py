@@ -28,7 +28,7 @@ from ..core.tools import (inside_first_order, orthonormalize,
 __all__ = ["HermitianState", "make_rayleigh_ritz_update",
            "verify_spurious_from", "init_hermitian_state", "SPURIOUS_RES",
            "VERIFY_FILTER_TOL", "LOOP_TOL_CAP", "feast_hermitian_core",
-           "make_hermitian_body", "verify_spurious"]
+           "make_hermitian_body", "verify_spurious", "refine"]
 
 # In-loop plausibility cut: Ritz pairs with O(1) residual are never counted
 # toward convergence (counterpart of fpm[38] spurious detection).
@@ -124,13 +124,14 @@ def make_rayleigh_ritz_update(apply_A: Callable, apply_B: Callable,
     return update
 
 
-def verify_spurious_from(state: HermitianState, Qproj,
-                         ok=True) -> HermitianState:
+def verify_spurious_from(state: HermitianState, Qproj, ok=True, *,
+                         general: bool = False) -> HermitianState:
     """Final spurious verification from a filtered subspace: a genuine
-    inside pair keeps projector norm rho = ||P q|| > 0.25."""
+    inside pair keeps projector norm rho = ||P q|| > 0.25. ``general``: a
+    ``kernel/general.GeneralState``, reordered by |lam|."""
     rho = torch.linalg.vector_norm(Qproj, dim=0)
     genuine = state.inside & (rho > 0.25) & (state.res < SPURIOUS_RES)
-    order = inside_first_order(state.lam, genuine)
+    order = inside_first_order(state.lam, genuine, general=general)
     zero = torch.zeros((), dtype=state.res.dtype, device=state.res.device)
     return state._replace(
         lam=state.lam[order], Q=state.Q[:, order], res=state.res[order],
@@ -208,7 +209,13 @@ def feast_hermitian_core(apply_A: Callable, apply_B: Callable,
     body = make_hermitian_body(apply_A, apply_B, filter_apply, Emin, Emax,
                                tol=tol,
                                convergence_criterion=convergence_criterion)
-    state, epsout = init, float("inf")
+    return verify_spurious(refine(body, init, max_loops), filter_apply)
+
+
+def refine(body: Callable, state, max_loops: int):
+    """The refinement loop of both cores: ``body(state, epsout)`` at most
+    max_loops + 1 times from ``state``, stopping once it converges."""
+    epsout = float("inf")
     while state.loop < max_loops + 1:
         state = body(state, epsout)
         # one host read per loop: the flag and epsout (the next hint)
@@ -216,4 +223,4 @@ def feast_hermitian_core(apply_A: Callable, apply_B: Callable,
                                     state.epsout]).tolist()
         if conv:
             break
-    return verify_spurious(state, filter_apply)
+    return state

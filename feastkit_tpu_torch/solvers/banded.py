@@ -16,9 +16,12 @@ Hermitian one or one on more than 32 diagonals in the unfused recurrence
 the driver answers with BCR. It never returns to the sparse router.
 
 The general and complex-symmetric drivers (``feast_gbev`` / ``gbgv`` /
-``sbev_complex`` / ``sbgv_complex``) are queue 1 item 12, the stochastic
-count fpm[14] = 2 item 16. The JAX package's pair and embedding mechanisms
-and its host-driven programs are TPU-only and not ported.
+``sbev_complex`` / ``sbgv_complex``) factor the shifted pencils of the full
+contour by the same BCR and take the complex sum sum_e W_e X_e over every
+node, with ``kernel/general.feast_general_core`` around it. The stochastic
+count fpm[14] = 2 is queue 1 item 16. The JAX package's pair and embedding
+mechanisms, its demotion of complex128 work and its host-driven programs
+are TPU-only and not ported.
 """
 from __future__ import annotations
 
@@ -31,11 +34,14 @@ from ..core.backend import resolve_device
 from ..core.contour import feast_contour
 from ..core.parameters import FeastConfig, _ensure_fpm
 from ..core.tools import initial_subspace
-from ..core.types import FeastError, FeastResult, _trim
+from ..core.types import FeastError, FeastGeneralResult, FeastResult, _trim
+from ..kernel.general import contour_tensors, feast_general_core, \
+    general_result
 from ..kernel.hermitian import feast_hermitian_core
 from ..ops.banded import (banded_matvec, banded_to_blocktridiag, bcr_factor,
                           bcr_solve)
 from ..ops.chebfilter import ChebInfeasible
+from ..ops.eig import check_method
 from .dense import _TORCH_DTYPE
 from .sparse import _contour_poly_default, _not_ported, _sparse_cheb_interval
 
@@ -225,19 +231,77 @@ def feast_hbgv(A_bands, kl, ku, B_bands, klb, kub, Emin, Emax, M0,
                                    Emin, Emax, M0, fpm, hermitian=True, **kw)
 
 
-def _general_not_ported(name):
-    def driver(*args, **kw):
-        raise _not_ported(f"the banded general-contour driver {name} "
-                          "(full contour, non-Hermitian or complex-symmetric "
-                          "pencils)", 12)
-    driver.__name__ = name
-    driver.__doc__ = (f"The JAX package's ``{name}``: not ported yet "
-                      "(ROADMAP.md, queue 1 item 12); raises "
-                      "NotImplementedError.")
-    return driver
+def _banded_general_driver(A_bands, kl, ku, B_bands, klb, kub, Emid, r, M0,
+                           fpm, bilinear, eig_method=None, Q0=None,
+                           device=None) -> FeastGeneralResult:
+    """The general / complex-symmetric banded driver: the shifted pencils
+    of the full contour around Emid factored once by BCR, the complex sum
+    sum_e W_e X_e over every node (weights unscaled, no mirroring), and
+    ``kernel/general.feast_general_core`` around it, in complex64 for
+    single-precision bands and complex128 otherwise. ``eig_method`` as in
+    ``dense_general.dense_general_feast``."""
+    check_method(eig_method)
+    device = resolve_device(device)
+    fpm = _ensure_fpm(fpm)
+    A_np, B_np = _host(A_bands), _host(B_bands)
+    N = A_np.shape[1]
+    if not 0 < M0 <= N:
+        raise ValueError(f"M0 must be in 1..N={N}, got {M0}")
+    if not r > 0:
+        raise ValueError(f"Contour radius must be positive, got {r}")
+    f64 = A_np.dtype in (np.dtype(np.float64), np.dtype(np.complex128))
+    cdtype = np.dtype(np.complex128 if f64 else np.complex64)
+    config = FeastConfig.from_fpm(fpm, dtype=cdtype)
+    if config.mode == 2:
+        raise _not_ported("the stochastic eigenvalue count fpm[14]=2 on "
+                          "the banded general driver", 16)
+    Zne, Wne = contour_tensors(fpm, Emid, r, cdtype, device)
+
+    def dev(x):
+        return None if x is None else torch.as_tensor(
+            np.asarray(x, cdtype)).to(device)
+
+    apply_A, apply_B, solve_all = _banded_machinery(
+        dev(A_np), kl, ku, dev(B_np), klb, kub, Zne, _TORCH_DTYPE[cdtype])
+
+    def filter_apply(Q):
+        return torch.einsum("e,enm->nm", Wne, solve_all(apply_B(Q)))
+
+    q0 = torch.as_tensor(initial_subspace(fpm, Q0, N, M0, cdtype,
+                                          general=True)).to(device)
+    state = feast_general_core(
+        apply_A, apply_B, filter_apply, q0, complex(Emid), float(r),
+        tol=config.tol, max_loops=config.max_loops,
+        aspect_ratio=config.aspect_ratio, rotation_deg=config.rotation_deg,
+        convergence_criterion=config.convergence_criterion,
+        subspace_only=(config.mode == 1), bilinear=bilinear)
+    return general_result(state)
 
 
-feast_gbev = _general_not_ported("feast_gbev")
-feast_gbgv = _general_not_ported("feast_gbgv")
-feast_sbev_complex = _general_not_ported("feast_sbev_complex")
-feast_sbgv_complex = _general_not_ported("feast_sbgv_complex")
+def feast_gbev(A_bands, kl, ku, Emid, r, M0, fpm=None, **kw
+               ) -> FeastGeneralResult:
+    """Banded general standard problem (feast_gbev!)."""
+    return _banded_general_driver(A_bands, kl, ku, None, 0, 0, Emid, r, M0,
+                                  fpm, bilinear=False, **kw)
+
+
+def feast_gbgv(A_bands, kl, ku, B_bands, klb, kub, Emid, r, M0, fpm=None,
+               **kw) -> FeastGeneralResult:
+    """Banded general generalized problem (feast_gbgv!)."""
+    return _banded_general_driver(A_bands, kl, ku, B_bands, klb, kub, Emid,
+                                  r, M0, fpm, bilinear=False, **kw)
+
+
+def feast_sbev_complex(A_bands, kl, ku, Emid, r, M0, fpm=None, **kw
+                       ) -> FeastGeneralResult:
+    """Banded complex-symmetric standard problem (feast_sbev_complex!): the
+    transpose pairing."""
+    return _banded_general_driver(A_bands, kl, ku, None, 0, 0, Emid, r, M0,
+                                  fpm, bilinear=True, **kw)
+
+
+def feast_sbgv_complex(A_bands, kl, ku, B_bands, klb, kub, Emid, r, M0,
+                       fpm=None, **kw) -> FeastGeneralResult:
+    """Banded complex-symmetric generalized problem (feast_sbgv_complex!)."""
+    return _banded_general_driver(A_bands, kl, ku, B_bands, klb, kub, Emid,
+                                  r, M0, fpm, bilinear=True, **kw)

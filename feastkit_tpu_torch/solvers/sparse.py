@@ -1,8 +1,10 @@
-"""Sparse symmetric and Hermitian interval FEAST: the polynomial-filter path
-and the Krylov contour engine (PyTorch).
+"""Sparse FEAST: the symmetric and Hermitian interval drivers (the
+polynomial-filter path and the Krylov contour engine) and the general /
+complex-symmetric drivers on the Krylov engine (PyTorch).
 
-Counterpart of the interval half of ``feastkit_tpu/solvers/sparse.py``
-(``feast_scsrev`` / ``scsrgv`` / ``hcsrev`` / ``hcsrgv``): the auto route
+Counterpart of ``feastkit_tpu/solvers/sparse.py`` (``feast_scsrev`` /
+``scsrgv`` / ``hcsrev`` / ``hcsrgv``; ``feast_gcsrev`` / ``gcsrgv`` /
+``scsrev_complex`` / ``scsrgv_complex`` / ``scsrpev``): the auto route
 of ``sparse_feast_interval`` (the rational-contour filter realized as one
 Chebyshev polynomial, or the Jackson indicator when that is cheaper),
 ``solver="cheb"`` / ``"contour_poly"``, and the refinement of
@@ -63,6 +65,16 @@ the mirrored node set [Z, conj Z] with a complex accumulator for a
 Hermitian one. ``kernel/hermitian.feast_hermitian_core`` refines around
 it.
 
+The general engine (``sparse_feast_general``: general pencils inside the
+ellipse (Emid, r), and complex-symmetric ones with the transpose pairing)
+runs the same Krylov filter in complex work on the full contour as given
+(``_sparse_general_ops``: no mirrored nodes, the complex sum
+sum_e W_e X_e), on the complex DIA entries for an operator of at most 32
+diagonals, with ``kernel/general.feast_general_core`` around it; a
+narrow-banded pencil goes to the banded general driver first, and a
+polynomial eigenproblem's sparse coefficients are densified onto
+``solvers/dense_general.feast_pep``.
+
 Two hand-offs leave this module for the direct engines, as in the JAX
 package: a narrow-banded pencil (half bandwidth <= 16, N <= 16384) that
 nothing pinned to an iterative solve goes to the banded driver
@@ -72,11 +84,14 @@ its own polynomial route at N >= 4096), and a pencil of N <=
 onto the dense engine (``solvers/dense.dense_hermitian_feast``).
 
 The JAX package's real embedding of complex Hermitian pencils
-(``_sparse_embedded_hermitian``) and its ``f64_lu_unavailable`` gate exist
-because a TPU has no complex128; they are not ported. Not ported yet
+(``_sparse_embedded_hermitian``), its ``f64_lu_unavailable`` gate and the
+general engine's demotion of complex128 work (``demote_f64_general``)
+exist because a TPU has no complex128, and its choice of the on-device QR
+eigensolver where complex I/O is required because a remote TPU runtime
+cannot call back to the host; they are not ported. Not ported yet
 (raising ``NotImplementedError`` naming its ROADMAP.md queue 1 item): the
 stochastic count fpm[14]=2 (item 16). Sharded meshes (item 15) are
-refused by ``feast()``.
+refused by ``feast()`` and ``feast_general()``.
 """
 from __future__ import annotations
 
@@ -92,7 +107,9 @@ from ..core.contour import feast_contour
 from ..core.parameters import (FeastConfig, _ensure_fpm,
                                ifeast_solver_options)
 from ..core.tools import initial_subspace
-from ..core.types import FeastError, FeastResult, _trim
+from ..core.types import FeastError, FeastGeneralResult, FeastResult, _trim
+from ..kernel.general import contour_tensors, feast_general_core, \
+    general_result
 from ..kernel.hermitian import (SPURIOUS_RES, VERIFY_FILTER_TOL,
                                 feast_hermitian_core, init_hermitian_state,
                                 make_rayleigh_ritz_update,
@@ -107,13 +124,17 @@ from ..ops.chebfilter import (ChebInfeasible, _cheb_init, binva_enclosure,
                               gershgorin_interval, make_apply_binv_a,
                               make_cheb_stepper, rational_filter_cheb_coeffs)
 from ..ops.dia import bcoo_to_dia, dia_matvec, dia_matvec_any
+from ..ops.eig import check_method
 from ..ops.gmres import bicgstab_block, gmres_block
 from ..ops.multigrid import (GridStencil, detect_grid_stencil,
                              make_shifted_vcycle, plan_mg_levels)
 from .dense import _TORCH_DTYPE
 
 __all__ = ["feast_scsrev", "feast_scsrgv", "feast_hcsrev", "feast_hcsrgv",
-           "sparse_coo_arrays", "sparse_feast_interval"]
+           "sparse_coo_arrays", "sparse_feast_interval",
+           "sparse_feast_general", "feast_gcsrev", "feast_gcsrgv",
+           "feast_scsrev_complex", "feast_scsrgv_complex", "feast_scsrpev",
+           "feast_hcsrpev", "feast_gcsrpev"]
 
 def _not_ported(what, item):
     return NotImplementedError(
@@ -1125,11 +1146,12 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
                            mg_B=None, mixed=False, apply_A_lo=None,
                            apply_B_lo=None, ir_max=5, mg_opts=(2, 2, 0.8, 1),
                            group_max=2, device="cpu", record=None,
-                           hermitian=False):
+                           complex_sum=False):
     """filter_partial(Z, W, rhs, Q, lam, tol_hint) -> (sum_e Re(W_e X_e),
     conv) with X_e = (z_e B - A)^-1 rhs (counterpart of
-    ``_make_sparse_solve_all``); ``hermitian``: the complex sum
-    sum_e W_e X_e (the mirrored node set of a Hermitian pencil).
+    ``_make_sparse_solve_all``); ``complex_sum``: the complex sum
+    sum_e W_e X_e (complex work: the mirrored node set of a Hermitian
+    pencil, the full contour of a general one).
 
     The nodes are solved in groups of g = min(ne, group_max), each group
     one batched solve on a (g, N, cols) carry (a group of one runs the
@@ -1312,7 +1334,7 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
         warm = Q is not None and lam is not None
         ne = Z.shape[0]
         g = max(1, min(ne, int(group_max)))
-        acc = torch.zeros(rhs.shape, dtype=rhs.dtype if hermitian
+        acc = torch.zeros(rhs.shape, dtype=rhs.dtype if complex_sum
                           else rhs.real.dtype, device=rhs.device)
         convs = []
         for b0 in range(0, ne, g):
@@ -1327,7 +1349,8 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
                                         tol_hint=tol_hint), rhs, X0g)
             del X0g
             for i in range(zg.shape[0]):        # the JAX package's order
-                acc += wg[i] * X[i] if hermitian else (wg[i] * X[i]).real
+                acc += wg[i] * X[i] if complex_sum \
+                    else (wg[i] * X[i]).real
             convs.append(conv.reshape(-1))
             del X
         return acc, torch.all(torch.cat(convs))
@@ -1335,23 +1358,32 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
     return filter_partial
 
 
+_NODE_SETS = ("half", "mirrored", "full")
+
+
 def _sparse_ops(A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
                 Zne, Wne, *, N, config, standard, solver, solver_tol,
                 solver_maxiter, solver_restart, offsets_A, offsets_B,
                 precond, mg_A=None, mg_B=None, device, f64, record=None,
-                hermitian=False):
+                nodes="half"):
     """(apply_A, apply_B, filter_apply) of the Krylov engine (counterpart
     of ``_sparse_ops``): the operators on the solve's device (DIA kernels
     or CSR) and the contour filter with the Ritz warm start and the
-    adaptive inner tolerance as ``FeastConfig`` has them. A real symmetric
-    pencil takes the half contour, filter_apply(Q, lam, tol_hint) =
-    (Re sum_e 2 W_e (z_e B - A)^-1 B Q, all inner solves converged); a
-    Hermitian one (complex operators) the mirrored node set
-    Zall = [Z, conj Z], Wall = [W, conj W] with the complex sum."""
+    adaptive inner tolerance as ``FeastConfig`` has them. ``nodes`` fixes
+    the node set, the work type and the sum: "half" (a real symmetric
+    pencil) the half contour in real work, filter_apply(Q, lam, tol_hint)
+    = (Re sum_e 2 W_e (z_e B - A)^-1 B Q, all inner solves converged);
+    "mirrored" (a Hermitian one) the node set Zall = [Z, conj Z], Wall =
+    [W, conj W] in complex work (complex64 / complex128) with the complex
+    sum; "full" (a general one) the full contour as given in complex work,
+    with the complex sum sum_e W_e (z_e B - A)^-1 B Q."""
+    if nodes not in _NODE_SETS:
+        raise ValueError(f"nodes must be one of {_NODE_SETS}, got {nodes!r}")
+    complex_work = nodes != "half"
     rdt = torch.float64 if f64 else torch.float32
     cdt = torch.complex128 if f64 else torch.complex64
-    wdt = cdt if hermitian else rdt
-    lo_dt = torch.complex64 if hermitian else torch.float32
+    wdt = cdt if complex_work else rdt
+    lo_dt = torch.complex64 if complex_work else torch.float32
     mixed = _mixed_enabled(config, device, f64)
 
     def operator(data, idx, dia, offsets, dtype):
@@ -1403,11 +1435,13 @@ def _sparse_ops(A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
         mg_opts=(config.mg_nu_pre, config.mg_nu_post, config.mg_omega,
                  config.mg_cycles),
         group_max=config.group_max, device=device, record=record,
-        hermitian=hermitian)
-    Z = torch.as_tensor(np.asarray(Zne), dtype=cdt, device=device)
-    W = torch.as_tensor(np.asarray(Wne), dtype=cdt, device=device)
-    if hermitian:
+        complex_sum=complex_work)
+    Z = torch.as_tensor(Zne, dtype=cdt, device=device)
+    W = torch.as_tensor(Wne, dtype=cdt, device=device)
+    if nodes == "mirrored":
         Zall, Wall = torch.cat([Z, Z.conj()]), torch.cat([W, W.conj()])
+    elif nodes == "full":
+        Zall, Wall = Z, W
     else:
         Zall, Wall = Z, 2.0 * W
 
@@ -1491,7 +1525,8 @@ def _sparse_krylov_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         solver_maxiter=int(solver_maxiter),
         solver_restart=int(solver_restart), offsets_A=offsets_A,
         offsets_B=offsets_B, precond=precond, mg_A=mg_A, mg_B=mg_B,
-        device=device, f64=f64, record=record, hermitian=hermitian)
+        device=device, f64=f64, record=record,
+        nodes="mirrored" if hermitian else "half")
     if config.print_level >= 1:
         print(f"feast krylov: solver={solver} precond={precond}"
               + (f" ({mg_A[3]} levels)" if precond == "mg" else "")
@@ -1517,6 +1552,7 @@ def _sparse_krylov_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                          mg_levels=mg_A[3] if precond == "mg" else None,
                          restart=int(solver_restart), standard=standard,
                          hermitian=bool(hermitian),
+                         complex=bool(hermitian),
                          a_dia=offsets_A is not None,
                          b_dia=offsets_B is not None, events=record)
     return result
@@ -1537,15 +1573,16 @@ def krylov_dia_launches(krylov) -> dict:
     steps 2 + 2 t times; a shifted application is one launch per operator
     on the DIA kernels (A, and B for a generalized pencil), on the batched
     entry for a node group and on the unbatched one for a single node, in
-    the Krylov call's precision: for a real pencil complex64 -> the f32
-    entry, complex128 -> fp64 (the real view); for a Hermitian one the
-    c64 / c128 entries. The operators' applications outside the filter
+    the Krylov call's precision: for real work (a real symmetric pencil)
+    complex64 -> the f32 entry, complex128 -> fp64 (the real view); for
+    complex work (a Hermitian or a general pencil, ``krylov["complex"]``)
+    the c64 / c128 entries. The operators' applications outside the filter
     (Rayleigh-Ritz, residuals, B times the subspace) are one unbatched
     launch each."""
     want = dict.fromkeys(DIA_ENTRIES, 0)
     on_dia = {"A": int(krylov["a_dia"]), "B": int(krylov["b_dia"])}
     per_shift = on_dia["A"] + (0 if krylov["standard"] else on_dia["B"])
-    types = ("c64", "c128") if krylov.get("hermitian") else ("f32", "f64")
+    types = ("c64", "c128") if krylov["complex"] else ("f32", "f64")
     for ev in krylov["events"]:
         single = ev["dtype"] in ("torch.complex64", "torch.float32")
         name = ("dia_matvec_batched_" if ev["nodes"] > 1 else "dia_matvec_") \
@@ -1660,3 +1697,161 @@ def feast_hcsrgv(A, B, Emin, Emax, M0, fpm=None, **kw) -> FeastResult:
     """Sparse complex-Hermitian generalized problem (feast_hcsrgv!)."""
     return sparse_feast_interval(A, B, Emin, Emax, M0, fpm,
                                  hermitian=True, **kw)
+
+
+# --- the general / complex-symmetric contour engine -------------------------
+
+def _sparse_general_ops(A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA,
+                        diagB, Zne, Wne, **kw):
+    """(apply_A, apply_B, filter_apply) of the general engine (counterpart
+    of ``_sparse_general_ops``): ``_sparse_ops`` in complex work with the
+    full contour as given, filter_apply(Q, lam, tol_hint) =
+    (sum_e W_e (z_e B - A)^-1 B Q, all inner solves converged)."""
+    return _sparse_ops(A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA,
+                       diagB, Zne, Wne, nodes="full", **kw)
+
+
+def sparse_feast_general(A, B, Emid, r, M0, fpm=None, *, bilinear=False,
+                         eig_method=None, solver=None, solver_tol=None,
+                         solver_maxiter=None, solver_restart=30, Q0=None,
+                         grid=None, precond=None, device=None
+                         ) -> FeastGeneralResult:
+    """Sparse general / complex-symmetric driver (counterpart of the JAX
+    package's ``sparse_feast_general``): every eigenpair of A x = lam B x
+    inside the ellipse (Emid, r, fpm[18], fpm[19]), complex64 work for
+    single-precision A, complex128 otherwise. A narrow-banded pencil (half
+    bandwidth <= 16, N <= 16384) that nothing pinned to an iterative solve
+    goes to the banded general driver (BCR); everything else runs the
+    Krylov contour engine on the full contour (``solver`` "gmres" or
+    "bicgstab", ``solver_tol`` default max(0.1 tol, 10 eps), multigrid
+    where the operands are grid stencils and a V-cycle is feasible for
+    shifts up to Re(Emid) + r, else Jacobi or none), under mixed precision
+    complex64 Krylov inside a complex128 refinement (fpm[42]; on for
+    CUDA). ``bilinear``: the transpose pairing of a complex-symmetric
+    pencil. ``eig_method`` as in ``dense_general.dense_general_feast``.
+    ``device=None`` means CUDA."""
+    check_method(eig_method)
+    device = resolve_device(device)
+    fpm = _ensure_fpm(fpm)
+    iopts = ifeast_solver_options(fpm) or {}
+    # the banded delegation stays available only when nothing pinned the
+    # inner solve to an iterative method
+    auto_inner = (solver is None and not iopts and solver_tol is None
+                  and solver_maxiter is None and precond is None)
+    solver = _solver_fn(solver or iopts.get("solver", "gmres"))
+    solver_tol = solver_tol if solver_tol is not None \
+        else iopts.get("solver_tol")
+    solver_maxiter = (solver_maxiter if solver_maxiter is not None
+                      else iopts.get("solver_maxiter", 500))
+    f64 = _is_double(_peek_dtype(A).dtype)
+    rdtype = np.float64 if f64 else np.float32
+    cdtype = np.dtype(np.complex128 if f64 else np.complex64)
+    A_data, A_idx, shape = sparse_coo_arrays(A, cdtype)
+    N = shape[0]
+    standard = B is None
+    if standard:
+        B_data, B_idx = A_data, A_idx
+    else:
+        B_data, B_idx, _ = sparse_coo_arrays(B, cdtype)
+    if not 0 < M0 <= N:
+        raise ValueError(f"M0 must be in 1..N={N}, got {M0}")
+    if not r > 0:
+        raise ValueError(f"Contour radius must be positive, got {r}")
+    (A_dia, offsets_A, B_dia, offsets_B, diagA, diagB, precond_auto, mg_A,
+     mg_B) = _structured_forms(A_data, A_idx, B_data, B_idx, N, standard,
+                               cdtype, grid=grid)
+    if auto_inner and grid is None:
+        bwA = _narrow_band(offsets_A, N)
+        bwB = (0, 0) if standard else _narrow_band(offsets_B, N)
+        if bwA is not None and bwB is not None:
+            # narrow-banded pencil: exact BCR factor / solve per contour
+            # node (direct-solver semantics) on its band storage
+            from ..ops.banded import dia_to_banded
+            from .banded import _banded_general_driver
+            A_bands = dia_to_banded(A_dia, offsets_A, *bwA)
+            B_bands = None if standard else dia_to_banded(
+                B_dia, offsets_B, *bwB)
+            return _banded_general_driver(
+                A_bands, bwA[0], bwA[1], B_bands, bwB[0], bwB[1], Emid, r,
+                M0, fpm, bilinear, Q0=Q0, device=device)
+    precond, mg_A, mg_B = _plan_mg(
+        mg_A, mg_B, float(np.real(complex(Emid))) + float(r), precond_auto,
+        precond)
+    config = FeastConfig.from_fpm(fpm, dtype=cdtype)
+    if solver_tol is None:
+        solver_tol = max(config.tol * 0.1, 10 * float(np.finfo(rdtype).eps))
+    Zne, Wne = contour_tensors(fpm, Emid, r, cdtype, device)
+    if config.mode == 2:
+        raise _not_ported("the stochastic eigenvalue count fpm[14]=2", 16)
+    q0_np = initial_subspace(fpm, Q0, N, M0, cdtype, general=True)
+    record = []
+    apply_A, apply_B, filter_apply = _sparse_general_ops(
+        A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
+        Zne, Wne, N=N, config=config, standard=standard,
+        solver=solver, solver_tol=float(solver_tol),
+        solver_maxiter=int(solver_maxiter),
+        solver_restart=int(solver_restart), offsets_A=offsets_A,
+        offsets_B=offsets_B, precond=precond, mg_A=mg_A, mg_B=mg_B,
+        device=device, f64=f64, record=record)
+    if config.print_level >= 1:
+        print(f"feast krylov (general): solver={solver} precond={precond}"
+              + (f" ({mg_A[3]} levels)" if precond == "mg" else "")
+              + f" solver_tol={float(solver_tol):.2e} "
+              f"restart={int(solver_restart)} "
+              f"maxiter={int(solver_maxiter)} "
+              f"col_block={filter_apply.col_block} "
+              f"group={max(1, min(Zne.shape[0], config.group_max))} "
+              f"mixed={_mixed_enabled(config, device, f64)}", flush=True)
+    state = feast_general_core(
+        apply_A, apply_B, filter_apply,
+        torch.as_tensor(q0_np).to(device), complex(Emid), float(r),
+        tol=config.tol, max_loops=config.max_loops,
+        aspect_ratio=config.aspect_ratio, rotation_deg=config.rotation_deg,
+        convergence_criterion=config.convergence_criterion,
+        subspace_only=(config.mode == 1), bilinear=bilinear)
+    result = general_result(state)
+    result.krylov = dict(solver=solver, precond=precond,
+                         mg_levels=mg_A[3] if precond == "mg" else None,
+                         restart=int(solver_restart), standard=standard,
+                         hermitian=False, complex=True, general=True,
+                         a_dia=offsets_A is not None,
+                         b_dia=offsets_B is not None, events=record)
+    return result
+
+
+def feast_gcsrev(A, Emid, r, M0, fpm=None, **kw) -> FeastGeneralResult:
+    """Sparse general standard problem (feast_gcsrev!)."""
+    return sparse_feast_general(A, None, Emid, r, M0, fpm, **kw)
+
+
+def feast_gcsrgv(A, B, Emid, r, M0, fpm=None, **kw) -> FeastGeneralResult:
+    """Sparse general generalized problem (feast_gcsrgv!)."""
+    return sparse_feast_general(A, B, Emid, r, M0, fpm, **kw)
+
+
+def feast_scsrev_complex(A, Emid, r, M0, fpm=None, **kw
+                         ) -> FeastGeneralResult:
+    """Sparse complex-symmetric standard problem (feast_scsrev_complex!):
+    the transpose pairing."""
+    return sparse_feast_general(A, None, Emid, r, M0, fpm, bilinear=True,
+                                **kw)
+
+
+def feast_scsrgv_complex(A, B, Emid, r, M0, fpm=None, **kw
+                         ) -> FeastGeneralResult:
+    """Sparse complex-symmetric generalized problem
+    (feast_scsrgv_complex!)."""
+    return sparse_feast_general(A, B, Emid, r, M0, fpm, bilinear=True, **kw)
+
+
+def feast_scsrpev(coeffs, Emid, r, M0, fpm=None, **kw) -> FeastGeneralResult:
+    """Sparse polynomial eigenproblem: the coefficients densified and
+    linearized (``solvers/dense_general.feast_pep``), as in the JAX
+    package."""
+    from .dense_general import feast_pep
+    return feast_pep([_densify(c) if not isinstance(c, torch.Tensor)
+                      else c for c in coeffs], Emid, r, M0, fpm, **kw)
+
+
+feast_hcsrpev = feast_scsrpev
+feast_gcsrpev = feast_scsrpev

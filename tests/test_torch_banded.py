@@ -546,10 +546,23 @@ def test_banded_refusals():
         ft.feast_sbev(bands, 2, 1, 1.0, 3.0, 8, device="cpu")
     with pytest.raises(ValueError, match="M0 must be in"):
         ft.feast_sbev(bands, 1, 1, 1.0, 3.0, 51, device="cpu")
+    # the general drivers (item 12, ported since) refuse the stochastic
+    # count too, and solve: diag(1..50) with a weak symmetric band, the
+    # five eigenvalues near 8..12 inside the circle (10, 2.5)
+    A = np.diag(np.arange(1.0, 51.0)) + 0.01 * (np.eye(50, k=1)
+                                                + np.eye(50, k=-1))
+    general = port_banded.full_to_banded(A.astype(complex), 1, 1)
+    eye = port_banded.full_to_banded(np.eye(50, dtype=complex), 1, 1)
     for name in ("feast_gbev", "feast_gbgv", "feast_sbev_complex",
                  "feast_sbgv_complex"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            getattr(port_sb, name)(bands, 1, 1, 0.0, 1.0, 8, device="cpu")
+        fn = getattr(port_sb, name)
+        lead = (general, 1, 1) + ((eye, 1, 1) if "gv" in name else ())
+        with pytest.raises(NotImplementedError, match="item 16"):
+            fn(*lead, 10.0, 2.5, 8, fpm, device="cpu")
+        r = fn(*lead, 10.0, 2.5, 8, device="cpu")
+        assert r.M == 5 and int(r.info) == 0
+        assert np.abs(np.sort(r.lam.real) - np.linalg.eigvalsh(A)[7:12]
+                      ).max() <= 1e-10
 
 
 def test_poly_route_and_bcr_match_reference(solves):

@@ -3,10 +3,12 @@
 The Chebyshev step kernels (row-major, column-major, 2- and 4-step; the
 multi-step ones under block shapes other than the plan's), the
 combine of the SPD-B composite and the DIA matvec entries, each against its
-plain version at small shapes; what a CUDA entry refuses; and a standard, a
+plain version at small shapes; what a CUDA entry refuses; a standard, a
 consistent-mass and a Krylov (GMRES with multigrid) solve on the card
-against the same solve on the CPU. Needs a CUDA device and nvcc; elsewhere every test
-here skips. Run on the card with
+against the same solve on the CPU; and the general family's drivers
+(dense, banded, polynomial, and the sparse Krylov engine with its DIA
+launches held to its record) on the card against the CPU. Needs a CUDA
+device and nvcc; elsewhere every test here skips. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda.py`` (this file imports no
 JAX, so it runs where only the port is installed). The full device check,
 at the main path's shapes, is chip_smoke.py.
@@ -906,4 +908,168 @@ def test_hermitian_feast_on_cuda_matches_cpu():
                                                                "f64"))
     assert all(v == 0 for v in ck.launch_counts().values())
     assert np.abs(np.sort(rg.lam) - np.sort(rc.lam)).max() <= 1e-8
+    assert rg.res.max() <= 1e-8
+
+
+def _general_inside(w, Emid, r):
+    return w[np.abs(w - Emid) <= r]
+
+
+def _circle(w, Emid, count):
+    """The radius around Emid half-way between the count-th nearest
+    eigenvalue and the next: (r, the eigenvalues inside)."""
+    d = np.sort(np.abs(w - Emid))
+    r = float(d[count - 1] + d[count]) / 2
+    return r, _general_inside(w, Emid, r)
+
+
+def _general_match(got, exp):
+    from scipy.optimize import linear_sum_assignment
+    got, exp = np.asarray(got), np.asarray(exp)
+    assert len(got) == len(exp)
+    D = np.abs(got[:, None] - exp[None, :])
+    ri, ci = linear_sum_assignment(D)
+    return D[ri, ci].max(initial=0.0)
+
+
+_GENERAL = [(dt, gen, bil) for dt in ("c64", "c128") for gen in (False, True)
+            for bil in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,gen,bil", _GENERAL)
+def test_dense_general_on_cuda_matches_cpu(dt, gen, bil):
+    # a normal matrix U diag(w) U^T (complex symmetric for the transpose
+    # pairing: U complex orthogonal there) with a seeded spectrum
+    _need_cuda()
+    import scipy.linalg as sla
+    rng = np.random.default_rng(5)
+    n = 160
+    w = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    if bil:
+        U, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        A = (U * w[None, :]) @ U.T
+    else:
+        U, _ = np.linalg.qr(rng.standard_normal((n, n))
+                            + 1j * rng.standard_normal((n, n)))
+        A = (U * w[None, :]) @ U.conj().T
+    B = None
+    if gen:
+        C = rng.standard_normal((n, n)) * 0.2 / np.sqrt(n)
+        B = np.eye(n) + (C + C.T) / 2
+        w = sla.eig(A, B, right=False)
+    cdt = {"c64": np.complex64, "c128": np.complex128}[dt]
+    A = A.astype(cdt)
+    B = None if B is None else B.astype(cdt)
+    Emid = 0.2 + 0.1j
+    r, exp = _circle(w, Emid, 12)
+    kw = dict(complex_symmetric=bil)
+    rg = ft.feast_general(A, B, Emid, r, len(exp) + 8, **kw)
+    rc = ft.feast_general(A, B, Emid, r, len(exp) + 8, device="cpu", **kw)
+    bar = 1e-4 if dt == "c64" else 1e-9
+    assert rg.q.is_cuda and int(rg.info) == 0 and rg.M == rc.M == len(exp)
+    assert _general_match(rg.lam, rc.lam) <= bar
+    assert _general_match(rg.lam, exp) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,gen,bil", _GENERAL)
+def test_banded_general_on_cuda_matches_cpu(dt, gen, bil):
+    # T + i beta T^2 on a band (normal and complex symmetric), a
+    # generalized pencil with a diagonal B
+    _need_cuda()
+    import scipy.linalg as sla
+    from feastkit_tpu_torch.ops.banded import full_to_banded
+    n, beta = 600, 0.5
+    T = np.diag(2.0 * np.ones(n)) - np.diag(np.ones(n - 1), 1) \
+        - np.diag(np.ones(n - 1), -1)
+    A = T + 1j * beta * (T @ T)
+    mu = 4 * np.sin(np.arange(1, n + 1) * np.pi / (2 * (n + 1))) ** 2
+    w = mu + 1j * beta * mu ** 2
+    kw = {}
+    if gen:
+        b = 1.0 + 0.2 * np.random.default_rng(6).random(n)
+        w = sla.eig(A, np.diag(b), right=False)
+        kw = dict(B_bands=full_to_banded(np.diag(b).astype(complex), 0, 0),
+                  klb=0, kub=0)
+    cdt = {"c64": np.complex64, "c128": np.complex128}[dt]
+    bands = full_to_banded(A, 2, 2).astype(cdt)
+    if gen:
+        kw["B_bands"] = kw["B_bands"].astype(cdt)
+    Emid = 2.0 + 2.0j
+    r, exp = _circle(w, Emid, 6)
+    fn = ft.feast_sbev_complex if bil else ft.feast_gbev
+    if gen:
+        fn = ft.feast_sbgv_complex if bil else ft.feast_gbgv
+        args = (bands, 2, 2, kw["B_bands"], 0, 0, Emid, r, len(exp) + 8)
+    else:
+        args = (bands, 2, 2, Emid, r, len(exp) + 8)
+    rg = fn(*args)
+    rc = fn(*args, device="cpu")
+    bar = 1e-4 if dt == "c64" else 1e-9
+    assert rg.q.is_cuda and int(rg.info) == 0 and rg.M == rc.M == len(exp)
+    assert _general_match(rg.lam, rc.lam) <= bar
+    assert _general_match(rg.lam, exp) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["companion", "direct"])
+def test_polynomial_on_cuda_matches_cpu(method):
+    _need_cuda()
+    n = 96
+    k = np.linspace(0.5, 2.0, n)
+    K, C, M = np.diag(k), 0.05 * np.eye(n), np.eye(n)
+    lam = np.concatenate([-0.025 + 1j * np.sqrt(k - 0.000625 + 0j),
+                          -0.025 - 1j * np.sqrt(k - 0.000625 + 0j)])
+    Emid, r = -0.025 + 1.05j, 0.03
+    exp = _general_inside(lam, Emid, r)
+    rg = ft.feast_polynomial([K, C, M], Emid, r, len(exp) + 8,
+                             method=method)
+    rc = ft.feast_polynomial([K, C, M], Emid, r, len(exp) + 8,
+                             method=method, device="cpu")
+    bar = 1e-9 if method == "companion" else 1e-6
+    assert rg.q.is_cuda and rg.M == rc.M == len(exp) > 0
+    assert int(rg.info) == int(rc.info)
+    assert _general_match(rg.lam, rc.lam) <= bar
+    assert _general_match(rg.lam, exp) <= (1e-9 if method == "companion"
+                                           else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bil", [False, True])
+def test_sparse_general_on_cuda_matches_cpu(bil):
+    # the complex stencil (1 + i beta) T (x) I + I (x) T on a 32 x 32 grid
+    # through the Krylov engine: multigrid, complex64 GMRES inside a
+    # complex128 refinement on CUDA, the complex DIA entries launched as
+    # the solve's Krylov record implies
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    from feastkit_tpu_torch.solvers.sparse import krylov_dia_launches
+    nx, beta = 32, 0.5
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    A = ((1 + 1j * beta) * sp.kron(sp.eye(nx), T)
+         + sp.kron(T, sp.eye(nx))).tocsr()
+    mu = 4 * np.sin(np.arange(1, nx + 1) * np.pi / (2 * (nx + 1))) ** 2
+    lam = ((1 + 1j * beta) * mu[None, :] + mu[:, None]).ravel()
+    Emid, r = 0.15, 0.1
+    exp = _general_inside(lam, Emid, r)
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    D.reset_launch_counts()
+    rg = ft.feast_general(A, None, Emid, r, len(exp) + 8, fpm,
+                          solver="gmres", complex_symmetric=bil)
+    counts = D.launch_counts()
+    rc = ft.feast_general(A, None, Emid, r, len(exp) + 8, fpm,
+                          solver="gmres", complex_symmetric=bil,
+                          device="cpu")
+    assert rg.q.is_cuda and int(rg.info) == 0 and rg.M == rc.M == len(exp)
+    assert rg.krylov["precond"] == "mg" and rg.krylov["complex"]
+    assert counts == krylov_dia_launches(rg.krylov)
+    for name in ("dia_matvec_batched_c64", "dia_matvec_batched_c128",
+                 "dia_matvec_c128"):
+        assert counts[name] > 0, name
+    assert all(v == 0 for k, v in counts.items() if k[-3:] in ("f32",
+                                                               "f64"))
+    assert _general_match(rg.lam, rc.lam) <= 1e-8
+    assert _general_match(rg.lam, exp) <= 1e-8
     assert rg.res.max() <= 1e-8
