@@ -17,6 +17,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --direct           # phase 10 alone
     python3 chip_smoke.py --hermitian        # phases 3c and 11 alone
     python3 chip_smoke.py --general          # phases 3c and 12 alone
+    python3 chip_smoke.py --matfree          # phases 3c and 13 alone
     python3 chip_smoke.py --direct-sweep     # BCR blocks, dense LU batching
 
 Phases, each printed before the last line:
@@ -190,17 +191,48 @@ Phases, each printed before the last line:
      warm (the median), then once with its stages timed, against the
      stated eigenvalues (complex128 1e-7, complex64 1e-5 x max(1, |lam|));
      phase 3c holds the complex entries leg (1) launches at its shapes;
+  13. the matrix-free drivers and the RCI step machines through the entry
+     points on the card: (1) feast on a LinearOperator whose matvec is
+     dia_matvec_f64 on the P=10 Laplacian's five diagonals (BASELINE.json
+     config 4, N = 1,048,576, the main path's interval, M0 = 72, fpm[3] =
+     8), solver="cheb": 192 Lanczos steps for the bounds, the unfused
+     Chebyshev recurrence on the operator; once cold with the peak device
+     memory and the launches counted and held to their reckoning (192 +
+     applications x (series length - 1) + 2 per loop, from the series
+     and the applications the solve records), once warm with its stages
+     timed (Lanczos bounds, filter, Rayleigh-Ritz, Q0; the filter's
+     launches x phase 3c's time at this shape); M = 52, error <= 1e-8,
+     residuals <= 1e-8, info 0, no other kernel launched; (2) the
+     matrix-free Krylov engine (unpreconditioned GMRES(30), then BiCGStab)
+     through feast on the real Laplacian's DIA operator at
+     P = MATFREE_P_REAL (the complex blocks as two real products), and
+     feast_general on phase 12's complex stencil at P = MATFREE_P_GEN (a
+     circle holding 40), against the analytic eigenvalues (1e-8 / 1e-7);
+     (3) feast_polynomial(method="matfree") on config 5's coefficients as
+     operators on the card (1e-5 x max(1, |lam|)), and feast_matvec on
+     config 2's pencil in float64 with the caller's solve_shifted (torch LU
+     on the card) against float64 LAPACK (1e-10); (4) FeastSRCI on config
+     2's pencil (float64, 16 nodes, M0 = 32) and FeastGRCI on config 5's
+     dense matrix (complex128, M0 = 24), serviced with torch LU on the
+     card, against the port's feast_sygv / feast_general there (1e-10 /
+     1e-7), each timed;
   7. one JSON line {"kernels": [...]} with each kernel's launches on its
      path (the main path's, for the composite's own kernels the SPD-B
      path's, for the real DIA kernels the Krylov path's: phase 8's counted
      solves; for the complex DIA entries phase 11's Hermitian P=10 leg,
      unbatched, and its Krylov leg, batched; "path" names it; the complex
      entries leg (1) of phase 12 launches carry a "general_p8" object with
-     that leg's launches and phase 3c's times at its shapes), its error
+     that leg's launches and phase 3c's times at its shapes; the fp64
+     entry's "matfree_p10" object has phase 13 leg (1)'s launches and
+     phase 3c's times at that leg's shape), its error
      against its plain version and its times; the
      column-major entries' ms, bound_ms and library_ms are those of the
      form without T0 and acc, and their "forms" give every form's times,
      bound and launches.
+Run without a flag, the script leaves out the staged warm solves of phase
+8, of phase 11 leg (1) and of phase 12 leg (1), and runs phase 11 leg (3)
+at P=7, to finish inside its time limit with phase 13; --hermitian and
+--general run those phases at full depth.
 The last line is {"ok": true, "device": {...}}. Any failed check raises
 and exits nonzero before that line. Without a CUDA device the script
 exits nonzero and prints no result.
@@ -1900,12 +1932,13 @@ def _krylov_breakdown(A, B, Emin, Emax, M0, fpm, dia_ms, device="cuda",
                 info=int(r.info), **times)
 
 
-def phase_krylov(dia_kernels, nx=256, device="cuda"):
+def phase_krylov(dia_kernels, nx=256, device="cuda", staged=True):
     """Phase 8: the Krylov contour engine on the 2D Laplacian at P = 8 with
     solver="gmres": once cold (its launches counted, its peak memory
-    read), once warm with its stages timed, and once with
-    FEAST_GROUP_MAX=1 (the unbatched entries carry every apply), which
-    must agree with the default node groups."""
+    read), with ``staged`` once warm with its stages timed (the whole
+    script cuts it for time), and once with FEAST_GROUP_MAX=1 (the
+    unbatched entries carry every apply), which must agree with the
+    default node groups."""
     import torch
     print(f"== 8. Krylov path: feast(lap2d({nx}), solver='gmres') with "
           "multigrid", flush=True)
@@ -1945,12 +1978,15 @@ def phase_krylov(dia_kernels, nx=256, device="cuda"):
     # the warm solve, its stages timed (the timers synchronise the device
     # at each stage's edges)
     dia_ms = {n: k["ms"] for n, k in dia_kernels.items()}
-    breakdown = _krylov_breakdown(A, None, Emin, Emax, M0, fpm, dia_ms,
-                                  device, **kw)
-    check(breakdown["M"] == len(exp) and breakdown["info"] == 0,
-          "the warm Krylov solve agrees")
-    warm = [breakdown["wall_s"]]
-    print(f"   warm solve {warm[0]:.3f} s (with stage timers)", flush=True)
+    breakdown, warm = None, []
+    if staged:
+        breakdown = _krylov_breakdown(A, None, Emin, Emax, M0, fpm, dia_ms,
+                                      device, **kw)
+        check(breakdown["M"] == len(exp) and breakdown["info"] == 0,
+              "the warm Krylov solve agrees")
+        warm = [breakdown["wall_s"]]
+        print(f"   warm solve {warm[0]:.3f} s (with stage timers)",
+              flush=True)
     with group_max(1):
         r1, g1_s, counts1, _ = _krylov_counted(
             A, None, Emin, Emax, M0, fpm, "Krylov FEAST_GROUP_MAX=1",
@@ -1969,7 +2005,8 @@ def phase_krylov(dia_kernels, nx=256, device="cuda"):
               and counts1["dia_matvec_batched_f64"] == 0,
               "FEAST_GROUP_MAX=1: the unbatched entries carry every apply")
     return dict(cold_s=cold_s, warm_s=warm,
-                warm_median_s=float(np.median(warm)), group1_s=g1_s,
+                warm_median_s=float(np.median(warm)) if warm else None,
+                group1_s=g1_s,
                 peak_bytes=peak, counts=counts, counts_group1=counts1,
                 launches=total, breakdown=breakdown)
 
@@ -2938,11 +2975,12 @@ def all_counts():
         seen.update(ck.launch_counts())
 
 
-def _hermitian_p10(dia_kernels, p):
+def _hermitian_p10(dia_kernels, p, staged=True):
     """Leg 1: feast(A_g, None, (Emin, Emax), 72) on the gauge-rotated 2D
     Laplacian at P = p (the polynomial path, the unfused recurrence on the
-    complex DIA kernels): once cold, twice warm (the first with the launch
-    counts, the second with its stages timed)."""
+    complex DIA kernels): once cold, once warm (the launch counts and the
+    peak memory are the warm solve's), and with ``staged`` once more with
+    its stages timed."""
     import torch
     import feastkit_tpu_torch as ft
     nx = 2 ** p
@@ -2958,29 +2996,33 @@ def _hermitian_p10(dia_kernels, p):
     print(f"   leg 1: gauge-rotated lap2d({nx}), N={N}, five complex "
           f"diagonals, interval=({Emin:.6e}, {Emax:.6e}) M0={M0}",
           flush=True)
-    r, cold_s = _run_feast(A, None, Emin, Emax, M0, fpm)
-    print(f"   cold solve {cold_s:.2f} s", flush=True)
-    _check_result(r, exp, 1e-8, f"Hermitian P={p} cold")
-    check(len(exp) == 52 or p != 10, "fixture: 52 pairs")
-    del r
-    torch.cuda.empty_cache()
-    gc.collect()
-    torch.cuda.reset_peak_memory_stats()
-    with all_counts() as counts:
-        r, warm_s = _run_feast(A, None, Emin, Emax, M0, fpm)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"   warm solve {warm_s:.2f} s, peak device memory "
-          f"{peak / 2**30:.2f} GiB; launches "
-          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
-    _check_result(r, exp, 1e-8, f"Hermitian P={p} warm")
-    check(r.q.dtype == torch.complex128, "complex128 eigenvectors")
-    check(counts["dia_matvec_c64"] > 0 and counts["dia_matvec_c128"] > 0,
-          "the complex64 (f32 rung) and complex128 (fp64 rung, "
-          "Rayleigh-Ritz) DIA entries carried the products")
-    check(all(counts[n] == 0 for n in REAL_DIA) and all(
-        counts[n] == 0 for n in KERNELS),
-        "no real DIA entry and no Chebyshev kernel launched")
-    del r
+    secs = {}
+    for label in ("cold", "warm"):
+        torch.cuda.empty_cache()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        with all_counts() as counts:
+            r, secs[label] = _run_feast(A, None, Emin, Emax, M0, fpm)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"   {label} solve {secs[label]:.2f} s, peak device memory "
+              f"{peak / 2**30:.2f} GiB; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        _check_result(r, exp, 1e-8, f"Hermitian P={p} {label}")
+        check(len(exp) == 52 or p != 10, "fixture: 52 pairs")
+        check(r.q.dtype == torch.complex128, "complex128 eigenvectors")
+        check(counts["dia_matvec_c64"] > 0
+              and counts["dia_matvec_c128"] > 0,
+              "the complex64 (f32 rung) and complex128 (fp64 rung, "
+              "Rayleigh-Ritz) DIA entries carried the products")
+        check(all(counts[n] == 0 for n in REAL_DIA) and all(
+            counts[n] == 0 for n in KERNELS),
+            "no real DIA entry and no Chebyshev kernel launched")
+        del r
+    cold_s, warm_s = secs["cold"], secs["warm"]
+    if not staged:
+        return dict(N=N, cold_s=cold_s, warm_s=[warm_s],
+                    warm_median_s=warm_s, peak_bytes=peak,
+                    launches={k: v for k, v in counts.items() if v})
     breakdown = _breakdown(A, None, Emin, Emax, M0, fpm)
     warm = [warm_s, breakdown["wall_s"]]
     ms = {n: dia_kernels[n]["ms"] for n in ("dia_matvec_c64",
@@ -3119,16 +3161,18 @@ def _hermitian_krylov_leg(p):
                 precond=r.krylov["precond"], mg_levels=r.krylov["mg_levels"])
 
 
-def phase_hermitian(dia_kernels, device="cuda"):
+def phase_hermitian(dia_kernels, device="cuda", staged=True, p_mass=8):
     """Phase 11: complex Hermitian pencils and operators beyond 32
-    diagonals through the entry points a user calls."""
+    diagonals through the entry points a user calls (``staged``: leg 1's
+    staged warm solve; ``p_mass``: the permuted consistent-mass leg's P;
+    the whole script cuts both for time)."""
     import feastkit_tpu_torch as ft
     from feastkit_tpu_torch.core.parameters import feast_tolerance
     print("== 11. complex Hermitian sparse pencils, operators on more than "
           "32 diagonals", flush=True)
-    out = {"hermitian_p10": _hermitian_p10(dia_kernels, 10)}
+    out = {"hermitian_p10": _hermitian_p10(dia_kernels, 10, staged)}
     out["permuted_p9"] = _permuted_leg(9)
-    out["permuted_mass_p8"] = _permuted_mass_leg(8)
+    out[f"permuted_mass_p{p_mass}"] = _permuted_mass_leg(p_mass)
     out["hermitian_krylov_p7"] = _hermitian_krylov_leg(7)
     tol = feast_tolerance(ft.feastdefault(ft.feastinit()), np.complex64)
     bands = banded_hermitian_throughput()
@@ -3491,9 +3535,10 @@ def general_dia_rows(dia_other):
             if key.startswith("general_p8 ")}
 
 
-def phase_general(dia_general, p=8, p_sym=7):
+def phase_general(dia_general, p=8, p_sym=7, staged=True):
     """Phase 12: the general-contour family through the entry points with
-    the default device."""
+    the default device (``staged``: leg 1's staged warm solve, which the
+    whole script cuts for time)."""
     import feastkit_tpu_torch as ft
     from feastkit_tpu_torch.core.parameters import feast_tolerance
     print("== 12. the general-contour family: feast_general, the sparse "
@@ -3510,7 +3555,7 @@ def phase_general(dia_general, p=8, p_sym=7):
           f"inside, M0=72, fpm[3]=8", flush=True)
     check(len(exp) == 44 or p != 8, "leg 1 fixture: 44 eigenvalues inside")
     out["general_p8"] = _general_krylov_leg(
-        f"general P={p}", A, exp, Emid, r, 72, dia_general, warm=True)
+        f"general P={p}", A, exp, Emid, r, 72, dia_general, warm=staged)
     # (2) the transpose pairing at P=7: 44 inside
     A, lam = general_stencil(p_sym)
     Emid, r = 0.0195, 0.022230
@@ -3554,6 +3599,385 @@ def phase_general(dia_general, p=8, p_sym=7):
             f"{len(exp)} inside", lambda: ft.feast_polynomial(
                 coeffs, Emid, r, 24, method=method), exp, 1e-5, tol32,
             "dense", rel=True)
+    return out
+
+
+# the Laplacian's and the complex stencil's P on the matrix-free Krylov
+# leg of phase 13 (unpreconditioned GMRES(30) resolves both within its
+# default maxiter)
+MATFREE_P_REAL = 6
+MATFREE_P_GEN = 6
+
+
+# -- phase 13: the matrix-free drivers and the RCI step machines ----------
+
+def dia_operator(A, dtype, entry=None):
+    """A LinearOperator over A's DIA diagonals on the card
+    (``bcoo_to_dia``), its matvec the DIA kernel: the entry ``entry`` of
+    ops/dia.py, else ``dia_matvec_any``."""
+    import torch
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.ops import dia as D
+    from feastkit_tpu_torch.solvers.sparse import sparse_coo_arrays
+    data, idx, _ = sparse_coo_arrays(A, dtype)
+    dia, offsets = D.bcoo_to_dia(data, idx, A.shape[0])
+    d = torch.as_tensor(dia, device="cuda")
+    mv = entry or D.dia_matvec_any
+    return ft.LinearOperator(lambda X: mv(d, offsets, X), A.shape, d.dtype,
+                             symmetric=not d.is_complex())
+
+
+@contextlib.contextmanager
+def matfree_stages(record, timed=False):
+    """Record a matrix-free polynomial solve's filter (its series length
+    ``n_coeffs`` and its ``applications``) and, with ``timed``, time its
+    stages into ``record`` (the device synchronised at each stage's
+    edges): the Lanczos bounds, the filter applications, Rayleigh-Ritz
+    with the residuals (each loop's update), the seeded Q0."""
+    import torch
+    from feastkit_tpu_torch.kernel import hermitian
+    from feastkit_tpu_torch.ops import chebfilter
+    from feastkit_tpu_torch.solvers import matfree as MF
+    record["applications"] = 0
+    saved = (MF.operator_spectrum_bounds, MF.initial_subspace,
+             chebfilter.make_cheb_filter, hermitian.make_rayleigh_ritz_update)
+
+    def timer(key, fn):
+        def run(*a, **k):
+            if not timed:
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            record[key] = record.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def make_filter(apply_A, lo, hi, coeffs):
+        filt = saved[2](apply_A, lo, hi, coeffs)
+        record["n_coeffs"] = len(coeffs)
+
+        def counted(Q):
+            record["applications"] += 1
+            return filt(Q)
+        return timer("filter", counted)
+
+    MF.operator_spectrum_bounds = timer("lanczos_bounds", saved[0])
+    MF.initial_subspace = timer("q0", saved[1])
+    chebfilter.make_cheb_filter = make_filter
+    hermitian.make_rayleigh_ritz_update = lambda *a, **k: timer(
+        "rayleigh_ritz", saved[3](*a, **k))
+    try:
+        yield record
+    finally:
+        (MF.operator_spectrum_bounds, MF.initial_subspace,
+         chebfilter.make_cheb_filter,
+         hermitian.make_rayleigh_ritz_update) = saved
+
+
+def matfree_launches(N, record, loops, steps=192):
+    """The DIA launches a matrix-free polynomial solve must make: the
+    Lanczos steps (one M = 1 product each), then per filter application
+    one product per series term after the first (the recurrence's init
+    and its len(coeffs) - 2 steps), and per refinement loop two more
+    (Rayleigh-Ritz and the residuals)."""
+    return (min(steps, N) + record["applications"] * (record["n_coeffs"] - 1)
+            + 2 * loops)
+
+
+def _matfree_p10(dia_rr):
+    """Leg 1: feast on a LinearOperator whose matvec is dia_matvec_f64 on
+    the P = 10 Laplacian's five diagonals, solver="cheb" (the Lanczos
+    bounds, the unfused recurrence on the operator): once cold with its
+    launches counted and held to their reckoning, once warm with its
+    stages timed. ``dia_rr``: phase 3c's row of dia_matvec_f64 at this
+    shape (the P=10 Rayleigh-Ritz product's)."""
+    import torch
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.ops import dia as D
+    nx = 1024
+    N = nx * nx
+    A = lap2d(nx)
+    Emin, Emax, exp = interval_lowest(lap2d_eigs(nx))
+    M0 = 72
+    check(len(exp) == 52, "fixture: 52 pairs")
+    op = dia_operator(A, np.float64, D.dia_matvec_f64)
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    fpm[1] = 1
+    print(f"   leg 1: feast(LinearOperator(dia_matvec_f64 on lap2d({nx})), "
+          f"None, ({Emin:.6e}, {Emax:.6e}), {M0}, fpm, solver='cheb'), "
+          f"N={N}", flush=True)
+
+    def solve():
+        return ft.feast(op, None, (Emin, Emax), M0, fpm, solver="cheb")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    record = {}
+    with matfree_stages(record), all_counts() as counts:
+        r, cold = _timed_call(solve)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"   cold {cold:.2f} s, peak device memory {peak / 2**30:.2f} GiB; "
+          f"series of {record['n_coeffs']} coefficients, "
+          f"{record['applications']} filter applications; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    _check_result(r, exp, 1e-8, "matrix-free P=10 cold")
+    loops = r.loop + 1
+    want = matfree_launches(N, record, loops)
+    check(record["applications"] == loops + 1,
+          "one filter application a loop and one for the spurious check")
+    check(counts["dia_matvec_f64"] == want,
+          f"dia_matvec_f64 launches {counts['dia_matvec_f64']} equal their "
+          f"reckoning {want} (192 Lanczos steps, {record['applications']} "
+          f"applications x {record['n_coeffs'] - 1} products, {loops} "
+          "loops x 2)")
+    check(all(v == 0 for n, v in counts.items() if n != "dia_matvec_f64"),
+          "no other DIA entry and no Chebyshev kernel launched")
+    launches = counts["dia_matvec_f64"]
+    del r
+    stages = {}
+    with matfree_stages(stages, timed=True), all_counts() as counts:
+        r, warm = _timed_call(solve)
+    _check_result(r, exp, 1e-8, "matrix-free P=10 warm")
+    check(counts["dia_matvec_f64"] == matfree_launches(N, stages,
+                                                       r.loop + 1),
+          "the warm solve's launches equal their reckoning")
+    in_filter = stages["applications"] * (stages["n_coeffs"] - 1)
+    kernel_s = in_filter * dia_rr["ms"] / 1e3
+    times = {k: round(v, 4) for k, v in stages.items()
+             if isinstance(v, float)}
+    other = warm - sum(times.values())
+    print(f"   warm {warm:.2f} s (stage timers on): {times}, other "
+          f"{other:.3f} s; the filter's {in_filter} dia_matvec_f64 launches "
+          f"x {dia_rr['ms']:.4f} ms (phase 3c, CUDA graph) = {kernel_s:.3f} "
+          f"s, the recurrence's torch glue {times['filter'] - kernel_s:.3f} s",
+          flush=True)
+    return dict(N=N, M=r.M, loops=r.loop, eig_err=float(np.abs(
+        np.sort(r.lam) - exp).max()), max_res=float(r.res.max()),
+        cold_s=cold, warm_s=warm, peak_bytes=peak, launches=launches,
+        n_coeffs=record["n_coeffs"], applications=record["applications"],
+        stages=times, other_s=other, filter_kernel_s=kernel_s,
+        filter_glue_s=times["filter"] - kernel_s)
+
+
+def general_circle(lam, count):
+    """(Emid, r, inside) of a circle about the lowest-real-part corner of
+    the spectrum ``lam`` holding ``count`` eigenvalues, its edge halfway
+    between the count-th and the next distance."""
+    c = complex(lam[np.argmin(lam.real)].real)
+    d = np.sort(np.abs(lam - c))
+    c = complex(np.mean(lam[np.abs(lam - c) <= (d[count - 1] + d[count]) / 2]
+                        ).real)
+    d = np.sort(np.abs(lam - c))
+    r = float(d[count - 1] + d[count]) / 2
+    return c, r, _in_circle(lam, c, r)
+
+
+def _matfree_krylov():
+    """Leg 2: the matrix-free contour engine (unpreconditioned GMRES(30) /
+    BiCGStab per node) on DIA operators: feast on the real Laplacian at
+    P = MATFREE_P_REAL (its complex blocks through the real entry, A Re X
+    + i A Im X), then feast_general on the complex stencil of phase 12 at
+    P = MATFREE_P_GEN (the complex128 entry through dia_matvec_any)."""
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.ops import dia as D
+    out = {}
+    nx = 2 ** MATFREE_P_REAL
+    Emin, Emax, exp = interval_lowest(lap2d_eigs(nx), 50)
+    M0 = int(-(-int(len(exp) * 1.3) // 8) * 8)
+    op = dia_operator(lap2d(nx), np.float64, D.dia_matvec_f64)
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    for solver in ("gmres", "bicgstab"):
+        label = f"matrix-free {solver} P={MATFREE_P_REAL}"
+        with all_counts() as counts:
+            r, s = _timed_call(lambda: ft.feast(op, None, (Emin, Emax), M0,
+                                                fpm, solver=solver))
+        print(f"   {label}: N={nx * nx}, {len(exp)} pairs, M0={M0}: "
+              f"{s:.2f} s, inner solves converged {r.inner_converged}; "
+              f"launches { {k: v for k, v in counts.items() if v} }",
+              flush=True)
+        _check_result(r, exp, 1e-8, label)
+        check(counts["dia_matvec_f64"] > 0 and all(
+            v == 0 for n, v in counts.items() if n != "dia_matvec_f64"),
+            f"{label}: the real entry carried every product, the complex "
+            "blocks as two real calls")
+        out[solver] = dict(N=nx * nx, pairs=len(exp), M0=M0, M=r.M,
+                           loops=r.loop, seconds=s,
+                           inner_converged=bool(r.inner_converged),
+                           launches=counts["dia_matvec_f64"])
+        del r
+    A, lam = general_stencil(MATFREE_P_GEN)
+    Emid, rad, exp = general_circle(lam, 40)
+    M0 = 56
+    op = dia_operator(A, np.complex128)
+    label = f"matrix-free feast_general P={MATFREE_P_GEN}"
+    with all_counts() as counts:
+        r, s = _timed_call(lambda: ft.feast_general(op, None, Emid, rad, M0,
+                                                    fpm))
+    print(f"   {label}: N={A.shape[0]}, circle ({Emid.real:.6g}, {rad:.6g}) "
+          f"holding {len(exp)}, M0={M0}: {s:.2f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    err, res = _general_check(r, exp, 1e-7, 1e-8, label)
+    check(counts["dia_matvec_c128"] > 0 and all(
+        v == 0 for n, v in counts.items() if n != "dia_matvec_c128"),
+        f"{label}: the complex128 entry carried every product")
+    out["general"] = dict(N=A.shape[0], inside=len(exp), M0=M0, M=r.M,
+                          loops=r.loop, seconds=s, eig_err=err, max_res=res,
+                          launches=counts["dia_matvec_c128"])
+    return out
+
+
+def _matfree_polynomial_and_solver():
+    """Leg 3: feast_polynomial(method="matfree") on config 5's polynomial
+    coefficients as operators on the card; feast_matvec on config 2's
+    pencil (float64) with the caller's solve_shifted (torch LU on the
+    card)."""
+    import scipy.linalg as sla
+    import torch
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.core.parameters import feast_tolerance
+    out = {}
+    coeffs, lam = general_config5_pep(512)
+    Emid, r = -0.025 + 1.05j, 0.011
+    exp = _in_circle(lam, Emid, r)
+    ops = [ft.LinearOperator.from_matrix(torch.as_tensor(c, device="cuda"))
+           for c in coeffs]
+    tol32 = feast_tolerance(ft.feastdefault(ft.feastinit()), np.complex64)
+    label = "config 5 feast_polynomial method=matfree n=512 complex64"
+    res, s = _timed_call(lambda: ft.feast_polynomial(
+        ops, Emid, r, 24, method="matfree"))
+    print(f"   {label}: {s:.2f} s", flush=True)
+    err, mres = _general_check(res, exp, 1e-5, tol32, label, rel=True)
+    out["config5_pep_matfree"] = dict(M=res.M, loops=res.loop, seconds=s,
+                                      eig_err=err, max_res=mres)
+    A, B = (X.astype(np.float64) for X in dense_config2(2048))
+    w = sla.eigh(A, B, eigvals_only=True)
+    Emin, Emax = middle_interval(w, 24)
+    exp = w[(w >= Emin) & (w <= Emax)]
+    At, Bt = (torch.as_tensor(X, device="cuda") for X in (A, B))
+    factorizations = []
+
+    def solve_shifted(z, RHS):
+        LU, piv = torch.linalg.lu_factor(z * Bt.to(RHS.dtype)
+                                         - At.to(RHS.dtype))
+        factorizations.append(z)
+        return torch.linalg.lu_solve(LU, piv, RHS)
+
+    fpm = ft.feastinit()
+    fpm[2] = 16
+    label = "config 2 pencil (float64) feast_matvec with solve_shifted"
+    r, s = _timed_call(lambda: ft.feast_matvec(
+        ft.LinearOperator.from_matrix(At, symmetric=True),
+        ft.LinearOperator.from_matrix(Bt, symmetric=True), (Emin, Emax), 32,
+        fpm, solve_shifted=solve_shifted))
+    print(f"   {label}: {s:.3f} s, {len(factorizations)} factorizations",
+          flush=True)
+    _check_result(r, exp, 1e-10, label)
+    out["config2_solve_shifted"] = dict(M=r.M, loops=r.loop, seconds=s,
+                                        factorizations=len(factorizations))
+    return out
+
+
+def _rci_drive(state, A, B):
+    """Service an RCI machine's jobs on the card: torch LU of (Ze B - A)
+    at FACTORIZE, lu_solve (adjoint for SOLVE_TRANSPOSE), dense products.
+    Returns the number of jobs."""
+    import torch
+    from feastkit_tpu_torch.core.types import FeastRCIJob as Job
+    factor = None
+    jobs = 0
+    job = state.step()
+    while job != Job.DONE:
+        jobs += 1
+        check(jobs < 100000, "the RCI machine finishes")
+        if job == Job.FACTORIZE:
+            factor = torch.linalg.lu_factor(state.Ze * B - A)
+        elif job in (Job.SOLVE, Job.SOLVE_TRANSPOSE):
+            state.workc = torch.linalg.lu_solve(
+                *factor, state.workc, adjoint=job == Job.SOLVE_TRANSPOSE)
+        elif job == Job.MULT_A:
+            state.workc = A @ state.workc
+        elif job == Job.MULT_B:
+            state.workc = B @ state.workc
+        job = state.step()
+    return jobs
+
+
+def _match_check(got, want, bar, label):
+    err = _match_err(got, want)
+    check(err <= bar, f"{label}: eigenvalues within {bar:g} of the port's "
+          f"driver on the card ({err:.3e})")
+    return err
+
+
+def _rci_legs():
+    """Leg 4: FeastSRCI on config 2's pencil (float64, n = 2048, 16 nodes,
+    M0 = 32) and FeastGRCI on config 5's dense general matrix (complex128,
+    n = 1024, M0 = 24), serviced on the card with torch LU, against the
+    port's feast_sygv / feast_general on the same data on the card."""
+    import torch
+    import feastkit_tpu_torch as ft
+    import scipy.linalg as sla
+    out = {}
+    A, B = (X.astype(np.float64) for X in dense_config2(2048))
+    w = sla.eigh(A, B, eigvals_only=True)
+    Emin, Emax = middle_interval(w, 24)
+    fpm = ft.feastinit()
+    fpm[2] = 16
+    Ac, Bc = (torch.as_tensor(X, device="cuda").to(torch.complex128)
+              for X in (A, B))
+    st = ft.FeastSRCI(A.shape[0], 32, Emin, Emax, fpm)
+    jobs, s = _timed_call(lambda: _rci_drive(st, Ac, Bc))
+    ref, s_ref = _timed_call(lambda: ft.feast_sygv(A, B, Emin, Emax, 32,
+                                                   fpm))
+    lam = st.lam[st.inside]
+    print(f"   FeastSRCI config 2 (float64): {jobs} jobs, {st.loop} loops, "
+          f"M={st.M} info={int(st.info)}, {s:.3f} s; feast_sygv {s_ref:.3f}"
+          f" s, M={ref.M}", flush=True)
+    check(st.M == ref.M == 24 and int(st.info) == 0,
+          "FeastSRCI: M = 24, info 0, as feast_sygv")
+    err = _match_check(lam, ref.lam, 1e-10, "FeastSRCI")
+    check(isinstance(st.q, torch.Tensor) and st.q.is_cuda,
+          "FeastSRCI: the Ritz vectors on the card")
+    out["srci_config2"] = dict(jobs=jobs, loops=st.loop, M=st.M, seconds=s,
+                               driver_s=s_ref, eig_err=err)
+    Ag, d = general_config5_dense(1024)
+    Ag = Ag.astype(np.complex128)
+    exp = _in_circle(d, 0.0, 0.016)
+    At = torch.as_tensor(Ag, device="cuda")
+    st = ft.FeastGRCI(Ag.shape[0], 24, 0.0, 0.016)
+    jobs, s = _timed_call(lambda: _rci_drive(
+        st, At, torch.eye(Ag.shape[0], dtype=At.dtype, device="cuda")))
+    ref, s_ref = _timed_call(lambda: ft.feast_general(Ag, None, 0.0, 0.016,
+                                                      24))
+    lam = st.lam[st.inside]
+    print(f"   FeastGRCI config 5 (complex128): {jobs} jobs, {st.loop} "
+          f"loops, M={st.M} info={int(st.info)}, {s:.3f} s; feast_general "
+          f"{s_ref:.3f} s, M={ref.M}", flush=True)
+    check(st.M == ref.M == len(exp) and int(st.info) == 0,
+          f"FeastGRCI: M = {len(exp)}, info 0, as feast_general")
+    err = _match_check(lam, ref.lam, 1e-7, "FeastGRCI")
+    _match_check(lam, exp, 1e-7, "FeastGRCI against the diagonal")
+    out["grci_config5"] = dict(jobs=jobs, loops=st.loop, M=st.M, seconds=s,
+                               driver_s=s_ref, eig_err=err)
+    return out
+
+
+def phase_matfree(dia_rr):
+    """Phase 13: the matrix-free drivers and the RCI step machines through
+    the entry points on the card."""
+    print("== 13. the matrix-free drivers and the RCI step machines: "
+          "feast on a DIA-kernel operator at P=10, the matrix-free Krylov "
+          "engine, feast_polynomial by operators, a caller's solver, "
+          "FeastSRCI / FeastGRCI", flush=True)
+    out = {"matfree_p10": _matfree_p10(dia_rr)}
+    out["krylov"] = _matfree_krylov()
+    out.update(_matfree_polynomial_and_solver())
+    out.update(_rci_legs())
     return out
 
 
@@ -3707,6 +4131,16 @@ def main(argv):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--matfree" in argv:
+        _, dia_other = phase_dia_kernels(smi.split(",")[0],
+                                         ptxas["dia_matvec"])
+        print(json.dumps({"matfree": phase_matfree(
+            dia_other["rr_p10 dia_matvec_f64"])}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--direct" in argv or "--direct-sweep" in argv:
         out = {}
         if "--direct-sweep" in argv:
@@ -3744,7 +4178,10 @@ def main(argv):
         form_counts = spd_b["form_counts"]
         print(json.dumps({"main_path": main_path, "p9": p9,
                           "spd_b": spd_b}), flush=True)
-        krylov = phase_krylov(dia_kernels)
+        # depth cut for time since phase 13 (PERF.md, Findings): the staged
+        # warm solves of phases 8, 11 (leg 1) and 12 (leg 1), and the
+        # permuted consistent-mass leg at P=7
+        krylov = phase_krylov(dia_kernels, staged=False)
         gen_krylov = phase_gen_krylov()
         counts.update(krylov["launches"])
         print(json.dumps({"krylov": krylov, "gen_krylov": gen_krylov}),
@@ -3752,18 +4189,20 @@ def main(argv):
         print(json.dumps({"direct": phase_direct()}), flush=True)
         # the complex entries' own paths: the Hermitian polynomial leg for
         # the unbatched ones, the Hermitian Krylov leg for the batched ones
-        herm = phase_hermitian(dia_kernels)
+        herm = phase_hermitian(dia_kernels, staged=False, p_mass=7)
         for name in ("dia_matvec_c64", "dia_matvec_c128"):
             counts[name] = herm["hermitian_p10"]["launches"].get(name, 0)
         for name in ("dia_matvec_batched_c64", "dia_matvec_batched_c128"):
             counts[name] = herm["hermitian_krylov_p7"]["launches"][name]
         print(json.dumps({"hermitian": herm}), flush=True)
-        general = phase_general(dia_general)
+        general = phase_general(dia_general, staged=False)
         # the general leg's launches of the complex entries, beside their
         # times at its own shapes
         for name, row in dia_general.items():
             row["launches"] = general["general_p8"]["launches"].get(name, 0)
         print(json.dumps({"general": general}), flush=True)
+        matfree = phase_matfree(dia_other["rr_p10 dia_matvec_f64"])
+        print(json.dumps({"matfree": matfree}), flush=True)
     rows = []
     copy_tbs = kernels.pop("copy_tbs")
     for name, k in kernels.items():
@@ -3799,6 +4238,15 @@ def main(argv):
             rows[-1]["general_p8"] = {key: g.get(key) for key in (
                 "launches", "shape", "max_abs_err", "ms", "eager_ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        if name == "dia_matvec_f64" and not quick:
+            # the matrix-free leg (phase 13, P=10): its launches, beside
+            # phase 3c's times at its shape (the P=10 Rayleigh-Ritz one)
+            g = dia_other["rr_p10 dia_matvec_f64"]
+            rows[-1]["matfree_p10"] = dict(
+                {key: g.get(key) for key in (
+                    "shape", "max_abs_err", "ms", "eager_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")},
+                launches=matfree["matfree_p10"]["launches"])
     print(json.dumps({"rayleigh_ritz_ms": rr_ms, "copy_tbs": copy_tbs,
                       "multistep_nine_diagonals": nd9,
                       "two_step_p9": {n: kernels[n].pop("p9") for n in (

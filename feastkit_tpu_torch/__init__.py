@@ -10,7 +10,11 @@ direct-solver contour engines: the dense symmetric / Hermitian drivers
 reduction), and the general-contour family of ``feast_general(A, B, Emid,
 r, M0, fpm)`` and ``feast_polynomial``: dense, banded and sparse general
 and complex-symmetric pencils (the sparse ones on the Krylov contour
-engine and the complex DIA kernels) and polynomial eigenproblems. Entry
+engine and the complex DIA kernels) and polynomial eigenproblems, the
+matrix-free drivers of ``feast_matvec`` / ``feast_matvec_general`` on
+the caller's operators (``LinearOperator``), and the reverse-communication
+step machines (``FeastSRCI``, ``FeastHRCI``, ``FeastGRCI``, ``FeastPRCI``,
+``FeastPolyRCI``), where the caller owns the linear algebra. Entry
 points take ``device=None``, which means CUDA; ``device="cpu"`` runs the
 plain PyTorch versions of the kernels on the host.
 
@@ -28,7 +32,8 @@ from .core.contour import (feast_contour, feast_contour_custom_weights,
                            feast_gcontour, feast_grational, feast_grationalx,
                            feast_inside_contour, feast_inside_gcontour,
                            feast_rational, feast_rationalx)
-from .core.types import Contour, FeastError, FeastGeneralResult, FeastResult
+from .core.types import (Contour, FeastError, FeastGeneralResult,
+                         FeastRCIJob, FeastResult)
 from .interfaces.feast import (feast, feast_banded, feast_custom_contour,
                                feast_general, feast_polynomial,
                                feast_summary, feast_validate_interval)
@@ -45,6 +50,11 @@ from .solvers.sparse import (feast_gcsrev, feast_gcsrgv, feast_hcsrev,
                              feast_scsrpev, sparse_feast_general,
                              sparse_feast_interval)
 from .solvers.sparse import feast_gcsrpev, feast_hcsrpev
+from .solvers.matfree import (LinearOperator, MatrixVecFunction,
+                              create_iterative_solver, feast_matvec,
+                              feast_matvec_general)
+from .kernel.rci import (FeastGRCI, FeastHRCI, FeastPolyRCI, FeastPRCI,
+                         FeastSRCI)
 
 __all__ = ["feast", "feast_banded", "feast_summary",
            "feast_validate_interval", "feastinit", "feastdefault",
@@ -68,4 +78,7 @@ __all__ = ["feast", "feast_banded", "feast_summary",
            "feast_set_custom_contour", "feast_get_custom_contour",
            "feast_clear_custom_contour", "with_custom_contour",
            "feast_inside_contourx", "feast_cauchy_weights",
-           "check_complex_symmetric"]
+           "check_complex_symmetric", "LinearOperator", "MatrixVecFunction",
+           "create_iterative_solver", "feast_matvec", "feast_matvec_general",
+           "FeastSRCI", "FeastHRCI", "FeastGRCI", "FeastPRCI", "FeastPolyRCI",
+           "FeastRCIJob"]

@@ -1,8 +1,8 @@
 """Result, status and contour types of the PyTorch port.
 
 Counterpart of ``feastkit_tpu/core/types.py``: the same ``FeastError``
-codes, the same ``FeastResult`` and ``FeastGeneralResult`` fields and the
-same trimming rule. The port
+and ``FeastRCIJob`` codes, the same ``FeastResult`` and
+``FeastGeneralResult`` fields and the same trimming rule. The port
 returns eigenvalues and residuals as host numpy arrays and eigenvectors as
 a ``torch.Tensor`` on the device the solve ran on.
 """
@@ -28,6 +28,26 @@ class FeastError(enum.IntEnum):
     INTERNAL_ERROR_1 = 7     # internal error (contour)
     INTERNAL_ERROR_2 = 8     # internal error (reduced eigensolve)
     PROBLEM_SIZE = 9         # subspace exhausted (M0 too small)
+
+
+class FeastRCIJob(enum.IntEnum):
+    """Reverse-communication job codes of the step machines of
+    ``kernel/rci.py`` (same values as the JAX package; 50 is both
+    SOLVE_REDUCED and PARALLEL_SOLVE, so the second name is an alias of
+    the first)."""
+
+    DONE = 0
+    INIT = -1
+    FACTORIZE = 10
+    SOLVE = 11
+    FACTORIZE_TRANSPOSE = 20
+    SOLVE_TRANSPOSE = 21
+    MULT_A = 30
+    MULT_B = 40
+    SOLVE_REDUCED = 50
+    PARALLEL_SOLVE = 50      # the parallel codes of FeastPRCI
+    PARALLEL_ACCUMULATE = 51
+    EIGEN_SOLVE = 52
 
 
 class Contour(NamedTuple):

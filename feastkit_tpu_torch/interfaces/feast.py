@@ -10,11 +10,16 @@ check of the interval. ``feast_general(A, B, Emid, r, M0, fpm)`` routes
 general and complex-symmetric problems the same way: sparse operands to
 the sparse general driver, dense ones to the dense general driver (the
 transpose pairing where A is complex symmetric and not Hermitian).
-Backend selection (``backend=``, ``parallel=``, ``strict_backend=``) is
-the JAX package's, over the devices of the solve's type. Everything runs
-on ``device`` (``None`` means CUDA). Matrix-free operands and the sharded
-backend belong to engines not ported yet and raise
-``NotImplementedError``.
+A ``LinearOperator`` goes to the matrix-free drivers of
+``solvers/matfree.py`` (``feast_matvec``, ``feast_matvec_general``), and
+``feast_polynomial`` takes operator coefficients (or
+``method="matfree"``) to the companion linearization by operators, as
+in the JAX package; a bare callable is refused as there. Backend
+selection (``backend=``, ``parallel=``, ``strict_backend=``) is the JAX
+package's, over the devices of the solve's type. Everything runs on
+``device`` (``None`` means CUDA). The sharded backend is not ported yet
+and raises ``NotImplementedError``; a matrix-free operand runs serially
+instead, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -73,6 +78,27 @@ def _resolve_backend(backend, parallel, strict_backend, device, *,
     return backend
 
 
+def _resolve_matfree_backend(backend, parallel, strict_backend, device,
+                             refusal):
+    """The backend of a matrix-free operand: a sharded request warns and
+    runs serially, or raises RuntimeError(refusal) under strict_backend
+    (the JAX package's texts)."""
+    backend = select_parallel_backend(
+        _normalize_backend(backend, parallel), device,
+        allow_fallback=not strict_backend, auto_sharded=False)
+    if backend == "sharded":
+        if strict_backend:
+            raise RuntimeError(refusal)
+        warnings.warn("backend='sharded' unavailable for matrix-free "
+                      "operators; falling back to serial", stacklevel=3)
+
+
+def _dense_shape(A):
+    """The shape of a dense operand, as the JAX package reads it (numpy's
+    view of anything that is not a tensor: a bare callable has shape ())."""
+    return A.shape if isinstance(A, torch.Tensor) else np.asarray(A).shape
+
+
 def _as_tensor(A) -> torch.Tensor:
     """A numpy array or tensor as a floating (or complex) tensor."""
     t = A if isinstance(A, torch.Tensor) else torch.as_tensor(np.asarray(A))
@@ -114,6 +140,8 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
         or dense numpy arrays / tensors (the dense driver: real symmetric
         or complex Hermitian, B symmetric / Hermitian positive definite).
         B=None is the standard problem.
+        A ``LinearOperator`` (B None, an operator or a matrix) runs the
+        matrix-free driver ``feast_matvec``.
       interval: (Emin, Emax).
       M0: subspace size (default max(8, N // 10), capped at N).
       fpm: the 64-slot FEAST parameters (None: defaults).
@@ -136,9 +164,18 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
     Emin, Emax = float(interval[0]), float(interval[1])
     if not Emax > Emin:
         raise ValueError(f"Emin={Emin} must be < Emax={Emax}")
-    if _is_matfree(A):
-        raise _matfree_not_ported("feast()")
     device = resolve_device(device)
+    from ..solvers.matfree import LinearOperator, feast_matvec
+    if isinstance(A, LinearOperator):
+        _resolve_matfree_backend(
+            backend, parallel, strict_backend, device,
+            "backend='sharded' is not yet available for matrix-free "
+            "operators (the model-axis sharded matvec path); use the "
+            "serial driver or shard inside your operator callables")
+        N = A.shape[0]
+        return feast_matvec(A, B, (Emin, Emax),
+                            min(int(M0 or max(8, N // 10)), N), fpm,
+                            Q0=Q0, device=device, **kw)
     if sp.issparse(A):
         _resolve_backend(backend, parallel, strict_backend, device,
                          auto_sharded=True)
@@ -148,7 +185,7 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
         return sparse_feast_interval(A, B, Emin, Emax, M0r, fpm, Q0=Q0,
                                      device=device, **kw)
 
-    N = A.shape[0]
+    N = _dense_shape(A)[0]
     if M0 is None:
         M0 = min(N, max(8, N // 10))
     M0 = min(int(M0), N)
@@ -169,16 +206,6 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
     return dense_hermitian_feast(A, B, Emin, Emax, M0, fpm,
                                  hermitian=hermitian, contour=contour,
                                  Q0=Q0, device=device, **kw)
-
-
-def _matfree_not_ported(what):
-    return NotImplementedError(
-        f"{what} on matrix-free operators is not ported to "
-        "feastkit_tpu_torch yet (ROADMAP.md, queue 1 item 13)")
-
-
-def _is_matfree(A) -> bool:
-    return hasattr(A, "matvec") or callable(A)
 
 
 def _complex_symmetric(A) -> bool:
@@ -206,11 +233,11 @@ def feast_general(A, B=None, Emid=0.0, r=1.0, M0=None, fpm=None, *,
     unless ``complex_symmetric`` says otherwise (for sparse operands it is
     False unless given). Backend selection as in ``feast``: "auto" is
     sharded for sparse operands on two or more devices, which (like any
-    sharded request that resolves so) raises NotImplementedError.
+    sharded request that resolves so) raises NotImplementedError. A
+    ``LinearOperator`` runs the matrix-free driver
+    ``feast_matvec_general`` (serially, as in the JAX package).
     ``device=None`` means CUDA; ``kw`` goes to the driver."""
     fpm = _ensure_fpm(fpm)
-    if _is_matfree(A):
-        raise _matfree_not_ported("feast_general()")
     device = resolve_device(device)
     if sp.issparse(A):
         _resolve_backend(backend, parallel, strict_backend, device,
@@ -221,7 +248,17 @@ def feast_general(A, B=None, Emid=0.0, r=1.0, M0=None, fpm=None, *,
         return sparse_feast_general(A, B, Emid, r, M0r, fpm,
                                     bilinear=bool(complex_symmetric),
                                     device=device, **kw)
-    N = A.shape[0]
+    from ..solvers.matfree import LinearOperator, feast_matvec_general
+    if isinstance(A, LinearOperator):
+        _resolve_matfree_backend(
+            backend, parallel, strict_backend, device,
+            "backend='sharded' is not yet available for matrix-free "
+            "operators; use the serial driver")
+        N = A.shape[0]
+        return feast_matvec_general(
+            A, B, Emid, r, min(int(M0 or max(8, N // 10)), N), fpm,
+            bilinear=bool(complex_symmetric or False), device=device, **kw)
+    N = _dense_shape(A)[0]
     if M0 is None:
         M0 = min(N, max(8, N // 10))
     M0 = min(int(M0), N)
@@ -261,12 +298,17 @@ def feast_polynomial(coeffs, Emid, r, M0, fpm=None, *, method="companion",
     (Emid, r). ``method``: "companion" (the first-companion linearization
     to a d N pencil on the dense general driver, machine precision) or
     "direct" (the Beyn moment scheme on the N-dimensional polynomial
-    resolvent: d times less memory, accuracy limited by the quadrature).
-    "matfree", or a coefficient given as an operator, raises
-    NotImplementedError (not ported)."""
+    resolvent: d times less memory, accuracy limited by the quadrature)
+    or "matfree" (the companion linearization by operators on the
+    matrix-free general driver), which a coefficient given as an operator
+    (a ``LinearOperator``, or anything with a callable ``matvec``) also
+    selects."""
     from ..solvers import dense_general as _dg
-    if method == "matfree" or any(_is_matfree(c) for c in coeffs):
-        raise _matfree_not_ported("feast_polynomial()")
+    from ..solvers import matfree as _mf
+    if method == "matfree" or any(
+            isinstance(c, _mf.LinearOperator)
+            or callable(getattr(c, "matvec", None)) for c in coeffs):
+        return _mf.feast_polynomial_matvec(coeffs, Emid, r, M0, fpm, **kw)
     if method == "direct":
         return _dg.feast_pep_direct(coeffs, Emid, r, M0, fpm, **kw)
     return _dg.feast_pep(coeffs, Emid, r, M0, fpm, **kw)

@@ -24,11 +24,13 @@ import torch
 
 from ..core.tools import (inside_first_order, orthonormalize,
                           reduced_hermitian_gevp, residuals, thin_svd)
+from ..core.types import FeastError, FeastResult, _trim
 
 __all__ = ["HermitianState", "make_rayleigh_ritz_update",
            "verify_spurious_from", "init_hermitian_state", "SPURIOUS_RES",
            "VERIFY_FILTER_TOL", "LOOP_TOL_CAP", "feast_hermitian_core",
-           "make_hermitian_body", "verify_spurious", "refine"]
+           "make_hermitian_body", "verify_spurious", "refine",
+           "hermitian_result"]
 
 # In-loop plausibility cut: Ritz pairs with O(1) residual are never counted
 # toward convergence (counterpart of fpm[38] spurious detection).
@@ -224,3 +226,14 @@ def refine(body: Callable, state, max_loops: int):
         if conv:
             break
     return state
+
+
+def hermitian_result(state: HermitianState) -> FeastResult:
+    """The trimmed result of a finished refinement (see
+    ``kernel/general.general_result``)."""
+    info = FeastError.SUCCESS if bool(state.converged) \
+        else FeastError.NO_CONVERGENCE
+    return _trim(FeastResult, state.lam.cpu().numpy(), state.Q,
+                 state.res.cpu().numpy(), state.inside.cpu().numpy(),
+                 int(info), float(state.epsout), int(state.loop) - 1,
+                 inner_ok=bool(state.inner_ok))

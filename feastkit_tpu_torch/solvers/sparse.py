@@ -111,7 +111,8 @@ from ..core.types import FeastError, FeastGeneralResult, FeastResult, _trim
 from ..kernel.general import contour_tensors, feast_general_core, \
     general_result
 from ..kernel.hermitian import (SPURIOUS_RES, VERIFY_FILTER_TOL,
-                                feast_hermitian_core, init_hermitian_state,
+                                feast_hermitian_core, hermitian_result,
+                                init_hermitian_state,
                                 make_rayleigh_ritz_update,
                                 verify_spurious_from)
 from ..ops.cheb_gen import cheb_gen_chunk, cheb_gen_init
@@ -1542,12 +1543,7 @@ def _sparse_krylov_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         tol=config.tol, max_loops=config.max_loops,
         convergence_criterion=config.convergence_criterion,
         subspace_only=(config.mode == 1))
-    info = FeastError.SUCCESS if bool(state.converged) \
-        else FeastError.NO_CONVERGENCE
-    result = _trim(FeastResult, state.lam.cpu().numpy(), state.Q,
-                   state.res.cpu().numpy(), state.inside.cpu().numpy(),
-                   int(info), float(state.epsout), int(state.loop) - 1,
-                   inner_ok=bool(state.inner_ok))
+    result = hermitian_result(state)
     result.krylov = dict(solver=solver, precond=precond,
                          mg_levels=mg_A[3] if precond == "mg" else None,
                          restart=int(solver_restart), standard=standard,

@@ -1073,3 +1073,217 @@ def test_sparse_general_on_cuda_matches_cpu(bil):
     assert _general_match(rg.lam, rc.lam) <= 1e-8
     assert _general_match(rg.lam, exp) <= 1e-8
     assert rg.res.max() <= 1e-8
+
+
+def _lap2d_dia_operator(nx, device):
+    """The 2D Laplacian on an nx x nx grid as a LinearOperator whose matvec
+    is dia_matvec_f64 on its five diagonals (``device``)."""
+    from feastkit_tpu_torch.ops import dia as D
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    c = (sp.kron(T, sp.eye(nx)) + sp.kron(sp.eye(nx), T)).tocoo()
+    dia, offs = bcoo_to_dia(c.data, np.stack([c.row, c.col], axis=1),
+                            nx * nx)
+    d = torch.as_tensor(dia, device=device)
+    op = ft.LinearOperator(lambda X: D.dia_matvec_f64(d, offs, X),
+                           (nx * nx, nx * nx), torch.float64, symmetric=True)
+    wx = 2.0 - 2.0 * np.cos(np.arange(1, nx + 1) * np.pi / (nx + 1))
+    return op, np.sort((wx[:, None] + wx[None, :]).ravel())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["gmres", "bicgstab", "cheb"])
+def test_matfree_on_cuda_matches_cpu(solver):
+    """feast on a DIA-kernel operator (phase 13 of chip_smoke.py at a
+    small size) on the card against the CPU; for the polynomial filter the
+    dia_matvec_f64 launches equal their reckoning: the 192 Lanczos steps,
+    len(coeffs) - 1 per filter application (one a loop and the spurious
+    check) and two a loop (Rayleigh-Ritz, residuals)."""
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    from feastkit_tpu_torch.ops.chebfilter import build_cheb_filter_coeffs
+    from feastkit_tpu_torch.solvers.matfree import operator_spectrum_bounds
+    nx = 16
+    op, w = _lap2d_dia_operator(nx, "cuda")
+    opc, _ = _lap2d_dia_operator(nx, "cpu")
+    Emin, Emax = float(w[0] / 2), float((w[19] + w[20]) / 2)
+    exp = w[(w >= Emin) & (w <= Emax)]
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    if solver == "cheb":
+        lo, hi = operator_spectrum_bounds(op, nx * nx, np.float64)
+        coeffs, _ = build_cheb_filter_coeffs(lo, hi, Emin, Emax)
+    D.reset_launch_counts()
+    rg = ft.feast(op, None, (Emin, Emax), 28, fpm, solver=solver)
+    counts = D.launch_counts()
+    rc = ft.feast(opc, None, (Emin, Emax), 28, fpm, solver=solver,
+                  device="cpu")
+    assert rg.q.is_cuda and int(rg.info) == int(rc.info) == 0
+    assert rg.M == rc.M == len(exp)
+    assert np.abs(np.sort(rg.lam) - np.sort(rc.lam)).max() <= 1e-9
+    assert np.abs(np.sort(rg.lam) - exp).max() <= 1e-9
+    assert all(v == 0 for k, v in counts.items() if k != "dia_matvec_f64")
+    if solver == "cheb":
+        loops = rg.loop + 1
+        assert counts["dia_matvec_f64"] == 192 + (loops + 1) * (
+            len(coeffs) - 1) + 2 * loops
+    else:
+        assert counts["dia_matvec_f64"] > 0
+
+
+@pytest.mark.cuda
+def test_matfree_general_on_cuda_matches_cpu():
+    # phase 12's complex stencil on a 16 x 16 grid through feast_general on
+    # a LinearOperator: dia_matvec_any on complex128 diagonals
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    nx, beta = 16, 0.5
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    c = ((1 + 1j * beta) * sp.kron(sp.eye(nx), T)
+         + sp.kron(T, sp.eye(nx))).tocoo()
+    dia, offs = bcoo_to_dia(c.data, np.stack([c.row, c.col], axis=1),
+                            nx * nx)
+    mu = 4 * np.sin(np.arange(1, nx + 1) * np.pi / (2 * (nx + 1))) ** 2
+    lam = ((1 + 1j * beta) * mu[None, :] + mu[:, None]).ravel()
+    Emid, r = 0.4, 0.3
+    exp = _general_inside(lam, Emid, r)
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    out = []
+    for device in ("cuda", "cpu"):
+        d = torch.as_tensor(dia, device=device)
+        op = ft.LinearOperator(lambda X, d=d: D.dia_matvec_any(d, offs, X),
+                               (nx * nx, nx * nx), torch.complex128)
+        D.reset_launch_counts()
+        out.append((ft.feast_general(op, None, Emid, r, len(exp) + 8, fpm,
+                                     device=device), D.launch_counts()))
+    (rg, counts), (rc, _) = out
+    assert rg.q.is_cuda and int(rg.info) == int(rc.info) == 0
+    assert rg.M == rc.M == len(exp) > 0
+    assert counts["dia_matvec_c128"] > 0 and all(
+        v == 0 for k, v in counts.items() if k != "dia_matvec_c128")
+    assert _general_match(rg.lam, rc.lam) <= 1e-8
+    assert _general_match(rg.lam, exp) <= 1e-7
+
+
+@pytest.mark.cuda
+def test_matfree_polynomial_on_cuda_matches_cpu():
+    # the quadratic of tests/test_sparse_matfree.py's companion case, its
+    # coefficients operators on the card
+    _need_cuda()
+    n = 40
+    rng = np.random.default_rng(2)
+    d0 = rng.uniform(0.5, 2.0, n)
+    d1 = rng.uniform(-1.0, 1.0, n)
+    roots = np.concatenate([(-d1[i] + np.array([1, -1]) * np.sqrt(
+        d1[i] ** 2 - 4 * d0[i] + 0j)) / 2 for i in range(n)])
+    center = roots[7]
+    dists = np.sort(np.abs(roots - center))
+    r = float((dists[4] + dists[5]) / 2)
+    exp = roots[np.abs(roots - center) <= r]
+    coeffs = [np.diag(d0) + 0j, np.diag(d1) + 0j, np.eye(n) + 0j]
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    res = [ft.feast_polynomial(
+        [ft.LinearOperator.from_matrix(torch.as_tensor(c, device=device))
+         for c in coeffs], complex(center), r, len(exp) + 4, fpm,
+        solver_restart=2 * n, device=device) for device in ("cuda", "cpu")]
+    rg, rc = res
+    assert rg.q.is_cuda and rg.q.shape == (n, rg.M)
+    assert int(rg.info) == int(rc.info) == 0 and rg.M == rc.M == len(exp)
+    assert _general_match(rg.lam, rc.lam) <= 1e-8
+    assert _general_match(rg.lam, exp) <= 1e-7
+
+
+@pytest.mark.cuda
+def test_matfree_array_operands_on_the_card(monkeypatch):
+    """Arrays given to the matrix-free drivers with device=None (feast's
+    B beside an operator, feast_polynomial's coefficients with
+    method="matfree") become tensors on the card, so their products run
+    there; the eigenvalues are the analytic ones."""
+    _need_cuda()
+    from feastkit_tpu_torch.solvers.matfree import LinearOperator
+    seen = []
+    from_matrix = LinearOperator.from_matrix
+
+    def record(A, **flags):
+        seen.append(A.device.type)
+        return from_matrix(A, **flags)
+    monkeypatch.setattr(LinearOperator, "from_matrix", staticmethod(record))
+    nx = 16
+    op, w = _lap2d_dia_operator(nx, "cuda")
+    Emin, Emax = float(w[0] / 4), float((w[9] + w[10]) / 4)
+    exp = w[:10] / 2
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    res = ft.feast(op, 2.0 * np.eye(nx * nx), (Emin, Emax), 16, fpm)
+    assert seen == ["cuda"] and res.q.is_cuda
+    assert int(res.info) == 0 and res.M == len(exp)
+    assert np.abs(np.sort(res.lam) - exp).max() <= 1e-9
+    n = 40
+    rng = np.random.default_rng(2)
+    d0 = rng.uniform(0.5, 2.0, n)
+    d1 = rng.uniform(-1.0, 1.0, n)
+    roots = np.concatenate([(-d1[i] + np.array([1, -1]) * np.sqrt(
+        d1[i] ** 2 - 4 * d0[i] + 0j)) / 2 for i in range(n)])
+    center = roots[7]
+    dists = np.sort(np.abs(roots - center))
+    r = float((dists[4] + dists[5]) / 2)
+    exp = roots[np.abs(roots - center) <= r]
+    seen.clear()
+    rp = ft.feast_polynomial(
+        [np.diag(d0) + 0j, np.diag(d1) + 0j, np.eye(n) + 0j],
+        complex(center), r, len(exp) + 4, fpm, method="matfree",
+        solver_restart=2 * n)
+    assert seen == ["cuda"] * 3 and rp.q.is_cuda
+    assert int(rp.info) == 0 and rp.M == len(exp)
+    assert _general_match(rp.lam, exp) <= 1e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("machine", ["FeastSRCI", "FeastGRCI"])
+def test_rci_on_cuda_matches_cpu(machine):
+    """An RCI machine serviced with torch LU on the card emits the jobs,
+    loops and eigenvalues of the same machine on the CPU."""
+    _need_cuda()
+    from feastkit_tpu_torch.core.types import FeastRCIJob as Job
+    rng = np.random.default_rng(0)
+    n = 120
+    if machine == "FeastSRCI":
+        A = rng.standard_normal((n, n))
+        A = (A + A.T) / 2
+        B = rng.standard_normal((n, n))
+        B = B @ B.T / n + np.eye(n)
+        import scipy.linalg as sla
+        w = sla.eigh(A, B, eigvals_only=True)
+        args = (n, 16, float(w[40] - 1e-9), float(w[50] + 1e-9))
+        kw = {}
+    else:
+        A = np.diag(np.linspace(-1.0, 1.0, n)) + np.triu(
+            0.01 * (rng.standard_normal((n, n))
+                    + 1j * rng.standard_normal((n, n))), 1)
+        B = np.eye(n)
+        args = (n, 16, 0.0, 0.1)
+        kw = {"standard_B": True}
+    runs = []
+    for device in ("cuda", "cpu"):
+        At, Bt = (torch.as_tensor(X, device=device).to(torch.complex128)
+                  for X in (A, B))
+        st = getattr(ft, machine)(*args, device=device, **kw)
+        jobs = []
+        job = st.step()
+        while job != Job.DONE:
+            jobs.append(int(job))
+            if job == Job.FACTORIZE:
+                factor = torch.linalg.lu_factor(st.Ze * Bt - At)
+            elif job == Job.SOLVE:
+                st.workc = torch.linalg.lu_solve(*factor, st.workc)
+            elif job == Job.MULT_A:
+                st.workc = At @ st.workc
+            elif job == Job.MULT_B:
+                st.workc = Bt @ st.workc
+            job = st.step()
+        runs.append((st, jobs))
+    (sg, jg), (sc, jc) = runs
+    assert jg == jc and sg.loop == sc.loop and sg.q.is_cuda
+    assert sg.M == sc.M > 0 and int(sg.info) == int(sc.info) == 0
+    assert _general_match(sg.lam[sg.inside], sc.lam[sc.inside]) <= 1e-10

@@ -26,7 +26,7 @@ Q0 and the |lam| ordering of ``inside_first_order(general=True)``.
 methods (1e-12), and one ``make_general_body`` step from the JAX
 package's state after a loop (``general_state_from_reference``): Ritz
 values and residuals within 1e-10. Port-only: the API's routing (an
-operator raises item 13, the sharded backend as in F2), the validation,
+operator runs the matrix-free drivers, the sharded backend as in F2), the validation,
 fpm[14] = 2 raising item 16 and ``feast_summary``.
 
 The JAX package's solves run once, in three child processes (this file run
@@ -624,18 +624,26 @@ def _small_general(n=30, seed=3):
 
 
 def test_operators_raise_item_13():
-    from feastkit_tpu.solvers.matfree import LinearOperator
+    """Operators, which raised item 13 until the matrix-free drivers were
+    ported, now run them: feast_general on a LinearOperator, and
+    feast_polynomial on arrays with method="matfree" or with an operator
+    coefficient (P(lam) = A + lam I, so lam = -w), each with the dense
+    driver's M and info (tests/test_torch_matfree.py holds these drivers
+    to the JAX package)."""
     A, w, exp = _small_general()
-    op = LinearOperator.from_matrix(A)
-    for call in (lambda: ft.feast_general(op, None, w[2], 1.5, 8,
-                                          device="cpu"),
-                 lambda: ft.feast_polynomial([A, np.eye(30)], w[2], 1.5, 8,
-                                             method="matfree",
-                                             device="cpu"),
-                 lambda: ft.feast_polynomial([op, np.eye(30)], w[2], 1.5,
-                                             8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
+    op = ft.LinearOperator.from_matrix(A)
+    neg = _inside(-w, -w[2], 1.5)
+    for call, want in (
+            (lambda: ft.feast_general(op, None, w[2], 1.5, 12,
+                                      device="cpu"), exp),
+            (lambda: ft.feast_polynomial([A, np.eye(30)], -w[2], 1.5, 12,
+                                         method="matfree", device="cpu"),
+             neg),
+            (lambda: ft.feast_polynomial([op, np.eye(30)], -w[2], 1.5, 12,
+                                         device="cpu"), neg)):
+        r = call()
+        assert r.M == len(want) and int(r.info) == 0
+        assert _match_err(r.lam, want) <= 1e-7
 
 
 def test_one_device_sharded_request_matches_reference(monkeypatch):

@@ -245,11 +245,12 @@ def test_unported_paths_raise():
     r = ft.feast(A.toarray(), None, (0.01, 0.5), 16, **kw)
     assert r.M == int(((w >= 0.01) & (w <= 0.5)).sum()) and r.info == 0
     # a sharded request on one device warns and runs serially, as in the
-    # JAX package; matrix-free operands are item 13
+    # JAX package; a bare callable is refused as there (operators run
+    # wrapped in a LinearOperator: tests/test_torch_matfree.py)
     with pytest.warns(UserWarning, match="single device"):
         r = ft.feast(A, None, (0.01, 0.5), 16, backend="sharded", **kw)
     assert r.info == 0
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(IndexError):
         ft.feast(lambda x: A @ x, None, (0.01, 0.5), 16, **kw)
     # a sparse SPD B runs (item 8), and one with no DIA form (41
     # diagonals) through the unfused composite on CSR products (item 6)
