@@ -18,6 +18,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --hermitian        # phases 3c and 11 alone
     python3 chip_smoke.py --general          # phases 3c and 12 alone
     python3 chip_smoke.py --matfree          # phases 3c and 13 alone
+    python3 chip_smoke.py --surface          # phases 3c and 14 alone
     python3 chip_smoke.py --direct-sweep     # BCR blocks, dense LU batching
 
 Phases, each printed before the last line:
@@ -216,6 +217,24 @@ Phases, each printed before the last line:
      dense matrix (complex128, M0 = 24), serviced with torch LU on the
      card, against the port's feast_sygv / feast_general there (1e-10 /
      1e-7), each timed;
+  14. the public surface on the card: (1) dfeast_scsrev on BASELINE.json
+     config 4 at P=10 (the main path under its FEAST name), its launches
+     counted and equal to the main path's, its eigenvalues within 1e-12 of
+     the main path's feast call (run here when phase 4 is not), M = 52,
+     error <= 1e-8, residuals <= 1e-8, info 0; (2) save_checkpoint of that
+     solve into a temporary directory, load_checkpoint, and feast with
+     resume_kwargs: no seeded Q0 drawn, the same M, eigenvalues within
+     1e-10 of (1), no more loops; (3) the stochastic count fpm[14] = 2
+     (fpm[32] = 10 probes): the unfused recurrence on dia_matvec_f64 at
+     (N, 10), its launches equal to the series' products, |est - 52| <=
+     5 sqrt(2 x 52 / 10), then the same filter on the same probes with the
+     plain DIA product on the card tensors within 1e-9 relative; (4)
+     zfeast_heev, dfeast_sbev, cfeast_geev, zfeast_syev, zfeast_gepev,
+     difeast_scsrev, dfeast_syevx, eigvals_feast and feast_srci on small
+     problems against the port's generic drivers (1e-12; the RCI machine
+     1e-10), and a torch.profiler trace (trace_to) of one small polynomial
+     solve, whose CUDA events must name a Chebyshev or DIA kernel; phase
+     3c holds and times dia_matvec_f64 at the count's (N, 10) shape;
   7. one JSON line {"kernels": [...]} with each kernel's launches on its
      path (the main path's, for the composite's own kernels the SPD-B
      path's, for the real DIA kernels the Krylov path's: phase 8's counted
@@ -224,15 +243,17 @@ Phases, each printed before the last line:
      entries leg (1) of phase 12 launches carry a "general_p8" object with
      that leg's launches and phase 3c's times at its shapes; the fp64
      entry's "matfree_p10" object has phase 13 leg (1)'s launches and
-     phase 3c's times at that leg's shape), its error
-     against its plain version and its times; the
+     phase 3c's times at that leg's shape, and its "count_p10" object
+     phase 14 leg (3)'s launches and phase 3c's times at the count's
+     shape), its error against its plain version and its times; the
      column-major entries' ms, bound_ms and library_ms are those of the
      form without T0 and acc, and their "forms" give every form's times,
      bound and launches.
 Run without a flag, the script leaves out the staged warm solves of phase
-8, of phase 11 leg (1) and of phase 12 leg (1), and runs phase 11 leg (3)
-at P=7, to finish inside its time limit with phase 13; --hermitian and
---general run those phases at full depth.
+8, of phase 11 leg (1), of phase 12 leg (1) and of phase 13 leg (1), and
+runs phase 11 leg (3) at P=7, to finish inside its time limit with phases
+13 and 14; --hermitian, --general and --matfree run those phases at full
+depth.
 The last line is {"ok": true, "device": {...}}. Any failed check raises
 and exits nonzero before that line. Without a CUDA device the script
 exits nonzero and prints no result.
@@ -1400,7 +1421,8 @@ DIA_LAP = (-256, -1, 0, 1, 256)
 # Krylov path's four (DIA_MAIN_SHAPES), the P=10 main path's Rayleigh-Ritz
 # and residual products (fp64, M = M0 = 72, offsets +-1, +-1024) and the
 # consistent-mass bounds' Lanczos products (f32, M = 1, where the host's
-# cost per call rules)
+# cost per call rules), and the stochastic count's recurrence at P=10 (fp64,
+# its fpm[32] = 10 probe columns)
 DIA_CASES = tuple(
     ("krylov", name, 65536, DIA_LAP,
      (DIA_MAIN_SHAPES[name][0], 65536, DIA_MAIN_SHAPES[name][1])
@@ -1408,6 +1430,8 @@ DIA_CASES = tuple(
     for name in REAL_DIA for batched in (DIA_KERNELS[name][0],)) + (
     ("rr_p10", "dia_matvec_f64", 1048576, (-1024, -1, 0, 1, 1024),
      (1048576, 72)),
+    ("count_p10", "dia_matvec_f64", 1048576, (-1024, -1, 0, 1, 1024),
+     (1048576, 10)),
     ("lanczos_m1", "dia_matvec_f32", 65536, DIA_LAP, (65536, 1)))
 # the complex entries at the complex Hermitian paths' shapes: the P=10
 # polynomial path's recurrence, Rayleigh-Ritz and residual products
@@ -2120,12 +2144,17 @@ def phase_rayleigh_ritz():
     return rr_ms
 
 
-def _run_feast(A, B, Emin, Emax, M0, fpm):
+def _run_feast(A, B, Emin, Emax, M0, fpm, solve=None):
+    """``feast(A, B, (Emin, Emax), M0, fpm)``, or ``solve(A, B, Emin, Emax,
+    M0, fpm)``, and its seconds, the card synchronised at both ends."""
     import torch
     import feastkit_tpu_torch as ft
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = ft.feast(A, B, (Emin, Emax), M0, fpm)
+    if solve is None:
+        r = ft.feast(A, B, (Emin, Emax), M0, fpm)
+    else:
+        r = solve(A, B, Emin, Emax, M0, fpm)
     torch.cuda.synchronize()
     return r, time.perf_counter() - t0
 
@@ -2247,15 +2276,17 @@ def switches(**env):
         os.environ.update({k: v for k, v in saved.items() if v is not None})
 
 
-def _counted_solve(A, B, Emin, Emax, M0, fpm, label, gen=False):
-    """One solve with the launch counts set to 0 just before and read just
-    after; checks the counts against the schedule the solve reports."""
+def _counted_solve(A, B, Emin, Emax, M0, fpm, label, gen=False,
+                   solve=None):
+    """One solve (``feast``, or ``solve`` as ``_run_feast`` takes it) with
+    the launch counts set to 0 just before and read just after; checks the
+    counts against the schedule the solve reports."""
     from feastkit_tpu_torch.ops.cheb_kernels import (form_launch_counts,
                                                       launch_counts,
                                                       reset_launch_counts)
     with recorded_applications(gen) as seen:
         reset_launch_counts()
-        r, seconds = _run_feast(A, B, Emin, Emax, M0, fpm)
+        r, seconds = _run_feast(A, B, Emin, Emax, M0, fpm, solve)
         counts = launch_counts()
         seen["forms"] = form_launch_counts()
     want = (expected_gen_launches(seen["applications"], seen["steps"],
@@ -2308,6 +2339,7 @@ def phase_main_path(kernels):
     for name in MAIN_PATH_KERNELS:
         check(counts[name] > 0,
               f"{name} launched on the main path ({counts[name]})")
+    r_lam = np.sort(r.lam)
     del r
     warm = [warm_s]
     for _ in range(2):
@@ -2327,7 +2359,8 @@ def phase_main_path(kernels):
               f"{breakdown.get('filter_' + rung, 0.0):.3f} s", flush=True)
     return dict(cold_s=cold_s, warm_s=warm, warm_median_s=float(
         np.median(warm)), peak_bytes=peak, counts=counts,
-        applications=seen["applications"], breakdown=breakdown)
+        applications=seen["applications"], breakdown=breakdown,
+        lam=r_lam)
 
 
 def _breakdown(A, B, Emin, Emax, M0, fpm):
@@ -3686,13 +3719,13 @@ def matfree_launches(N, record, loops, steps=192):
             + 2 * loops)
 
 
-def _matfree_p10(dia_rr):
+def _matfree_p10(dia_rr, staged=True):
     """Leg 1: feast on a LinearOperator whose matvec is dia_matvec_f64 on
     the P = 10 Laplacian's five diagonals, solver="cheb" (the Lanczos
     bounds, the unfused recurrence on the operator): once cold with its
-    launches counted and held to their reckoning, once warm with its
-    stages timed. ``dia_rr``: phase 3c's row of dia_matvec_f64 at this
-    shape (the P=10 Rayleigh-Ritz product's)."""
+    launches counted and held to their reckoning, and (``staged``) once
+    warm with its stages timed. ``dia_rr``: phase 3c's row of
+    dia_matvec_f64 at this shape (the P=10 Rayleigh-Ritz product's)."""
     import torch
     import feastkit_tpu_torch as ft
     from feastkit_tpu_torch.ops import dia as D
@@ -3737,7 +3770,13 @@ def _matfree_p10(dia_rr):
     check(all(v == 0 for n, v in counts.items() if n != "dia_matvec_f64"),
           "no other DIA entry and no Chebyshev kernel launched")
     launches = counts["dia_matvec_f64"]
+    out = dict(N=N, M=r.M, loops=r.loop, eig_err=float(np.abs(
+        np.sort(r.lam) - exp).max()), max_res=float(r.res.max()),
+        cold_s=cold, peak_bytes=peak, launches=launches,
+        n_coeffs=record["n_coeffs"], applications=record["applications"])
     del r
+    if not staged:
+        return out
     stages = {}
     with matfree_stages(stages, timed=True), all_counts() as counts:
         r, warm = _timed_call(solve)
@@ -3755,12 +3794,10 @@ def _matfree_p10(dia_rr):
           f"x {dia_rr['ms']:.4f} ms (phase 3c, CUDA graph) = {kernel_s:.3f} "
           f"s, the recurrence's torch glue {times['filter'] - kernel_s:.3f} s",
           flush=True)
-    return dict(N=N, M=r.M, loops=r.loop, eig_err=float(np.abs(
-        np.sort(r.lam) - exp).max()), max_res=float(r.res.max()),
-        cold_s=cold, warm_s=warm, peak_bytes=peak, launches=launches,
-        n_coeffs=record["n_coeffs"], applications=record["applications"],
-        stages=times, other_s=other, filter_kernel_s=kernel_s,
-        filter_glue_s=times["filter"] - kernel_s)
+    out.update(warm_s=warm, stages=times, other_s=other,
+               filter_kernel_s=kernel_s,
+               filter_glue_s=times["filter"] - kernel_s)
+    return out
 
 
 def general_circle(lam, count):
@@ -3967,17 +4004,323 @@ def _rci_legs():
     return out
 
 
-def phase_matfree(dia_rr):
+def phase_matfree(dia_rr, staged=True):
     """Phase 13: the matrix-free drivers and the RCI step machines through
-    the entry points on the card."""
+    the entry points on the card (``staged``: leg 1's staged warm solve
+    too)."""
     print("== 13. the matrix-free drivers and the RCI step machines: "
           "feast on a DIA-kernel operator at P=10, the matrix-free Krylov "
           "engine, feast_polynomial by operators, a caller's solver, "
           "FeastSRCI / FeastGRCI", flush=True)
-    out = {"matfree_p10": _matfree_p10(dia_rr)}
+    out = {"matfree_p10": _matfree_p10(dia_rr, staged)}
     out["krylov"] = _matfree_krylov()
     out.update(_matfree_polynomial_and_solver())
     out.update(_rci_legs())
+    return out
+
+
+# -- phase 14: the public surface -------------------------------------------
+
+@contextlib.contextmanager
+def _seeded_draws():
+    """Count the host draws of the seeded subspace (``core/tools.
+    seeded_subspace``) made inside the block, in the dict it yields."""
+    from feastkit_tpu_torch.core import tools
+    orig = tools.seeded_subspace
+    seen = {"draws": 0}
+
+    def counted(*a, **k):
+        seen["draws"] += 1
+        return orig(*a, **k)
+    tools.seeded_subspace = counted
+    try:
+        yield seen
+    finally:
+        tools.seeded_subspace = orig
+
+
+@contextlib.contextmanager
+def unfused_series():
+    """Record the series length (and rung) of every application of the
+    unfused recurrence (``solvers/sparse._sparse_cheb_filter_host``)."""
+    from feastkit_tpu_torch.solvers import sparse
+    orig = sparse._sparse_cheb_filter_host
+    seen = []
+
+    def recorder(ctx, Q, *, rung, n_coeffs=None):
+        seen.append((rung, len(ctx[rung]["coeffs"]), tuple(Q.shape)))
+        return orig(ctx, Q, rung=rung, n_coeffs=n_coeffs)
+    sparse._sparse_cheb_filter_host = recorder
+    try:
+        yield seen
+    finally:
+        sparse._sparse_cheb_filter_host = orig
+
+
+@contextlib.contextmanager
+def plain_dia_products():
+    """The sparse engines' DIA products by the plain PyTorch version on
+    the card tensors, called directly (no kernel launched)."""
+    from feastkit_tpu_torch.ops import dia as D
+    from feastkit_tpu_torch.solvers import sparse
+    orig = sparse.dia_matvec_any
+    sparse.dia_matvec_any = D.dia_matvec_plain
+    try:
+        yield
+    finally:
+        sparse.dia_matvec_any = orig
+
+
+def _surface_p10(main=None):
+    """Legs 1-3 of phase 14 on BASELINE.json config 4 at P=10: the FEAST
+    name ``dfeast_scsrev``, a checkpoint and its resume, the stochastic
+    count. ``main``: the main path's eigenvalues and launch counts (phase
+    4), else this phase runs ``feast`` once, counted, for them."""
+    import tempfile
+    import torch
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.ops import dia as D
+    nx = 1024
+    N = nx * nx
+    A = lap2d(nx)
+    Emin, Emax, exp = interval_lowest(lap2d_eigs(nx))
+    M0 = 72
+    check(len(exp) == 52, "fixture: 52 pairs")
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    fpm[1] = 1
+    out = {}
+    if main is None:
+        r, s, counts, _ = _counted_solve(A, None, Emin, Emax, M0, fpm,
+                                         "P=10 feast (for comparison)")
+        _check_result(r, exp, 1e-8, "P=10 feast")
+        main = dict(lam=np.sort(r.lam), counts=counts)
+        del r
+
+    # leg 1: the FEAST-named alias on the main path
+    def alias(A_, B_, lo, hi, m0, f):
+        return ft.dfeast_scsrev(A_, lo, hi, m0, f)
+    r1, leg1_s, counts, _ = _counted_solve(A, None, Emin, Emax, M0, fpm,
+                                           "leg 1: dfeast_scsrev",
+                                           solve=alias)
+    _check_result(r1, exp, 1e-8, "leg 1: dfeast_scsrev")
+    path = {n: counts[n] for n in MAIN_PATH_KERNELS}
+    check(path == {n: main["counts"][n] for n in MAIN_PATH_KERNELS},
+          f"leg 1: launches {path} equal the main path's")
+    lam_diff = float(np.abs(np.sort(r1.lam) - main["lam"]).max())
+    print(f"   leg 1: {leg1_s:.2f} s, loops {r1.loop}; eigenvalues against "
+          f"the main path's feast call {lam_diff:.3e}", flush=True)
+    check(lam_diff <= 1e-12, "leg 1: eigenvalues within 1e-12 of feast's")
+    out["alias_p10"] = dict(seconds=leg1_s, loops=r1.loop, launches=path,
+                            lam_vs_feast=lam_diff, eig_err=float(np.abs(
+                                np.sort(r1.lam) - exp).max()),
+                            max_res=float(r1.res.max()))
+
+    # leg 2: checkpoint and resume
+    with tempfile.TemporaryDirectory() as where:
+        ck_path = os.path.join(where, "p10.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ft.save_checkpoint(ck_path, r1, fpm, (Emin, Emax))
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(ck_path)
+        t0 = time.perf_counter()
+        ck = ft.load_checkpoint(ck_path)
+        load_s = time.perf_counter() - t0
+    check(ck.Q.shape == (N, M0) and ck.loop == r1.loop,
+          "leg 2: the checkpoint holds the (N, M0) basis and the loops")
+    lam1 = np.sort(r1.lam)
+    loops1 = r1.loop
+    del r1
+    torch.cuda.empty_cache()
+    with _seeded_draws() as draws:
+        r2, resume_s = _run_feast(A, None, Emin, Emax, M0, fpm,
+                                  lambda A_, B_, lo, hi, m0, f: ft.feast(
+                                      A_, B_, (lo, hi), m0,
+                                      **ft.resume_kwargs(ck)))
+    del ck
+    _check_result(r2, exp, 1e-8, "leg 2: resume")
+    resume_diff = float(np.abs(np.sort(r2.lam) - lam1).max())
+    print(f"   leg 2: checkpoint {size / 1e6:.1f} MB, saved in {save_s:.2f} s "
+          f"(warm page cache), loaded in {load_s:.2f} s; resume {resume_s:.2f} "
+          f"s, {r2.loop} loops against leg 1's {leg1_s:.2f} s, {loops1} "
+          f"loops; seeded draws {draws['draws']}; eigenvalues against leg "
+          f"1 {resume_diff:.3e}", flush=True)
+    check(draws["draws"] == 0, "leg 2: the resume draws no seeded Q0")
+    check(r2.M == 52 and resume_diff <= 1e-10,
+          "leg 2: the same M, eigenvalues within 1e-10 of leg 1")
+    check(r2.loop <= loops1, "leg 2: no more loops than leg 1")
+    out["resume_p10"] = dict(bytes=size, save_s=save_s, load_s=load_s,
+                             seconds=resume_s, loops=r2.loop,
+                             leg1_loops=loops1, lam_vs_leg1=resume_diff)
+    del r2
+    torch.cuda.empty_cache()
+
+    # leg 3: the stochastic count fpm[14] = 2 (fpm[32] = 10 probes)
+    fc = fpm.copy()
+    fc[14] = 2
+    with unfused_series() as series, all_counts() as counts:
+        rc, count_s = _run_feast(A, None, Emin, Emax, M0, fc)
+    check(len(series) == 1 and series[0][2] == (N, 10),
+          f"leg 3: one application of the unfused recurrence on the "
+          f"(N, 10) probes ({series})")
+    degree = series[0][1] - 1
+    est = float(rc.epsout)
+    print(f"   leg 3: count {est:.6f} (M = {rc.M}) in {count_s:.2f} s, "
+          f"degree {degree}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    check(rc.lam.size == 0 and tuple(rc.q.shape) == (N, 0) and rc.q.is_cuda
+          and rc.loop == 1 and int(rc.info) == 0, "leg 3: a count-only "
+          "result on the card")
+    check(abs(est - 52) <= 5 * np.sqrt(2 * 52 / 10),
+          "leg 3: |est - 52| <= 5 sqrt(2 x 52 / 10)")
+    check(counts["dia_matvec_f64"] == degree, f"leg 3: dia_matvec_f64 "
+          f"launches {counts['dia_matvec_f64']} equal the series' products "
+          f"{degree} (Gershgorin bounds on the host)")
+    check(all(v == 0 for n, v in counts.items() if n != "dia_matvec_f64"),
+          "leg 3: no other kernel launched")
+    with plain_dia_products(), all_counts() as plain_counts:
+        rp, plain_s = _run_feast(A, None, Emin, Emax, M0, fc)
+    rel = abs(est - float(rp.epsout)) / abs(float(rp.epsout))
+    print(f"   leg 3: the same filter and probes with the plain DIA product "
+          f"on the card: {float(rp.epsout):.6f} in {plain_s:.2f} s, "
+          f"relative {rel:.3e}", flush=True)
+    check(sum(plain_counts.values()) == 0,
+          "leg 3: the plain run launched no kernel")
+    check(rel <= 1e-9, "leg 3: the kernel's count within 1e-9 of the "
+          "plain product's")
+    out["count_p10"] = dict(estimate=est, M=rc.M, seconds=count_s,
+                            degree=degree, launches=counts["dia_matvec_f64"],
+                            plain_estimate=float(rp.epsout),
+                            plain_seconds=plain_s, relative=rel)
+    del rc, rp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _match_same(got, want, label, tol=1e-12):
+    got, want = np.sort_complex(np.asarray(got)), np.sort_complex(
+        np.asarray(want))
+    err = float(np.abs(got - want).max()) if len(got) == len(want) > 0 \
+        else np.inf
+    print(f"   {label}: M = {len(got)}, against the generic driver "
+          f"{err:.3e}", flush=True)
+    check(len(got) == len(want) > 0 and err <= tol,
+          f"{label}: the generic driver's eigenvalues within {tol:g}")
+    return err
+
+
+def _surface_small():
+    """Leg 4: one FEAST name of each family on the card against the port's
+    own generic driver on the same operands, eigvals_feast, and a
+    torch.profiler trace of one small sparse solve."""
+    import json
+    import tempfile
+    import scipy.sparse as sp
+    import torch
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.solvers import sparse
+    out = {}
+    rng = np.random.default_rng(14)
+    n = 200
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(n, n)).tocsr()
+    T40 = T[:40, :40].tocsr()     # the Krylov engine's host-bound loop
+    H = T.toarray() + 1j * (np.eye(n, k=1) - np.eye(n, k=-1)) * 0.1
+    G = np.diag(np.arange(1.0, n + 1)) + 0.01 * rng.standard_normal((n, n))
+    S = (G + G.T) / 2 + 0.01j * np.eye(n)
+    bands = np.stack([np.r_[np.diag(T.toarray(), 1), 0.0],
+                      np.diag(T.toarray()),
+                      np.r_[0.0, np.diag(T.toarray(), -1)]])
+    K = [np.diag(np.arange(1.0, 11.0)), 0.1 * np.eye(10), np.eye(10)]
+    c = ft.feast_contour(0.5, 1.5, ft.feastinit())
+    legs = (
+        ("zfeast_heev", lambda: ft.zfeast_heev(H, 0.5, 1.5, 60),
+         lambda: ft.feast_heev(H.astype(np.complex128), 0.5, 1.5, 60)),
+        ("dfeast_sbev", lambda: ft.dfeast_sbev(bands, 1, 1, 0.5, 1.5, 60),
+         lambda: ft.feast_sbev(bands, 1, 1, 0.5, 1.5, 60)),
+        ("cfeast_geev", lambda: ft.cfeast_geev(G, 10.0, 2.5, 10),
+         lambda: ft.feast_geev(G.astype(np.complex64), 10.0, 2.5, 10)),
+        ("zfeast_syev", lambda: ft.zfeast_syev(S, 10.0, 2.5, 10),
+         lambda: ft.feast_geev_complex_sym(S, 10.0, 2.5, 10)),
+        ("zfeast_gepev", lambda: ft.zfeast_gepev(K, 2.0j, 1.0, 8),
+         lambda: ft.feast_pep([k.astype(complex) for k in K], 2.0j, 1.0,
+                              8)),
+        ("difeast_scsrev", lambda: ft.difeast_scsrev(T40, 0.5, 1.5, 12),
+         lambda: sparse.sparse_feast_interval(T40, None, 0.5, 1.5, 12,
+                                              hermitian=False,
+                                              solver="gmres")),
+        ("dfeast_syevx", lambda: ft.dfeast_syevx(T.toarray(), 0.5, 1.5, 60,
+                                                 c.Zne, c.Wne),
+         lambda: ft.feast_syev(T.toarray(), 0.5, 1.5, 60, contour=c)),
+        ("eigvals_feast", lambda: ft.eigvals_feast(T.toarray(), (0.5, 1.5),
+                                                   M0=60),
+         lambda: ft.feast(T.toarray(), None, (0.5, 1.5), 60)),
+    )
+    for label, alias, generic in legs:
+        t0 = time.perf_counter()
+        got = alias()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        want = generic()
+        lam = got if isinstance(got, np.ndarray) else got.lam
+        if not isinstance(got, np.ndarray):
+            check(got.q.is_cuda, f"{label}: eigenvectors on the card")
+        out[label] = dict(seconds=seconds, err=_match_same(lam, want.lam,
+                                                           label))
+    # the RCI machine serviced with torch LU on the card
+    Td = torch.as_tensor(T.toarray(), device="cuda").to(torch.complex128)
+    st = ft.feast_srci(n, 60, 0.5, 1.5)
+    _rci_drive(st, Td, torch.eye(n, dtype=Td.dtype, device="cuda"))
+    want = ft.feast_syev(T.toarray(), 0.5, 1.5, 60)
+    out["feast_srci"] = dict(err=_match_same(
+        st.lam[st.inside], want.lam, "feast_srci", 1e-10))
+    # a torch.profiler trace of one small polynomial solve
+    A = lap2d(64)
+    Emin, Emax, _ = interval_lowest(lap2d_eigs(64))
+    with tempfile.TemporaryDirectory() as where:
+        with ft.trace_to(where) as prof:
+            ft.feast(A, None, (Emin, Emax), 72)
+        with open(os.path.join(where, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {}
+    for e in kernels:
+        # "void (anonymous namespace)::cheb_stream_kernel<...>(...)" ->
+        # "cheb_stream_kernel"
+        key = e["name"].removeprefix("void ").replace(
+            "(anonymous namespace)::", "").split("<")[0].split("(")[0]
+        names[key] = names.get(key, 0.0) + e.get("dur", 0.0)
+    starts = [e["ts"] for e in events if "ts" in e and "dur" in e]
+    ends = [e["ts"] + e["dur"] for e in events if "ts" in e and "dur" in e]
+    span_us = max(ends) - min(starts)
+    busy_us = sum(e.get("dur", 0.0) for e in kernels)
+    device_us = sum(getattr(k, "self_device_time_total", 0.0)
+                    for k in prof.key_averages())
+    top = dict(sorted(names.items(), key=lambda kv: -kv[1])[:8])
+    print(f"   trace: {len(kernels)} kernel events, kernel time "
+          f"{busy_us / 1e3:.3f} ms of a {span_us / 1e3:.3f} ms window "
+          f"({busy_us / span_us:.1%} busy), key_averages device time "
+          f"{device_us / 1e3:.3f} ms; by kernel (us) "
+          f"{ {k: round(v, 1) for k, v in top.items()} }", flush=True)
+    check(any(("cheb" in k or "dia_" in k) for k in names),
+          "trace: the CUDA events name a Chebyshev or DIA kernel")
+    out["trace"] = dict(kernel_events=len(kernels), busy_ms=busy_us / 1e3,
+                        window_ms=span_us / 1e3, device_ms=device_us / 1e3,
+                        top_kernels_us=top)
+    return out
+
+
+def phase_surface(main=None):
+    """Phase 14: the public surface on the card: legs 1-3 at P=10
+    (``_surface_p10``), leg 4 on small problems (``_surface_small``)."""
+    print("== 14. the public surface: dfeast_scsrev, a checkpoint resume and "
+          "the stochastic count at P=10; one FEAST name of each family, "
+          "eigvals_feast, a torch.profiler trace", flush=True)
+    t0 = time.perf_counter()
+    out = _surface_p10(main)
+    out["small"] = _surface_small()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"   phase 14: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -4141,6 +4484,14 @@ def main(argv):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--surface" in argv:
+        phase_dia_kernels(smi.split(",")[0], ptxas["dia_matvec"])
+        print(json.dumps({"surface": phase_surface()}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--direct" in argv or "--direct-sweep" in argv:
         out = {}
         if "--direct-sweep" in argv:
@@ -4166,6 +4517,7 @@ def main(argv):
     form_counts = {}
     if not quick:
         main_path = phase_main_path(kernels)
+        main_lam = main_path.pop("lam")
         p9 = phase_p9()
         # each kernel's launches on its own path: the main path for the
         # kernels it runs, the SPD-B path for the composite's own, the
@@ -4179,8 +4531,8 @@ def main(argv):
         print(json.dumps({"main_path": main_path, "p9": p9,
                           "spd_b": spd_b}), flush=True)
         # depth cut for time since phase 13 (PERF.md, Findings): the staged
-        # warm solves of phases 8, 11 (leg 1) and 12 (leg 1), and the
-        # permuted consistent-mass leg at P=7
+        # warm solves of phases 8, 11 (leg 1), 12 (leg 1) and, since phase
+        # 14, 13 (leg 1), and the permuted consistent-mass leg at P=7
         krylov = phase_krylov(dia_kernels, staged=False)
         gen_krylov = phase_gen_krylov()
         counts.update(krylov["launches"])
@@ -4201,8 +4553,12 @@ def main(argv):
         for name, row in dia_general.items():
             row["launches"] = general["general_p8"]["launches"].get(name, 0)
         print(json.dumps({"general": general}), flush=True)
-        matfree = phase_matfree(dia_other["rr_p10 dia_matvec_f64"])
+        matfree = phase_matfree(dia_other["rr_p10 dia_matvec_f64"],
+                                staged=False)
         print(json.dumps({"matfree": matfree}), flush=True)
+        surface = phase_surface(dict(lam=main_lam,
+                                     counts=main_path["counts"]))
+        print(json.dumps({"surface": surface}), flush=True)
     rows = []
     copy_tbs = kernels.pop("copy_tbs")
     for name, k in kernels.items():
@@ -4247,6 +4603,15 @@ def main(argv):
                     "shape", "max_abs_err", "ms", "eager_ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms")},
                 launches=matfree["matfree_p10"]["launches"])
+            # the stochastic count at P=10 (phase 14 leg 3): its launches,
+            # beside phase 3c's times at its (N, 10) shape
+            g = dia_other["count_p10 dia_matvec_f64"]
+            rows[-1]["count_p10"] = dict(
+                {key: g.get(key) for key in (
+                    "shape", "body", "turns", "max_abs_err", "ms",
+                    "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                launches=surface["count_p10"]["launches"])
     print(json.dumps({"rayleigh_ritz_ms": rr_ms, "copy_tbs": copy_tbs,
                       "multistep_nine_diagonals": nd9,
                       "two_step_p9": {n: kernels[n].pop("p9") for n in (

@@ -7,7 +7,11 @@ there is no silent fallback from the card to the host.
 Backend selection is the JAX package's (``feastkit_tpu/core/backend.py``):
 serial or sharded, with legacy names folded into sharded, and the same
 strict-versus-fallback messages. The devices counted are those of the
-solve's own type: the CUDA cards on CUDA, one on the CPU.
+solve's own type: the CUDA cards on CUDA, one on the CPU. The reports
+(``determine_parallel_backend``, ``feast_parallel_capabilities``,
+``feast_parallel_info``) count the CUDA cards, or one CPU where there is
+none, and give "sharded" as unavailable: the sharded drivers are ROADMAP.md
+queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -15,7 +19,9 @@ import warnings
 
 import torch
 
-__all__ = ["resolve_device", "select_parallel_backend"]
+__all__ = ["resolve_device", "select_parallel_backend",
+           "determine_parallel_backend", "feast_parallel_capabilities",
+           "feast_parallel_info"]
 
 _BACKENDS = ("auto", "serial", "sharded")
 _LEGACY = {"threads": "sharded", "distributed": "sharded", "mpi": "sharded"}
@@ -40,9 +46,57 @@ def _n_devices(device: torch.device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
-def select_parallel_backend(backend, device, *, allow_fallback=True,
+def _default_device() -> torch.device:
+    """The devices the reports count: CUDA where there is a card, else the
+    CPU."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def determine_parallel_backend(backend="auto") -> str:
+    """"auto" / "serial" / "sharded" (legacy "threads" / "distributed" /
+    "mpi" accepted) after the availability fallback
+    (determine_parallel_backend, feast_backend_utils.jl:17-50). The sharded
+    backend is not ported (item 15), so every name resolves to "serial"."""
+    b = str(backend).lstrip(":")
+    if _LEGACY.get(b, b) not in _BACKENDS:
+        raise ValueError(f"Unknown backend {backend!r}; valid: "
+                         f"{_BACKENDS + tuple(_LEGACY)}")
+    return "serial"
+
+
+def feast_parallel_capabilities() -> dict:
+    """Capability report (feast_parallel_capabilities,
+    feast_backend_utils.jl:212-278): the CUDA cards, or one CPU."""
+    dev = _default_device()
+    n = _n_devices(dev)
+    kinds = ({torch.cuda.get_device_name(i) for i in range(n)}
+             if dev.type == "cuda" else {"cpu"})
+    return {
+        "n_devices": n,
+        "platform": "gpu" if dev.type == "cuda" else "cpu",
+        "backends": {"serial": True, "sharded": False},
+        "device_kinds": sorted(kinds),
+    }
+
+
+def feast_parallel_info(file=None):
+    import sys
+    file = file or sys.stdout
+    caps = feast_parallel_capabilities()
+    print("FEAST parallel capabilities:", file=file)
+    print(f"  platform      : {caps['platform']}", file=file)
+    print(f"  devices       : {caps['n_devices']} "
+          f"({', '.join(caps['device_kinds'])})", file=file)
+    for k, v in caps["backends"].items():
+        print(f"  backend {k:<8}: {'available' if v else 'unavailable'}",
+              file=file)
+    return caps
+
+
+def select_parallel_backend(backend, device=None, *, allow_fallback=True,
                             auto_sharded=True) -> str:
-    """"serial" or "sharded" for ``backend`` on ``device``'s type. "auto"
+    """"serial" or "sharded" for ``backend`` on ``device``'s type (None:
+    CUDA, whose cards are counted, none without a card). "auto"
     picks sharded on two or more devices where ``auto_sharded`` (the JAX
     package's sparse operands; dense ones shard only on request). A sharded
     request on one device warns and runs serially, or raises when
@@ -51,7 +105,7 @@ def select_parallel_backend(backend, device, *, allow_fallback=True,
     b = _LEGACY.get(b, b)
     if b not in _BACKENDS:
         raise ValueError(f"Unknown backend {backend!r}")
-    n = _n_devices(device)
+    n = _n_devices(torch.device("cuda" if device is None else device))
     if b == "auto":
         return "sharded" if (auto_sharded and n > 1) else "serial"
     if b == "sharded" and n < 2:

@@ -81,6 +81,16 @@ def feastinit(fpm: FeastParameters | None = None) -> FeastParameters:
     return fpm
 
 
+def feastinit_driver(N: int, fpm: FeastParameters | None = None
+                     ) -> FeastParameters:
+    """feastinit and the suggested node count ne = clamp(ceil(sqrt(N)), 8,
+    64) in fpm[2] (feast_parameters.jl:26-34)."""
+    fpm = feastinit(fpm)
+    if N > 0:
+        fpm[2] = int(np.clip(np.ceil(np.sqrt(float(N))), 8, 64))
+    return fpm
+
+
 def _decode_routine_digits(code: int) -> list[int]:
     """fpm[30] six-digit routine code -> digit list d1..d6
     (feast_parameters.jl:49-60). d1: 1=FEAST 2=PFEAST; d2: precision;

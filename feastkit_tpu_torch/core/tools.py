@@ -15,7 +15,7 @@ import torch
 
 __all__ = ["seeded_subspace", "initial_subspace", "residuals",
            "inside_first_order", "eigh_polished", "reduced_hermitian_gevp",
-           "thin_svd", "orthonormalize", "lu_factor"]
+           "thin_svd", "orthonormalize", "lu_factor", "feast_name"]
 
 
 def seeded_subspace(N: int, M0: int, dtype, *, general: bool = False) -> np.ndarray:
@@ -46,13 +46,18 @@ def initial_subspace(fpm, Q0, N: int, M0: int, dtype, *,
     Q0 = np.asarray(Q0, np.dtype(dtype))
     if Q0.shape[0] != N:
         raise ValueError(f"Q0 must have {N} rows, got {Q0.shape[0]}")
-    seed = seeded_subspace(N, M0, dtype, general=general)
+    # the seeded columns are drawn only where a column is missing or zero:
+    # a full restart basis (a checkpoint's) resumes without the host draw
+    seed = None
     if Q0.shape[1] >= M0:
         Q0 = np.ascontiguousarray(Q0[:, :M0])
     else:
+        seed = seeded_subspace(N, M0, dtype, general=general)
         Q0 = np.concatenate([Q0, seed[:, Q0.shape[1]:]], axis=1)
     dead = np.linalg.norm(Q0, axis=0) <= 0
     if dead.any():
+        if seed is None:
+            seed = seeded_subspace(N, M0, dtype, general=general)
         Q0 = Q0.copy()
         Q0[:, dead] = seed[:, dead]
     return Q0
@@ -135,3 +140,24 @@ def lu_factor(S):
     lus, pivs = zip(*(torch.linalg.lu_factor(s) for s in flat))
     return (torch.stack(lus).reshape(S.shape),
             torch.stack(pivs).reshape(S.shape[:-1]))
+
+
+def feast_name(code: int) -> str:
+    """Decode a 6-digit FEAST routine code into the routine name
+    (feast_tools.jl:758-832): [p] {s|d|c|z} [i] feast_ {s|h|g}
+    {rci|y|b|csr|e} {x|ev|evx|gv|gvx|pev|pevx}."""
+    digits = [0] * 6
+    rem = int(code)
+    for i in range(6):
+        digits[5 - i] = rem % 10
+        rem //= 10
+    name = "p" if digits[0] == 2 else ""
+    name += {1: "s", 2: "d", 3: "c", 4: "z"}.get(digits[1], "")
+    if digits[2] == 2:
+        name += "i"
+    name += "feast_"
+    name += {1: "s", 2: "h", 3: "g"}.get(digits[3], "")
+    name += {1: "rci", 2: "y", 3: "b", 4: "csr", 5: "e"}.get(digits[4], "")
+    name += {1: "x", 2: "ev", 3: "evx", 4: "gv", 5: "gvx",
+             6: "pev", 7: "pevx"}.get(digits[5], "")
+    return name

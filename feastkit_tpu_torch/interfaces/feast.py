@@ -1,6 +1,8 @@
 """High-level API of the PyTorch port: ``feast``, ``feast_general``,
 ``feast_banded``, ``feast_custom_contour``, ``feast_polynomial``,
-``feast_validate_interval`` and ``feast_summary``.
+``feast_validate_interval``, ``feast_summary``, the conveniences
+``eigvals_feast`` / ``eigen_feast`` and the keyword veneer over fpm
+``feast_set_defaults``.
 
 Counterpart of ``feastkit_tpu/interfaces/feast.py``. ``feast(A, B,
 (Emin, Emax), M0, fpm)`` routes by storage type: scipy.sparse operands to
@@ -32,11 +34,12 @@ import torch
 
 from ..core.aux import with_custom_contour
 from ..core.backend import resolve_device, select_parallel_backend
-from ..core.parameters import _ensure_fpm
+from ..core.parameters import FeastParameters, _ensure_fpm, feastinit
 from ..core.types import Contour, FeastGeneralResult, FeastResult
 
 __all__ = ["feast", "feast_general", "feast_banded", "feast_custom_contour",
-           "feast_polynomial", "feast_summary", "feast_validate_interval"]
+           "feast_polynomial", "feast_summary", "feast_validate_interval",
+           "eigvals_feast", "eigen_feast", "feast_set_defaults"]
 
 _VALID_BACKENDS = ("auto", "serial", "sharded", "threads", "distributed",
                    "mpi")
@@ -332,6 +335,37 @@ def feast_banded(A_bands, kl, ku, interval, M0, fpm=None, *, B_bands=None,
                              Emin, Emax, M0, fpm, **kw)
     return _b.feast_sbgv(A_bands, kl, ku, B_bands, klb, kub,
                          Emin, Emax, M0, fpm, **kw)
+
+
+def eigvals_feast(A, interval, *, B=None, M0=None, **kw):
+    """Eigenvalues-only convenience (feast_interfaces.jl:514-527): the
+    host array ``feast(A, B, interval, M0, **kw).lam``."""
+    return feast(A, B, interval, M0, **kw).lam
+
+
+def eigen_feast(A, interval, *, B=None, M0=None, **kw):
+    """(eigenvalues, eigenvectors) convenience (feast_interfaces.jl:529-540):
+    the host array of eigenvalues and the (N, M) tensor on the solve's
+    device."""
+    r = feast(A, B, interval, M0, **kw)
+    return r.lam, r.q
+
+
+def feast_set_defaults(fpm=None, *, nodes=None, tol_exp=None, max_loops=None,
+                       print_level=None, quadrature=None, aspect_ratio=None,
+                       full_nodes=None) -> FeastParameters:
+    """Keyword-named veneer over fpm slots (feast_set_defaults!,
+    feast_interfaces.jl:484-512): nodes fpm[2], full_nodes fpm[8], tol_exp
+    fpm[3], max_loops fpm[4], print_level fpm[1], quadrature fpm[16],
+    aspect_ratio fpm[18] (in hundredths)."""
+    fpm = feastinit() if fpm is None else FeastParameters(fpm)
+    for slot, value in ((2, nodes), (8, full_nodes), (3, tol_exp),
+                        (4, max_loops), (1, print_level), (16, quadrature)):
+        if value is not None:
+            fpm[slot] = value
+    if aspect_ratio is not None:
+        fpm[18] = int(round(aspect_ratio * 100))
+    return fpm
 
 
 def feast_summary(result, file=None):

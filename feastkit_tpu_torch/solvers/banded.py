@@ -19,7 +19,8 @@ The general and complex-symmetric drivers (``feast_gbev`` / ``gbgv`` /
 ``sbev_complex`` / ``sbgv_complex``) factor the shifted pencils of the full
 contour by the same BCR and take the complex sum sum_e W_e X_e over every
 node, with ``kernel/general.feast_general_core`` around it. The stochastic
-count fpm[14] = 2 is queue 1 item 16. The JAX package's pair and embedding
+count fpm[14] = 2 runs the probes through the same filters (the polynomial
+route's own count at throughput scale). The JAX package's pair and embedding
 mechanisms, its demotion of complex128 work and its host-driven programs
 are TPU-only and not ported.
 """
@@ -43,7 +44,8 @@ from ..ops.banded import (banded_matvec, banded_to_blocktridiag, bcr_factor,
 from ..ops.chebfilter import ChebInfeasible
 from ..ops.eig import check_method
 from .dense import _TORCH_DTYPE
-from .sparse import _contour_poly_default, _not_ported, _sparse_cheb_interval
+from .sparse import (_contour_poly_default, _general_estimate,
+                     _sparse_cheb_interval, _stochastic_estimate_result)
 
 __all__ = ["feast_sbev", "feast_sbgv", "feast_hbev", "feast_hbgv",
            "feast_gbev", "feast_gbgv", "feast_sbev_complex",
@@ -161,9 +163,6 @@ def _banded_interval_driver(A_bands, kl, ku, B_bands, klb, kub, Emin, Emax,
     cdtype = np.dtype(np.complex128 if f64 else np.complex64)
     work = cdtype if hermitian else rdtype
     config = FeastConfig.from_fpm(fpm, dtype=cdtype)
-    if config.mode == 2:
-        raise _not_ported("the stochastic eigenvalue count fpm[14]=2 on "
-                          "the banded driver", 16)
     contour = feast_get_custom_contour(fpm) or feast_contour(Emin, Emax,
                                                              fpm)
     if N >= 4096 and _contour_poly_default():
@@ -180,7 +179,6 @@ def _banded_interval_driver(A_bands, kl, ku, B_bands, klb, kub, Emin, Emax,
                 print(f"feast banded: contour-polynomial route "
                       f"unavailable ({e}); using the BCR direct engine",
                       flush=True)
-    q0 = torch.as_tensor(initial_subspace(fpm, Q0, N, M0, work)).to(device)
 
     def dev(x):
         return None if x is None else torch.as_tensor(x).to(device)
@@ -190,6 +188,10 @@ def _banded_interval_driver(A_bands, kl, ku, B_bands, klb, kub, Emin, Emax,
         dev(np.asarray(contour.Zne, cdtype)),
         dev(np.asarray(contour.Wne, cdtype)), hermitian=bool(hermitian),
         work_dtype=_TORCH_DTYPE[work])
+    if config.mode == 2:
+        return _stochastic_estimate_result(filter_apply, N, fpm, work,
+                                           device)
+    q0 = torch.as_tensor(initial_subspace(fpm, Q0, N, M0, work)).to(device)
     state = feast_hermitian_core(
         apply_A, apply_B, filter_apply, q0, float(Emin), float(Emax),
         tol=config.tol, max_loops=config.max_loops,
@@ -252,9 +254,6 @@ def _banded_general_driver(A_bands, kl, ku, B_bands, klb, kub, Emid, r, M0,
     f64 = A_np.dtype in (np.dtype(np.float64), np.dtype(np.complex128))
     cdtype = np.dtype(np.complex128 if f64 else np.complex64)
     config = FeastConfig.from_fpm(fpm, dtype=cdtype)
-    if config.mode == 2:
-        raise _not_ported("the stochastic eigenvalue count fpm[14]=2 on "
-                          "the banded general driver", 16)
     Zne, Wne = contour_tensors(fpm, Emid, r, cdtype, device)
 
     def dev(x):
@@ -267,6 +266,10 @@ def _banded_general_driver(A_bands, kl, ku, B_bands, klb, kub, Emid, r, M0,
     def filter_apply(Q):
         return torch.einsum("e,enm->nm", Wne, solve_all(apply_B(Q)))
 
+    if config.mode == 2:
+        # the raw full-contour sum: trace(P) = M, weights unscaled
+        return _general_estimate(_stochastic_estimate_result(
+            filter_apply, N, fpm, cdtype, device))
     q0 = torch.as_tensor(initial_subspace(fpm, Q0, N, M0, cdtype,
                                           general=True)).to(device)
     state = feast_general_core(

@@ -176,16 +176,9 @@ def dense_hermitian_feast(A, B, Emin, Emax, M0, fpm=None, *, contour=None,
         store_factorization=config.store_factorization)
 
     if config.mode == 2:
-        # stochastic eigenvalue count (fpm[14] = 2, fpm[32] trials):
-        # M_est = E[v^T P v] over Rademacher probes through the same filter
-        trials = max(fpm[32], 1)
-        rng_probe = np.random.default_rng((N * 31 + trials) % (2**31 - 1))
-        V = rng_probe.choice([-1.0, 1.0], size=(N, trials)).astype(work)
-        PV = filter_apply(torch.as_tensor(V).to(device)).cpu().numpy()
-        est = float(np.einsum("nt,nt->", np.real(V), np.real(PV)) / trials)
-        return FeastResult(np.zeros(0), torch.zeros((N, 0), device=device),
-                           max(int(round(est)), 0), np.zeros(0),
-                           FeastError.SUCCESS, est, 1)
+        from .sparse import _stochastic_estimate_result
+        return _stochastic_estimate_result(filter_apply, N, fpm, work,
+                                           device)
 
     Q0 = torch.as_tensor(initial_subspace(fpm, Q0, N, M0, work)).to(device)
     state = feast_hermitian_core(

@@ -32,7 +32,7 @@ from ..kernel.general import contour_tensors, feast_general_core, \
     general_result
 from ..ops.eig import check_method, general_eig
 from .dense import _make_solve_all, _np_dtype, _operand
-from .sparse import _not_ported
+from .sparse import _general_estimate, _stochastic_estimate_result
 
 __all__ = ["feast_gegv", "feast_geev", "feast_gegv_complex_sym",
            "feast_geev_complex_sym", "feast_pep", "feast_pep_direct",
@@ -93,13 +93,15 @@ def dense_general_feast(A, B, Emid, r, M0, fpm=None, *, contour=None,
     A = _operand(A, cdtype, device)
     B = None if standard else _operand(B, cdtype, device)
     config = FeastConfig.from_fpm(fpm, dtype=cdtype)
-    if config.mode == 2:
-        raise _not_ported("the stochastic eigenvalue count fpm[14]=2 on the "
-                          "dense general driver", 16)
     Zne, Wne = contour_tensors(fpm, Emid, r, cdtype, device, contour)
     apply_A, apply_B, filter_apply = _general_ops(
         A, B, Zne, Wne, standard=standard,
         store_factorization=config.store_factorization)
+    if config.mode == 2:
+        # trace(P) = M holds for the oblique projector too: real Rademacher
+        # probes count the eigenvalues inside (fpm[14] = 2, fpm[32])
+        return _general_estimate(_stochastic_estimate_result(
+            filter_apply, N, fpm, cdtype, device))
     # general problems seed with a fully complex subspace
     Q0 = torch.as_tensor(initial_subspace(fpm, Q0, N, M0, cdtype,
                                           general=True)).to(device)
@@ -220,7 +222,8 @@ def feast_pep_direct(coeffs, Emid, r, M0, fpm=None, eig_method=None,
     is limited by the quadrature (the eigenvalue error follows the
     contour's leakage), so it takes at least 32 full-contour nodes; use
     ``feast_pep`` where machine-precision eigenpairs are needed.
-    ``eig_method`` as in ``dense_general_feast``."""
+    ``eig_method`` as in ``dense_general_feast``. As in the JAX package,
+    fpm[14] = 2 runs an ordinary solve here (the scheme has no count)."""
     check_method(eig_method)
     device = resolve_device(device)
     fpm = _ensure_fpm(fpm)
@@ -231,9 +234,6 @@ def feast_pep_direct(coeffs, Emid, r, M0, fpm=None, eig_method=None,
     coeffs = [_operand(c, cdtype, device) for c in coeffs]
     N = coeffs[0].shape[0]
     config = FeastConfig.from_fpm(fpm, dtype=cdtype)
-    if config.mode == 2:
-        raise _not_ported("the stochastic eigenvalue count fpm[14]=2 on the "
-                          "polynomial driver", 16)
     Zne, Wne = contour_tensors(fpm, Emid, r, cdtype, device)
     V0 = torch.as_tensor(initial_subspace(fpm, Q0, N, M0, cdtype,
                                           general=True)).to(device)

@@ -43,7 +43,7 @@ from ..kernel.hermitian import (VERIFY_FILTER_TOL, feast_hermitian_core,
                                 hermitian_result)
 from ..ops.eig import check_method
 from ..ops.gmres import bicgstab_block, gmres_block
-from .sparse import _not_ported
+from .sparse import _stochastic_estimate_result
 
 __all__ = [
     "polynomial_companion_operators", "feast_polynomial_matvec",
@@ -381,10 +381,10 @@ def feast_matvec(A_op, B_op, interval, M0, fpm=None, *, solver="gmres",
         filter_apply = _contour_filter(
             solve_shifted, apply_B, Zall, Wall, config,
             _torch_dtype(cdtype), real=not hermitian)
-    q0 = initial_subspace(fpm, Q0, N, M0, work)
     if config.mode == 2:
-        raise _not_ported("the stochastic eigenvalue count fpm[14]=2 on "
-                          "the matrix-free driver", 16)
+        return _stochastic_estimate_result(filter_apply, N, fpm, work,
+                                           device)
+    q0 = initial_subspace(fpm, Q0, N, M0, work)
     state = feast_hermitian_core(
         A_op, apply_B, filter_apply, torch.as_tensor(q0).to(device),
         float(rdtype(Emin)), float(rdtype(Emax)), tol=config.tol,

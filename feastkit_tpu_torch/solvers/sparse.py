@@ -88,10 +88,10 @@ The JAX package's real embedding of complex Hermitian pencils
 general engine's demotion of complex128 work (``demote_f64_general``)
 exist because a TPU has no complex128, and its choice of the on-device QR
 eigensolver where complex I/O is required because a remote TPU runtime
-cannot call back to the host; they are not ported. Not ported yet
-(raising ``NotImplementedError`` naming its ROADMAP.md queue 1 item): the
-stochastic count fpm[14]=2 (item 16). Sharded meshes (item 15) are
-refused by ``feast()`` and ``feast_general()``.
+cannot call back to the host; they are not ported. The stochastic count
+fpm[14]=2 runs on every engine (``_stochastic_estimate_result``).
+Sharded meshes (ROADMAP.md queue 1 item 15) are refused by ``feast()`` and
+``feast_general()``.
 """
 from __future__ import annotations
 
@@ -129,7 +129,7 @@ from ..ops.eig import check_method
 from ..ops.gmres import bicgstab_block, gmres_block
 from ..ops.multigrid import (GridStencil, detect_grid_stencil,
                              make_shifted_vcycle, plan_mg_levels)
-from .dense import _TORCH_DTYPE
+from .dense import _TORCH_DTYPE, _np_dtype
 
 __all__ = ["feast_scsrev", "feast_scsrgv", "feast_hcsrev", "feast_hcsrgv",
            "sparse_coo_arrays", "sparse_feast_interval",
@@ -137,10 +137,28 @@ __all__ = ["feast_scsrev", "feast_scsrgv", "feast_hcsrev", "feast_hcsrgv",
            "feast_scsrev_complex", "feast_scsrgv_complex", "feast_scsrpev",
            "feast_hcsrpev", "feast_gcsrpev"]
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to feastkit_tpu_torch yet (ROADMAP.md, "
-        f"queue 1 item {item})")
+def _stochastic_estimate_result(filter_fn, N, fpm, work_dtype, device):
+    """fpm[14] = 2, shared by every driver: the JAX package's Rademacher
+    probes (an (N, fpm[32]) block from numpy ``default_rng((N * 31 + T) %
+    (2**31 - 1))`` in the work dtype) through the solve's own filter on
+    ``device``, M_est = E[v^T P v] (feast_parameters.jl:71-75). A
+    count-only result: no eigenpairs (lam of size 0, q (N, 0) on the
+    device), M = max(round(est), 0), epsout = est, one loop."""
+    trials = max(int(fpm[32]), 1)
+    rng_probe = np.random.default_rng((N * 31 + trials) % (2**31 - 1))
+    V = rng_probe.choice([-1.0, 1.0], size=(N, trials)).astype(work_dtype)
+    out = filter_fn(torch.as_tensor(V).to(device))
+    PV = (out[0] if isinstance(out, tuple) else out).cpu().numpy()
+    est = float(np.einsum("nt,nt->", np.real(V), np.real(PV)) / trials)
+    return FeastResult(np.zeros(0), torch.zeros(
+        (N, 0), dtype=_TORCH_DTYPE[np.dtype(work_dtype)], device=device),
+        max(int(round(est)), 0), np.zeros(0), FeastError.SUCCESS, est, 1)
+
+
+def _general_estimate(res):
+    """The count-only result of a general driver."""
+    return FeastGeneralResult(np.zeros(0, _np_dtype(res.q)), res.q,
+                              res.M, res.res, res.info, res.epsout, res.loop)
 
 
 def _cast_values(data, dtype):
@@ -749,7 +767,19 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
               f"enclosure=[{lo:.3g},{hi:.3g}] "
               f"outside@1w={cinfo['outside_at_1w']:.2e}{extra}", flush=True)
     if config.mode == 2:
-        raise _not_ported("the stochastic eigenvalue count fpm[14]=2", 16)
+        # the unfused recurrence in the work dtype, no ladder, whatever
+        # operator the fused kernels would carry (the JAX package's
+        # ``_sparse_cheb_filter_host`` on the full series)
+        opA = _operator(A_data, A_idx, A_dia_np, offsets, N, wdtype, device)
+        if b_kind == "spd":
+            opA = make_apply_binv_a(opA, _operator(
+                B_data, B_idx, B_dia_np, offsets_B, N, wdtype, device),
+                b_lo, b_hi, qc)
+        ctx = {"f64": dict(apply=opA, lo=lo, hi=hi, dtype=wdtype,
+                           coeffs=coeffs)}
+        return _stochastic_estimate_result(
+            lambda V: _sparse_cheb_filter_host(ctx, V, rung="f64"),
+            N, fpm, work, device)
 
     # rung-truncated series for the f32 rung (rational filters only)
     n_lo = (int(cinfo["degree_lo"]) + 1
@@ -1515,9 +1545,6 @@ def _sparse_krylov_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                          10 * float(np.finfo(rdtype).eps))
     from ..core.aux import feast_get_custom_contour
     contour = feast_get_custom_contour(fpm) or feast_contour(Emin, Emax, fpm)
-    q0_np = initial_subspace(fpm, Q0, N, M0, work)
-    if config.mode == 2:
-        raise _not_ported("the stochastic eigenvalue count fpm[14]=2", 16)
     record = []
     apply_A, apply_B, filter_apply = _sparse_ops(
         A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
@@ -1528,6 +1555,10 @@ def _sparse_krylov_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         offsets_B=offsets_B, precond=precond, mg_A=mg_A, mg_B=mg_B,
         device=device, f64=f64, record=record,
         nodes="mirrored" if hermitian else "half")
+    if config.mode == 2:
+        return _stochastic_estimate_result(filter_apply, N, fpm, work,
+                                           device)
+    q0_np = initial_subspace(fpm, Q0, N, M0, work)
     if config.print_level >= 1:
         print(f"feast krylov: solver={solver} precond={precond}"
               + (f" ({mg_A[3]} levels)" if precond == "mg" else "")
@@ -1777,9 +1808,6 @@ def sparse_feast_general(A, B, Emid, r, M0, fpm=None, *, bilinear=False,
     if solver_tol is None:
         solver_tol = max(config.tol * 0.1, 10 * float(np.finfo(rdtype).eps))
     Zne, Wne = contour_tensors(fpm, Emid, r, cdtype, device)
-    if config.mode == 2:
-        raise _not_ported("the stochastic eigenvalue count fpm[14]=2", 16)
-    q0_np = initial_subspace(fpm, Q0, N, M0, cdtype, general=True)
     record = []
     apply_A, apply_B, filter_apply = _sparse_general_ops(
         A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
@@ -1789,6 +1817,11 @@ def sparse_feast_general(A, B, Emid, r, M0, fpm=None, *, bilinear=False,
         solver_restart=int(solver_restart), offsets_A=offsets_A,
         offsets_B=offsets_B, precond=precond, mg_A=mg_A, mg_B=mg_B,
         device=device, f64=f64, record=record)
+    if config.mode == 2:
+        # the raw full-contour sum: trace(P) = M for the oblique projector
+        return _general_estimate(_stochastic_estimate_result(
+            filter_apply, N, fpm, cdtype, device))
+    q0_np = initial_subspace(fpm, Q0, N, M0, cdtype, general=True)
     if config.print_level >= 1:
         print(f"feast krylov (general): solver={solver} precond={precond}"
               + (f" ({mg_A[3]} levels)" if precond == "mg" else "")

@@ -540,15 +540,17 @@ def test_banded_refusals():
     bands = port_banded.full_to_banded(np.eye(50) * 2.0, 1, 1)
     fpm = ft.feastinit()
     fpm[14] = 2
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ft.feast_sbev(bands, 1, 1, 1.0, 3.0, 8, fpm, device="cpu")
+    # the stochastic count (fpm[14] = 2) is ported: all 50 eigenvalues 2
+    # lie inside, so every probe's v^T P v is its squared norm, N
+    r = ft.feast_sbev(bands, 1, 1, 1.0, 3.0, 8, fpm, device="cpu")
+    assert r.lam.size == 0 and r.M == 50 and abs(r.epsout - 50.0) < 1e-10
     with pytest.raises(ValueError, match="kl\\+ku\\+1"):
         ft.feast_sbev(bands, 2, 1, 1.0, 3.0, 8, device="cpu")
     with pytest.raises(ValueError, match="M0 must be in"):
         ft.feast_sbev(bands, 1, 1, 1.0, 3.0, 51, device="cpu")
-    # the general drivers (item 12, ported since) refuse the stochastic
-    # count too, and solve: diag(1..50) with a weak symmetric band, the
-    # five eigenvalues near 8..12 inside the circle (10, 2.5)
+    # the general drivers (item 12, ported since) count too (fpm[14] = 2,
+    # ported since), and solve: diag(1..50) with a weak symmetric band,
+    # the five eigenvalues near 8..12 inside the circle (10, 2.5)
     A = np.diag(np.arange(1.0, 51.0)) + 0.01 * (np.eye(50, k=1)
                                                 + np.eye(50, k=-1))
     general = port_banded.full_to_banded(A.astype(complex), 1, 1)
@@ -557,8 +559,8 @@ def test_banded_refusals():
                  "feast_sbgv_complex"):
         fn = getattr(port_sb, name)
         lead = (general, 1, 1) + ((eye, 1, 1) if "gv" in name else ())
-        with pytest.raises(NotImplementedError, match="item 16"):
-            fn(*lead, 10.0, 2.5, 8, fpm, device="cpu")
+        r = fn(*lead, 10.0, 2.5, 8, fpm, device="cpu")
+        assert r.lam.size == 0 and r.M == 5 and abs(r.epsout - 5.0) < 0.1
         r = fn(*lead, 10.0, 2.5, 8, device="cpu")
         assert r.M == 5 and int(r.info) == 0
         assert np.abs(np.sort(r.lam.real) - np.linalg.eigvalsh(A)[7:12]

@@ -1287,3 +1287,122 @@ def test_rci_on_cuda_matches_cpu(machine):
     assert jg == jc and sg.loop == sc.loop and sg.q.is_cuda
     assert sg.M == sc.M > 0 and int(sg.info) == int(sc.info) == 0
     assert _general_match(sg.lam[sg.inside], sc.lam[sc.inside]) <= 1e-10
+
+
+# -- the public surface (aliases, checkpoint, profiling, the count) --------
+
+def _lap2d_csr(nx):
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    return (sp.kron(sp.eye(nx), T) + sp.kron(T, sp.eye(nx))).tocsr()
+
+
+def _count_fpm(mixed=None, trials=10):
+    fpm = ft.feastinit()
+    fpm[14] = 2
+    fpm[32] = trials
+    if mixed is not None:
+        fpm[42] = mixed
+    return fpm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["cheb", "gmres"])
+def test_count_on_cuda_matches_cpu_and_plain(solver, monkeypatch):
+    """fpm[14] = 2 on the polynomial engine (the unfused recurrence on
+    dia_matvec_f64, one launch per series step) and on the Krylov engine
+    (the DIA entries inside GMRES) at small N: the card's count against
+    the CPU's with mixed precision off on both (1e-10 relative), and, with
+    the default fpm[42], against the same filter on the same probes with
+    the plain DIA product on the card tensors (1e-9 relative)."""
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    from feastkit_tpu_torch.solvers import sparse as S
+    A = _lap2d_csr(16)
+    w = np.linalg.eigvalsh(A.toarray())
+    Emin, Emax = 0.05, float((w[19] + w[20]) / 2)
+    seen = []
+    orig = S._sparse_cheb_filter_host
+
+    def unfused(ctx, Q, *, rung, n_coeffs=None):
+        seen.append(len(ctx[rung]["coeffs"]))
+        return orig(ctx, Q, rung=rung, n_coeffs=n_coeffs)
+    monkeypatch.setattr(S, "_sparse_cheb_filter_host", unfused)
+    rc = ft.feast_scsrev(A, Emin, Emax, 8, _count_fpm(0), solver=solver,
+                         device="cpu")
+    D.reset_launch_counts()
+    rg = ft.feast_scsrev(A, Emin, Emax, 8, _count_fpm(0), solver=solver)
+    counts = D.launch_counts()
+    assert rg.q.is_cuda and rg.lam.size == 0 and rg.M == rc.M
+    assert abs(rg.epsout - rc.epsout) <= 1e-10 * abs(rc.epsout)
+    assert abs(rg.epsout - np.sum((w >= Emin) & (w <= Emax))) <= 10
+    if solver == "cheb":
+        assert counts["dia_matvec_f64"] == seen[-1] - 1
+        assert sum(counts.values()) == counts["dia_matvec_f64"]
+    else:
+        assert sum(counts.values()) > 0
+    kernel = ft.feast_scsrev(A, Emin, Emax, 8, _count_fpm(), solver=solver)
+    monkeypatch.setattr(S, "dia_matvec_any", D.dia_matvec_plain)
+    D.reset_launch_counts()
+    plain = ft.feast_scsrev(A, Emin, Emax, 8, _count_fpm(), solver=solver)
+    assert sum(D.launch_counts().values()) == 0
+    assert abs(kernel.epsout - plain.epsout) <= 1e-9 * abs(plain.epsout)
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_cuda_tensors(tmp_path):
+    """A checkpoint of a solve whose basis lives on the card: saved from
+    the device tensors, resumed on the card in at most one loop, the
+    eigenvalues within 1e-12."""
+    _need_cuda()
+    n = 60
+    A = np.diag(2.0 * np.ones(n)) - np.eye(n, k=1) - np.eye(n, k=-1)
+    r = ft.feast_syev(A, 0.5, 1.5, 14)
+    assert r.q_full.is_cuda
+    ft.save_checkpoint(tmp_path / "ck.npz", r, ft.feastinit(), (0.5, 1.5))
+    ck = ft.load_checkpoint(tmp_path / "ck.npz")
+    assert isinstance(ck.Q, np.ndarray) and ck.Q.shape == (n, 14)
+    r2 = ft.feast_syev(A, 0.5, 1.5, 14, **ft.resume_kwargs(ck))
+    assert r2.loop <= 1 and r2.M == r.M
+    assert np.abs(np.sort(r2.lam) - np.sort(r.lam)).max() < 1e-12
+
+
+@pytest.mark.cuda
+def test_i_and_x_names_on_cuda_match_cpu():
+    """difeast_scsrev (the Krylov engine on the DIA entries) and
+    dfeast_syevx (the caller's contour) on the card against the CPU."""
+    _need_cuda()
+    from feastkit_tpu_torch.ops import dia as D
+    n = 120
+    A = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(n, n)).tocsr()
+    w = np.linalg.eigvalsh(A.toarray())
+    exp = w[(w >= 0.5) & (w <= 0.8)]
+    D.reset_launch_counts()
+    rg = ft.difeast_scsrev(A, 0.5, 0.8, 16)
+    assert sum(D.launch_counts().values()) > 0
+    rc = ft.difeast_scsrev(A, 0.5, 0.8, 16, device="cpu")
+    assert rg.q.is_cuda and rg.M == rc.M == len(exp)
+    assert np.abs(np.sort(rg.lam) - exp).max() <= 1e-9
+    c = ft.feast_contour(0.5, 1.5, ft.feastinit())
+    Ad = A.toarray()
+    wd = w[(w >= 0.5) & (w <= 1.5)]
+    rg = ft.dfeast_syevx(Ad, 0.5, 1.5, 48, c.Zne, c.Wne)
+    rc = ft.dfeast_syevx(Ad, 0.5, 1.5, 48, c.Zne, c.Wne, device="cpu")
+    assert rg.q.is_cuda and rg.M == rc.M == len(wd)
+    assert np.abs(np.sort(rg.lam) - wd).max() <= 1e-10
+
+
+@pytest.mark.cuda
+def test_trace_to_names_a_port_kernel(tmp_path):
+    """trace_to around a small polynomial solve on the card writes a Chrome
+    trace whose CUDA kernel events name a Chebyshev or DIA kernel."""
+    _need_cuda()
+    import json
+    A = _lap2d_csr(16)
+    w = np.linalg.eigvalsh(A.toarray())
+    with ft.trace_to(str(tmp_path)):
+        ft.feast_scsrev(A, 0.05, float((w[19] + w[20]) / 2), 28,
+                        solver="cheb")
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    assert any(("cheb" in n or "dia_" in n) for n in names), sorted(names)

@@ -27,7 +27,7 @@ methods (1e-12), and one ``make_general_body`` step from the JAX
 package's state after a loop (``general_state_from_reference``): Ritz
 values and residuals within 1e-10. Port-only: the API's routing (an
 operator runs the matrix-free drivers, the sharded backend as in F2), the validation,
-fpm[14] = 2 raising item 16 and ``feast_summary``.
+fpm[14] = 2 (the count; feast_pep_direct solves) and ``feast_summary``.
 
 The JAX package's solves run once, in three child processes (this file run
 as a script), each kept to one core and compiled without LLVM's costly
@@ -701,17 +701,25 @@ def test_validation_and_unported_modes():
         ft.feast_geev(A, 0.0, 0.0, 5, **kw)
     with pytest.raises(ValueError, match="degree >= 1"):
         ft.feast_pep([A], 0.0, 1.0, 5, **kw)
+    # the stochastic count (fpm[14] = 2) is ported: a count-only result
+    # near the number inside (tests/test_torch_estimate.py holds it to
+    # the JAX package); feast_pep_direct has none and solves, as there
     fpm = ft.feastinit()
     fpm[14] = 2
     bands = _full_to_banded(np.diag(np.arange(1.0, 11.0)).astype(complex),
                             0, 0)
-    for call in (lambda: ft.feast_geev(A, w[2], 1.5, 12, fpm, **kw),
-                 lambda: ft.feast_pep_direct([A, np.eye(30)], w[2], 1.5, 12,
-                                             fpm, **kw),
-                 lambda: ft.feast_gbev(bands, 0, 0, 2.0, 1.0, 4, fpm,
-                                       **kw)):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            call()
+    inside = int(np.sum(np.abs(w - w[2]) <= 1.5))
+    r = ft.feast_geev(A, w[2], 1.5, 12, fpm, **kw)
+    assert r.lam.size == 0 and r.M == max(int(round(r.epsout)), 0)
+    assert abs(r.epsout - inside) <= 0.5 * inside + 3
+    r = ft.feast_gbev(bands, 0, 0, 2.0, 1.0, 4, fpm, **kw)
+    # eigenvalues 1 and 3 lie on the circle (filter value ~1/2 each)
+    assert r.lam.size == 0 and r.M == 2 and abs(r.epsout - 2.0) < 0.1
+    # P(lam) = A + lam I: the eigenvalues -w, those near -w[2] inside
+    r = ft.feast_pep_direct([A, np.eye(30)], -w[2], 1.5, 12, fpm, **kw)
+    r0 = ft.feast_pep_direct([A, np.eye(30)], -w[2], 1.5, 12, **kw)
+    assert r.M == len(r.lam) == r0.M == len(exp)
+    assert np.array_equal(r.lam, r0.lam)
 
 
 def test_summary_and_custom_contour():

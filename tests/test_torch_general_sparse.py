@@ -387,8 +387,11 @@ def test_unported_modes_and_validation():
     A, _ = stencil(20, 20)
     fpm = ft.feastinit()
     fpm[14] = 2
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ft.feast_gcsrev(A, EMID, R, 12, fpm, solver="gmres", device="cpu")
+    fpm[32] = 8
+    # the stochastic count is ported: six eigenvalues inside
+    r = ft.feast_gcsrev(A, EMID, R, 12, fpm, solver="gmres", device="cpu")
+    assert r.lam.size == 0 and r.M == max(int(round(r.epsout)), 0)
+    assert abs(r.epsout - 6.0) <= 5.0
     with pytest.raises(ValueError, match="M0 must be in"):
         ft.feast_gcsrev(A, EMID, R, 401, device="cpu")
     with pytest.raises(ValueError, match="radius"):

@@ -12,7 +12,7 @@ generalized pencil of operators, the transpose pairing (``bilinear``),
 the routing of ``feast``, ``feast_general`` and ``feast_polynomial``
 (bare callables refused with the JAX package's errors, a sharded request
 warned or refused with its texts), the seeded and the caller's Q0 bit for
-bit, and fpm[14] = 2 raising item 16.
+bit, and fpm[14] = 2 (the count).
 
 Every solve runs in both packages from the same numpy inputs (the JAX
 package at x64 on the CPU, the port on the CPU with torch on one thread):
@@ -592,14 +592,21 @@ def test_eig_method_checked_at_entry():
 
 
 def test_stochastic_count_raises_item_16():
+    """fpm[14] = 2 is ported (no longer item 16): both filters give a
+    count-only result near the number inside (held to the JAX package in
+    tests/test_torch_estimate.py)."""
     fpm = ft.feastinit()
     fpm[14] = 2
     op = _stencil(ft, 40)
+    w = _lap_eigs(40)
+    inside = int(((w >= 0.01) & (w <= 0.2)).sum())
     for solver in ("cheb", "gmres"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            ft.feast_matvec(op, None, (0.01, 0.2), 8, fpm, solver=solver,
+        r = ft.feast_matvec(op, None, (0.01, 0.2), 8, fpm, solver=solver,
                             bounds=(0.0, 4.0001) if solver == "cheb"
                             else None, device="cpu")
+        assert r.lam.size == 0 and r.loop == 1
+        assert r.M == max(int(round(r.epsout)), 0)
+        assert abs(r.epsout - inside) <= 0.5 * inside + 3
 
 
 def test_q0_bit_identical(monkeypatch):
