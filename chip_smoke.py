@@ -19,6 +19,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --general          # phases 3c and 12 alone
     python3 chip_smoke.py --matfree          # phases 3c and 13 alone
     python3 chip_smoke.py --surface          # phases 3c and 14 alone
+    python3 chip_smoke.py --sharded          # phases 3c and 15 alone
     python3 chip_smoke.py --direct-sweep     # BCR blocks, dense LU batching
 
 Phases, each printed before the last line:
@@ -235,6 +236,27 @@ Phases, each printed before the last line:
      1e-10), and a torch.profiler trace (trace_to) of one small polynomial
      solve, whose CUDA events must name a Chebyshev or DIA kernel; phase
      3c holds and times dia_matvec_f64 at the count's (N, 10) shape;
+  15. the sharded drivers (parallel/pfeast.py): the gloo calls the drivers
+     make, each on a tiny CUDA tensor first, then two ranks of a gloo
+     world on the one card (this script with --sharded-rank, both on
+     cuda:0) run (1) the main path with its columns over the ranks:
+     pfeast_sparse(solver="cheb") on contour_mesh(2) at P=10, M0 = 72,
+     36 columns a rank, M = 52, eigenvalues within 1e-8 of the analytic
+     ones and within 1e-12 of phase 4's serial solve (equal to the bit or
+     not, printed), residuals <= tol, each rank's launches of rows 1-6
+     equal to the serial schedule's; (2) the contour-sharded Krylov
+     engine at P=7 (lap2d(128), solver="gmres", multigrid) and (3) the
+     model-sharded one at P=6 (contour_model_mesh(1, 2): each rank's rows,
+     halo products on the extended blocks, the V-cycle's rows gathered),
+     the analytic M, eigenvalues within 1e-8, residuals <= tol, DIA
+     launches equal to the Krylov record's; (4) dense config 2
+     (pfeast_dense, f32, n = 2048) on a 1 x 2 contour x rhs mesh, M = 24
+     within 1e-5; (5) fpm[14] = 2 through leg 2's sharded filter, within
+     5 sqrt(2M/10) of leg 2's M; each leg's time per rank beside the
+     card's name and power limit (two ranks share one card: no speed-up
+     can be read); and the stencil as one convolution
+     (FEAST_STENCIL_CONV=1) against the shifted adds at the P=8 grid,
+     float32;
   7. one JSON line {"kernels": [...]} with each kernel's launches on its
      path (the main path's, for the composite's own kernels the SPD-B
      path's, for the real DIA kernels the Krylov path's: phase 8's counted
@@ -242,18 +264,19 @@ Phases, each printed before the last line:
      unbatched, and its Krylov leg, batched; "path" names it; the complex
      entries leg (1) of phase 12 launches carry a "general_p8" object with
      that leg's launches and phase 3c's times at its shapes; the fp64
-     entry's "matfree_p10" object has phase 13 leg (1)'s launches and
-     phase 3c's times at that leg's shape, and its "count_p10" object
-     phase 14 leg (3)'s launches and phase 3c's times at the count's
-     shape), its error against its plain version and its times; the
+     entry's "matfree_p9" object has phase 13 leg (1)'s launches at P=9,
+     and its "count_p10" object phase 14 leg (3)'s launches and phase
+     3c's times at the count's shape; every entry phase 15 launches has a
+     "sharded" object, its launches on each rank per leg), its error
+     against its plain version and its times; the
      column-major entries' ms, bound_ms and library_ms are those of the
      form without T0 and acc, and their "forms" give every form's times,
      bound and launches.
 Run without a flag, the script leaves out the staged warm solves of phase
-8, of phase 11 leg (1), of phase 12 leg (1) and of phase 13 leg (1), and
-runs phase 11 leg (3) at P=7, to finish inside its time limit with phases
-13 and 14; --hermitian, --general and --matfree run those phases at full
-depth.
+8, of phase 11 leg (1), of phase 12 leg (1) and of phase 13 leg (1), runs
+phase 11 leg (3) at P=7, phase 13 leg (1) at P=9 and its leg (2) at
+P=5, to finish inside its time limit with phases 13, 14 and 15;
+--hermitian, --general and --matfree run those phases at full depth.
 The last line is {"ok": true, "device": {...}}. Any failed check raises
 and exits nonzero before that line. Without a CUDA device the script
 exits nonzero and prints no result.
@@ -2263,9 +2286,11 @@ def recorded_applications(gen=False):
 
 @contextlib.contextmanager
 def switches(**env):
-    """Set the FEAST_CHEB_FUSE2 / FEAST_CHEB_FUSE4 switches (None: unset)
-    for the block, then restore the environment."""
-    names = ("FEAST_CHEB_FUSE2", "FEAST_CHEB_FUSE4")
+    """Set the FEAST_CHEB_FUSE2 / FEAST_CHEB_FUSE4 switches, and any other
+    named in ``env`` (None: unset), for the block, then restore the
+    environment."""
+    names = ("FEAST_CHEB_FUSE2", "FEAST_CHEB_FUSE4") + tuple(
+        k for k in env if k not in ("FEAST_CHEB_FUSE2", "FEAST_CHEB_FUSE4"))
     saved = {k: os.environ.pop(k, None) for k in names}
     os.environ.update({k: v for k, v in env.items() if v is not None})
     try:
@@ -3719,22 +3744,23 @@ def matfree_launches(N, record, loops, steps=192):
             + 2 * loops)
 
 
-def _matfree_p10(dia_rr, staged=True):
+def _matfree_p10(dia_rr, staged=True, p=10):
     """Leg 1: feast on a LinearOperator whose matvec is dia_matvec_f64 on
-    the P = 10 Laplacian's five diagonals, solver="cheb" (the Lanczos
-    bounds, the unfused recurrence on the operator): once cold with its
-    launches counted and held to their reckoning, and (``staged``) once
-    warm with its stages timed. ``dia_rr``: phase 3c's row of
-    dia_matvec_f64 at this shape (the P=10 Rayleigh-Ritz product's)."""
+    the P = p Laplacian's five diagonals (p = 10; 9 in the default run, a
+    depth cut for time), solver="cheb" (the Lanczos bounds, the unfused
+    recurrence on the operator): once cold with its launches counted and
+    held to their reckoning, and (``staged``) once warm with its stages
+    timed. ``dia_rr``: phase 3c's row of dia_matvec_f64 at the P=10 shape
+    (the P=10 Rayleigh-Ritz product's)."""
     import torch
     import feastkit_tpu_torch as ft
     from feastkit_tpu_torch.ops import dia as D
-    nx = 1024
+    nx = 2 ** p
     N = nx * nx
     A = lap2d(nx)
     Emin, Emax, exp = interval_lowest(lap2d_eigs(nx))
     M0 = 72
-    check(len(exp) == 52, "fixture: 52 pairs")
+    check(len(exp) == 52 or p != 10, "fixture: 52 pairs")
     op = dia_operator(A, np.float64, D.dia_matvec_f64)
     fpm = ft.feastinit()
     fpm[3] = 8
@@ -3757,7 +3783,7 @@ def _matfree_p10(dia_rr, staged=True):
           f"series of {record['n_coeffs']} coefficients, "
           f"{record['applications']} filter applications; launches "
           f"{ {k: v for k, v in counts.items() if v} }", flush=True)
-    _check_result(r, exp, 1e-8, "matrix-free P=10 cold")
+    _check_result(r, exp, 1e-8, f"matrix-free P={p} cold")
     loops = r.loop + 1
     want = matfree_launches(N, record, loops)
     check(record["applications"] == loops + 1,
@@ -3770,7 +3796,7 @@ def _matfree_p10(dia_rr, staged=True):
     check(all(v == 0 for n, v in counts.items() if n != "dia_matvec_f64"),
           "no other DIA entry and no Chebyshev kernel launched")
     launches = counts["dia_matvec_f64"]
-    out = dict(N=N, M=r.M, loops=r.loop, eig_err=float(np.abs(
+    out = dict(p=p, N=N, M=r.M, loops=r.loop, eig_err=float(np.abs(
         np.sort(r.lam) - exp).max()), max_res=float(r.res.max()),
         cold_s=cold, peak_bytes=peak, launches=launches,
         n_coeffs=record["n_coeffs"], applications=record["applications"])
@@ -3813,23 +3839,23 @@ def general_circle(lam, count):
     return c, r, _in_circle(lam, c, r)
 
 
-def _matfree_krylov():
+def _matfree_krylov(p_real=MATFREE_P_REAL, p_gen=MATFREE_P_GEN):
     """Leg 2: the matrix-free contour engine (unpreconditioned GMRES(30) /
     BiCGStab per node) on DIA operators: feast on the real Laplacian at
-    P = MATFREE_P_REAL (its complex blocks through the real entry, A Re X
-    + i A Im X), then feast_general on the complex stencil of phase 12 at
-    P = MATFREE_P_GEN (the complex128 entry through dia_matvec_any)."""
+    P = p_real (its complex blocks through the real entry, A Re X + i A Im
+    X), then feast_general on the complex stencil of phase 12 at P = p_gen
+    (the complex128 entry through dia_matvec_any)."""
     import feastkit_tpu_torch as ft
     from feastkit_tpu_torch.ops import dia as D
     out = {}
-    nx = 2 ** MATFREE_P_REAL
+    nx = 2 ** p_real
     Emin, Emax, exp = interval_lowest(lap2d_eigs(nx), 50)
     M0 = int(-(-int(len(exp) * 1.3) // 8) * 8)
     op = dia_operator(lap2d(nx), np.float64, D.dia_matvec_f64)
     fpm = ft.feastinit()
     fpm[3] = 8
     for solver in ("gmres", "bicgstab"):
-        label = f"matrix-free {solver} P={MATFREE_P_REAL}"
+        label = f"matrix-free {solver} P={p_real}"
         with all_counts() as counts:
             r, s = _timed_call(lambda: ft.feast(op, None, (Emin, Emax), M0,
                                                 fpm, solver=solver))
@@ -3847,11 +3873,11 @@ def _matfree_krylov():
                            inner_converged=bool(r.inner_converged),
                            launches=counts["dia_matvec_f64"])
         del r
-    A, lam = general_stencil(MATFREE_P_GEN)
+    A, lam = general_stencil(p_gen)
     Emid, rad, exp = general_circle(lam, 40)
     M0 = 56
     op = dia_operator(A, np.complex128)
-    label = f"matrix-free feast_general P={MATFREE_P_GEN}"
+    label = f"matrix-free feast_general P={p_gen}"
     with all_counts() as counts:
         r, s = _timed_call(lambda: ft.feast_general(op, None, Emid, rad, M0,
                                                     fpm))
@@ -4004,16 +4030,17 @@ def _rci_legs():
     return out
 
 
-def phase_matfree(dia_rr, staged=True):
+def phase_matfree(dia_rr, staged=True, p=10, p_krylov=MATFREE_P_REAL):
     """Phase 13: the matrix-free drivers and the RCI step machines through
     the entry points on the card (``staged``: leg 1's staged warm solve
-    too)."""
-    print("== 13. the matrix-free drivers and the RCI step machines: "
-          "feast on a DIA-kernel operator at P=10, the matrix-free Krylov "
+    too; ``p``: leg 1's size, 9 in the default run; ``p_krylov``: leg 2's,
+    5 in the default run)."""
+    print(f"== 13. the matrix-free drivers and the RCI step machines: "
+          f"feast on a DIA-kernel operator at P={p}, the matrix-free Krylov "
           "engine, feast_polynomial by operators, a caller's solver, "
           "FeastSRCI / FeastGRCI", flush=True)
-    out = {"matfree_p10": _matfree_p10(dia_rr, staged)}
-    out["krylov"] = _matfree_krylov()
+    out = {f"matfree_p{p}": _matfree_p10(dia_rr, staged, p)}
+    out["krylov"] = _matfree_krylov(p_krylov, p_krylov)
     out.update(_matfree_polynomial_and_solver())
     out.update(_rci_legs())
     return out
@@ -4324,6 +4351,315 @@ def phase_surface(main=None):
     return out
 
 
+# -- phase 15: the sharded drivers ------------------------------------------
+
+SHARDED_RANKS = 2
+SHARDED_TIME_LIMIT_S = 900
+
+
+def _gloo_on_cuda(torch, dist):
+    """Every all-reduce the sharded drivers make, on a tiny CUDA tensor
+    through gloo before anything is built on it: SUM in float32 / float64
+    / complex64 / complex128 / int32, MAX and MIN in int32 and float64.
+    A call that refuses a CUDA tensor raises here (nothing is staged
+    through the host around it)."""
+    rank = dist.get_rank()
+    done = []
+    for dtype in (torch.float32, torch.float64, torch.complex64,
+                  torch.complex128, torch.int32):
+        ops = ("SUM",) if dtype.is_complex or dtype == torch.float32 \
+            else ("SUM", "MAX", "MIN")
+        for op in ops:
+            t = torch.full((3,), rank + 1, dtype=dtype, device="cuda")
+            dist.all_reduce(t, op=getattr(dist.ReduceOp, op))
+            want = {"SUM": SHARDED_RANKS * (SHARDED_RANKS + 1) // 2,
+                    "MAX": SHARDED_RANKS, "MIN": 1}[op]
+            check(t.is_cuda and bool((t == want).all()),
+                  f"gloo all_reduce {op} on a CUDA {dtype} tensor")
+            done.append(f"{op} {str(dtype).replace('torch.', '')}")
+    return done
+
+
+def _sharded_leg(label, solve, rank, dist, torch):
+    """``solve()`` on every rank, started together (a barrier), with the
+    DIA and Chebyshev kernels' launch counts set to 0 just before and read
+    just after; (result, seconds, counts)."""
+    torch.cuda.synchronize()
+    dist.barrier()
+    with all_counts() as counts:
+        t0 = time.perf_counter()
+        r = solve()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    print(f"   rank {rank} {label}: {seconds:.2f} s, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return r, seconds, dict(counts)
+
+
+def _sharded_rank(rank, store, path):
+    """One rank of phase 15's world (``--sharded-rank``): gloo on the one
+    card, the five legs, its results to ``path`` (JSON)."""
+    from datetime import timedelta
+    import scipy.linalg as sla
+    import torch
+    import torch.distributed as dist
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.core.parameters import feast_tolerance
+    from feastkit_tpu_torch.parallel import pfeast as pf
+    from feastkit_tpu_torch.solvers.sparse import krylov_dia_launches
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=SHARDED_RANKS,
+                            timeout=timedelta(seconds=600))
+    out = {"gloo_cuda": _gloo_on_cuda(torch, dist)}
+
+    # leg 1: the main path, its columns over the ranks (config 4 at P=10)
+    nx = 1024
+    A = lap2d(nx)
+    Emin, Emax, exp = interval_lowest(lap2d_eigs(nx))
+    M0 = 72
+    fpm = ft.feastinit()
+    fpm[3] = 8
+    mesh = pf.contour_mesh(SHARDED_RANKS)
+    with recorded_applications() as seen:
+        r, seconds, counts = _sharded_leg(
+            "leg 1 (pfeast_sparse solver='cheb', P=10, M0 = 72 over 2 "
+            "ranks)", lambda: pf.pfeast_sparse(
+                A, None, Emin, Emax, M0, fpm, solver="cheb", mesh=mesh),
+            rank, dist, torch)
+    _check_result(r, exp, 1e-8, f"rank {rank} leg 1")
+    check(len(exp) == 52, "leg 1: 52 pairs")
+    want = expected_launches(seen["applications"], seen["steps"])
+    check({n: counts[n] for n in want} == want,
+          f"rank {rank} leg 1: launches follow the schedule {want}")
+    for name in MAIN_PATH_KERNELS:
+        check(counts[name] > 0, f"rank {rank} leg 1: {name} launched")
+    out["main_cheb_p10"] = dict(
+        seconds=seconds, M=r.M, loops=r.loop,
+        eig_err=float(np.abs(np.sort(r.lam) - exp).max()),
+        max_res=float(r.res.max()), lam=np.sort(r.lam).tolist(),
+        columns=M0 // SHARDED_RANKS, steps=seen["steps"],
+        applications=seen["applications"],
+        launches={n: counts[n] for n in MAIN_PATH_KERNELS})
+    del r
+    torch.cuda.empty_cache()
+
+    # legs 2 and 5: the contour-sharded Krylov engine at P=7 and its count
+    nx = 128
+    A = lap2d(nx)
+    Emin, Emax, exp = interval_lowest(lap2d_eigs(nx))
+    M0 = int(-(-int(len(exp) * 1.3) // 8) * 8)
+    kw = dict(solver="gmres", solver_maxiter=250, mesh=mesh)
+    r, seconds, counts = _sharded_leg(
+        f"leg 2 (pfeast_sparse solver='gmres', P=7, contour over 2 ranks)",
+        lambda: pf.pfeast_sparse(A, None, Emin, Emax, M0, fpm, **kw), rank,
+        dist, torch)
+    _check_result(r, exp, 1e-8, f"rank {rank} leg 2")
+    check(r.krylov["precond"] == "mg", "leg 2: multigrid")
+    dia = {n: counts[n] for n in DIA_KERNELS}
+    check(dia == krylov_dia_launches(r.krylov),
+          f"rank {rank} leg 2: DIA launches follow the Krylov record")
+    out["krylov_contour_p7"] = dict(
+        seconds=seconds, M=r.M, loops=r.loop, N=nx * nx, M0=M0,
+        eig_err=float(np.abs(np.sort(r.lam) - exp).max()),
+        max_res=float(r.res.max()), mg_levels=r.krylov["mg_levels"],
+        launches=dia)
+    M2 = r.M
+    del r
+    fpm_e = ft.feastinit()
+    fpm_e[3] = 8
+    fpm_e[14] = 2
+    r, seconds, counts = _sharded_leg(
+        "leg 5 (fpm[14]=2 through the contour-sharded filter, P=7)",
+        lambda: pf.pfeast_sparse(A, None, Emin, Emax, M0, fpm_e, **kw),
+        rank, dist, torch)
+    bar = 5.0 * np.sqrt(2.0 * M2 / 10)
+    print(f"   rank {rank} leg 5: estimate {r.epsout:.4f} against M = {M2} "
+          f"(bar {bar:.2f})", flush=True)
+    check(abs(r.epsout - M2) <= bar and r.lam.size == 0,
+          f"rank {rank} leg 5: the count within 5 sqrt(2M/10) of M")
+    out["count_contour_p7"] = dict(
+        seconds=seconds, estimate=float(r.epsout), M=int(r.M), bar=bar,
+        launches={n: counts[n] for n in DIA_KERNELS})
+    del r
+
+    # leg 3: the model axis splits the rows (P=6)
+    nx = 64
+    A = lap2d(nx)
+    Emin, Emax, exp = interval_lowest(lap2d_eigs(nx))
+    M0 = int(-(-int(len(exp) * 1.3) // 8) * 8)
+    mmesh = pf.contour_model_mesh(1, SHARDED_RANKS)
+    r, seconds, counts = _sharded_leg(
+        "leg 3 (pfeast_sparse solver='gmres', P=6, rows over 2 ranks)",
+        lambda: pf.pfeast_sparse(A, None, Emin, Emax, M0, fpm,
+                                 solver="gmres", solver_maxiter=250,
+                                 mesh=mmesh), rank, dist, torch)
+    _check_result(r, exp, 1e-8, f"rank {rank} leg 3")
+    check(r.krylov["precond"] == "mg", "leg 3: multigrid (rows gathered)")
+    dia = {n: counts[n] for n in DIA_KERNELS}
+    check(dia == krylov_dia_launches(r.krylov),
+          f"rank {rank} leg 3: DIA launches (the extended blocks) follow "
+          "the Krylov record")
+    out["krylov_model_p6"] = dict(
+        seconds=seconds, M=r.M, loops=r.loop, N=nx * nx, M0=M0,
+        rows=nx * nx // SHARDED_RANKS,
+        eig_err=float(np.abs(np.sort(r.lam) - exp).max()),
+        max_res=float(r.res.max()), launches=dia)
+    del r
+
+    # leg 4: dense config 2 on a 1 x 2 contour x rhs mesh
+    A, B = dense_config2(2048)
+    w = sla.eigh(A.astype(np.float64), B.astype(np.float64),
+                 eigvals_only=True)
+    Emin, Emax = middle_interval(w, 24)
+    exp = w[(w >= Emin) & (w <= Emax)]
+    fpm_d = ft.feastinit()
+    fpm_d[2] = 16
+    r, seconds, _ = _sharded_leg(
+        "leg 4 (pfeast_dense f32 n=2048, contour x rhs 1 x 2)",
+        lambda: pf.pfeast_dense(A, B, Emin, Emax, 32, fpm_d,
+                                hermitian=False,
+                                mesh=pf.contour_rhs_mesh(1, SHARDED_RANKS)),
+        rank, dist, torch)
+    err = float((np.abs(np.sort(r.lam) - exp)
+                 / np.maximum(1.0, np.abs(exp))).max()) \
+        if r.M == len(exp) else float("inf")
+    tol = feast_tolerance(ft.feastdefault(ft.feastinit()), np.float32)
+    print(f"   rank {rank} leg 4: M={r.M} error {err:.3e} max residual "
+          f"{float(r.res.max()):.3e} (tol {tol:.2e})", flush=True)
+    check(r.M == 24 == len(exp), f"rank {rank} leg 4: M = 24")
+    check(err <= 1e-5, f"rank {rank} leg 4: eigenvalues within 1e-5")
+    check(float(r.res.max()) <= tol and int(r.info) == 0,
+          f"rank {rank} leg 4: residuals <= tol, info 0")
+    out["dense_config2"] = dict(seconds=seconds, M=r.M, eig_err=err,
+                                max_res=float(r.res.max()))
+    with open(path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_sharded(main=None):
+    """Phase 15: the sharded drivers on the card. Two ranks of a gloo
+    world (the ``spawn`` start method's fresh processes: this script with
+    ``--sharded-rank``), both on cuda:0, run the legs of
+    ``_sharded_rank``; a rank that fails stops the phase. ``main``: phase
+    4's serial P=10 solve (its eigenvalues and launches), else this phase
+    runs one. Then the stencil convolution (FEAST_STENCIL_CONV=1) against
+    the shifted adds at the P=8 Krylov leg's grid, float32."""
+    import tempfile
+    import torch
+    import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.ops.multigrid import apply_stencil
+    print("== 15. the sharded drivers: two ranks on the one card (gloo); "
+          "the column-sharded main path at P=10, the contour- and "
+          "model-sharded Krylov engine, dense config 2, the count",
+          flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    nx = 1024
+    A = lap2d(nx)
+    Emin, Emax, exp = interval_lowest(lap2d_eigs(nx))
+    if main is None:
+        fpm = ft.feastinit()
+        fpm[3] = 8
+        r, serial_s, counts, _ = _counted_solve(A, None, Emin, Emax, 72, fpm,
+                                                "P=10 serial")
+        _check_result(r, exp, 1e-8, "P=10 serial")
+        main = dict(lam=np.sort(r.lam), counts=counts)
+        del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    where = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    paths = [os.path.join(where, f"rank{r}.json")
+             for r in range(SHARDED_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--sharded-rank", str(r),
+                               os.path.join(where, "store"), paths[r]])
+             for r in range(SHARDED_RANKS)]
+    try:
+        deadline = time.monotonic() + SHARDED_TIME_LIMIT_S
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            check(not failed, "every rank of phase 15 ran to its end")
+            check(time.monotonic() < deadline,
+                  f"phase 15 within {SHARDED_TIME_LIMIT_S} s")
+            time.sleep(0.5)
+        check(all(p.returncode == 0 for p in procs),
+              "every rank of phase 15 ran to its end")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    world_s = time.perf_counter() - t0
+    ranks = []
+    for p in paths:
+        with open(p) as f:
+            ranks.append(json.load(f))
+    lam = [np.asarray(r["main_cheb_p10"].pop("lam")) for r in ranks]
+    check(all(np.array_equal(x, lam[0]) for x in lam),
+          "leg 1: every rank returns the same eigenvalues")
+    delta = float(np.abs(lam[0] - main["lam"]).max())
+    bits = bool(np.array_equal(lam[0], main["lam"]))
+    print(f"   leg 1 against the serial solve: max |difference| {delta:.3e}"
+          f", equal to the bit: {bits}", flush=True)
+    check(delta <= 1e-12, "leg 1: eigenvalues within 1e-12 of the serial "
+          "solve's")
+    for r in ranks:
+        got = r["main_cheb_p10"]["launches"]
+        check(got == {n: main["counts"][n] for n in MAIN_PATH_KERNELS},
+              f"leg 1: each rank's launches {got} equal the serial "
+              "schedule's")
+    for leg in ("main_cheb_p10", "krylov_contour_p7", "count_contour_p7",
+                "krylov_model_p6", "dense_config2"):
+        secs = [round(r[leg]["seconds"], 3) for r in ranks]
+        print(f"   {leg}: {secs} s on ranks 0 and 1 ({smi}; two ranks "
+              "share one card, so no speed-up can be read from it)",
+              flush=True)
+    print(f"   the world: {world_s:.1f} s with its start-up ({smi})",
+          flush=True)
+    # the stencil as one convolution on the card (FEAST_STENCIL_CONV=1)
+    disps = np.asarray([[0, 0], [1, 0], [-1, 0], [0, 1], [0, -1]])
+    coeffs = [4.0, -1.0, -1.0, -1.0, -1.0]
+    x = torch.randn((72, 256, 256), generator=torch.Generator().manual_seed(
+        15)).cuda()
+    with switches(FEAST_STENCIL_CONV=None):
+        shifted = apply_stencil(x, disps, coeffs, (256, 256))
+    with switches(FEAST_STENCIL_CONV="1"):
+        conv = apply_stencil(x, disps, coeffs, (256, 256))
+        conv_ms = cuda_time_ms(lambda: apply_stencil(x, disps, coeffs,
+                                                     (256, 256)), 20)
+    shifted_ms = cuda_time_ms(lambda: apply_stencil(x, disps, coeffs,
+                                                    (256, 256)), 20)
+    err = float((conv - shifted).abs().max())
+    print(f"   FEAST_STENCIL_CONV=1 at the P=8 grid (72 x 256 x 256 f32): "
+          f"{conv_ms:.4f} ms a product against {shifted_ms:.4f} ms by "
+          f"shifted adds, max |difference| {err:.3e} ({smi})", flush=True)
+    check(err <= 8 * 1.2e-7 * 5 * float(shifted.abs().max()),
+          "the stencil convolution agrees with the shifted adds within "
+          "float32 rounding")
+    legs = {leg: [r[leg] for r in ranks] for leg in ranks[0]
+            if leg != "gloo_cuda"}
+    return dict(ranks=SHARDED_RANKS, world_s=world_s, gloo_cuda=ranks[0][
+        "gloo_cuda"], serial_delta=delta, serial_bits=bits, legs=legs,
+        stencil_conv=dict(ms=conv_ms, shifted_ms=shifted_ms, max_err=err))
+
+
+def sharded_launches(sharded):
+    """Each kernel's launches on every rank, per leg of phase 15 (the
+    ``sharded`` object of its row in the kernels line)."""
+    out = {}
+    for leg, per_rank in sharded["legs"].items():
+        for rank, r in enumerate(per_rank):
+            for name, n in r.get("launches", {}).items():
+                if n:
+                    row = out.setdefault(name, {})
+                    row.setdefault(leg, [0] * sharded["ranks"])[rank] = n
+    return out
+
+
 def torch_tensor(X, device):
     import torch
     return torch.as_tensor(X).to(device)
@@ -4417,12 +4753,17 @@ def direct_sweep(device="cuda", scale=1):
 
 
 def main(argv):
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if "--dia-times" in argv:       # a child of --dia-turns
         dia_times(argv[argv.index("--dia-times") + 1])
+        return 0
+    if "--sharded-rank" in argv:    # a rank of phase 15's world
+        i = argv.index("--sharded-rank")
+        _sharded_rank(int(argv[i + 1]), argv[i + 2], argv[i + 3])
         return 0
     import feastkit_tpu_torch  # noqa: F401  (fails outside the repo)
     quick = "--quick" in argv
@@ -4484,6 +4825,17 @@ def main(argv):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--sharded" in argv:
+        phase_dia_kernels(smi.split(",")[0], ptxas["dia_matvec"])
+        sharded = phase_sharded()
+        print(json.dumps({"sharded": sharded,
+                          "sharded_launches": sharded_launches(sharded)}),
+              flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--surface" in argv:
         phase_dia_kernels(smi.split(",")[0], ptxas["dia_matvec"])
         print(json.dumps({"surface": phase_surface()}), flush=True)
@@ -4515,6 +4867,7 @@ def main(argv):
     rr_ms = phase_rayleigh_ritz()
     counts = {name: None for name in (*KERNELS, *DIA_KERNELS)}
     form_counts = {}
+    per_rank = {}
     if not quick:
         main_path = phase_main_path(kernels)
         main_lam = main_path.pop("lam")
@@ -4553,12 +4906,18 @@ def main(argv):
         for name, row in dia_general.items():
             row["launches"] = general["general_p8"]["launches"].get(name, 0)
         print(json.dumps({"general": general}), flush=True)
+        # depth cuts for time since phase 15: phase 13 leg 1 at P=9, leg
+        # 2 at P=5 (--matfree keeps P=10 and P=6)
         matfree = phase_matfree(dia_other["rr_p10 dia_matvec_f64"],
-                                staged=False)
+                                staged=False, p=9, p_krylov=5)
         print(json.dumps({"matfree": matfree}), flush=True)
         surface = phase_surface(dict(lam=main_lam,
                                      counts=main_path["counts"]))
         print(json.dumps({"surface": surface}), flush=True)
+        sharded = phase_sharded(dict(lam=main_lam,
+                                     counts=main_path["counts"]))
+        print(json.dumps({"sharded": sharded}), flush=True)
+        per_rank = sharded_launches(sharded)
     rows = []
     copy_tbs = kernels.pop("copy_tbs")
     for name, k in kernels.items():
@@ -4572,6 +4931,8 @@ def main(argv):
             bound_by=k["bound_by"], library_ms=k.get("library_ms"),
             steps_per_launch=steps, ms_per_step=k["ms_per_step"],
             csr_spmm_ms=k["csr_spmm_ms"]))
+        if name in per_rank:  # phase 15: each rank's launches, per leg
+            rows[-1]["sharded"] = per_rank[name]
         if "forms" in k:      # the column-major entries: ms, bound of "bare"
             rows[-1].update(eager_ms=k["eager_ms"], plan=k["plan"], forms={
                 f: dict(v, launches=form_counts.get(name, {}).get(f))
@@ -4588,6 +4949,8 @@ def main(argv):
             shape=k["shape"], eager_ms=k["eager_ms"], host_us=k["host_us"],
             body=k["body"], turns_ms=k["turns"],
             path=DIA_PATHS[name]))
+        if name in per_rank:  # phase 15: each rank's launches, per leg
+            rows[-1]["sharded"] = per_rank[name]
         if name in dia_general:
             # the general Krylov leg (phase 12, P=8) at its own shape
             g = dia_general[name]
@@ -4595,14 +4958,11 @@ def main(argv):
                 "launches", "shape", "max_abs_err", "ms", "eager_ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if name == "dia_matvec_f64" and not quick:
-            # the matrix-free leg (phase 13, P=10): its launches, beside
-            # phase 3c's times at its shape (the P=10 Rayleigh-Ritz one)
-            g = dia_other["rr_p10 dia_matvec_f64"]
-            rows[-1]["matfree_p10"] = dict(
-                {key: g.get(key) for key in (
-                    "shape", "max_abs_err", "ms", "eager_ms", "plain_ms",
-                    "bound_ms", "bound_by", "library_ms")},
-                launches=matfree["matfree_p10"]["launches"])
+            # the matrix-free leg (phase 13, P=9 in this run): its
+            # launches; phase 3c times the product at the P=10 shape only
+            rows[-1]["matfree_p9"] = dict(
+                shape=[matfree["matfree_p9"]["N"], 72],
+                launches=matfree["matfree_p9"]["launches"])
             # the stochastic count at P=10 (phase 14 leg 3): its launches,
             # beside phase 3c's times at its (N, 10) shape
             g = dia_other["count_p10 dia_matvec_f64"]
@@ -4617,6 +4977,8 @@ def main(argv):
                       "two_step_p9": {n: kernels[n].pop("p9") for n in (
                           "cheb_step2_f32", "cheb_step2_f64")}}),
           flush=True)
+    print(f"== the whole script: {time.perf_counter() - started:.1f} s "
+          f"({smi})", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

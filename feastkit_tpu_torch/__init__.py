@@ -24,13 +24,13 @@ constants (``deprecations.py``), ``eigvals_feast`` / ``eigen_feast`` /
 the profiling helpers (``utils/profiling.py``), the stochastic
 eigenvalue count fpm[14] = 2 on every driver, and the validation, info,
 memory and backend reports of ``core/aux.py`` and ``core/backend.py``.
-Not here yet (ROADMAP.md queue 1 item 15, the sharded drivers): the
-module ``parallel``, ``pfeast_dense`` / ``pfeast_sparse`` /
-``pfeast_general`` / ``pfeast_sparse_general``, ``pfeast_sygv`` /
-``pfeast_scsrgv``, the parallel aliases ``p{s,d,c,z}[i]feast_*`` (but the
-parallel RCI machine ``p{s,d}feast_srci`` / ``pfeast_srci``), the
-``mpi_feast*`` family, ``MPIFeastState``, ``feast_hybrid`` and the mesh
-helpers ``contour_mesh`` / ``contour_rhs_mesh`` / ``contour_model_mesh``.
+The sharded drivers (``parallel/pfeast.py``: ``pfeast_dense`` /
+``pfeast_sparse`` / ``pfeast_general`` / ``pfeast_sparse_general`` and the
+meshes ``contour_mesh`` / ``contour_rhs_mesh`` / ``contour_model_mesh``)
+run on the ranks of a ``torch.distributed`` process group, every rank
+calling the same driver; ``feast(..., backend="sharded")``, the parallel
+aliases ``p{s,d,c,z}[i]feast_*``, ``pfeast_sygv`` / ``pfeast_scsrgv``, the
+``mpi_feast*`` family, ``MPIFeastState`` and ``feast_hybrid`` reach them.
 
 Entry points take ``device=None``, which means CUDA; ``device="cpu"``
 runs the plain PyTorch versions of the kernels on the host. The package
@@ -85,6 +85,9 @@ from .interfaces.feast import (eigen_feast, eigvals_feast, feast,
                                feast_general, feast_polynomial,
                                feast_set_defaults, feast_summary,
                                feast_validate_interval)
+from .parallel.pfeast import (contour_mesh, contour_model_mesh,
+                              contour_rhs_mesh, pfeast_dense, pfeast_general,
+                              pfeast_sparse, pfeast_sparse_general)
 from .interfaces.aliases import *  # noqa: F401,F403 - s/d/c/z FEAST names
 from .kernel.rci import (FeastGRCI, FeastHRCI, FeastPolyRCI, FeastPRCI,
                          FeastSRCI)

@@ -6,12 +6,14 @@ there is no silent fallback from the card to the host.
 
 Backend selection is the JAX package's (``feastkit_tpu/core/backend.py``):
 serial or sharded, with legacy names folded into sharded, and the same
-strict-versus-fallback messages. The devices counted are those of the
-solve's own type: the CUDA cards on CUDA, one on the CPU. The reports
-(``determine_parallel_backend``, ``feast_parallel_capabilities``,
-``feast_parallel_info``) count the CUDA cards, or one CPU where there is
-none, and give "sharded" as unavailable: the sharded drivers are ROADMAP.md
-queue 1 item 15.
+strict-versus-fallback messages. The sharded drivers
+(``parallel/pfeast.py``) run one rank per process of a
+``torch.distributed`` process group, so the devices that the selection
+counts are the ranks of the initialized default group (1 without one,
+whatever cards the host has). The reports (``feast_parallel_capabilities``,
+``feast_parallel_info``) give the cards (the CUDA cards, or one CPU where
+there is none) and the ranks, with "sharded" available on two or more
+ranks.
 """
 from __future__ import annotations
 
@@ -41,8 +43,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _n_devices(device: torch.device) -> int:
-    """Devices of the solve's type: the CUDA cards, or one CPU."""
+def _n_devices(device=None) -> int:
+    """The devices a sharded solve spans: the ranks of the initialized
+    default process group, 1 without one (``device``, the solve's, does
+    not change the count: each rank runs on its own device)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _n_cards(device: torch.device) -> int:
+    """Cards of the device's type: the CUDA cards, or one CPU."""
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
@@ -55,26 +67,35 @@ def _default_device() -> torch.device:
 def determine_parallel_backend(backend="auto") -> str:
     """"auto" / "serial" / "sharded" (legacy "threads" / "distributed" /
     "mpi" accepted) after the availability fallback
-    (determine_parallel_backend, feast_backend_utils.jl:17-50). The sharded
-    backend is not ported (item 15), so every name resolves to "serial"."""
+    (determine_parallel_backend, feast_backend_utils.jl:17-50): sharded
+    needs two or more ranks."""
     b = str(backend).lstrip(":")
-    if _LEGACY.get(b, b) not in _BACKENDS:
+    b = _LEGACY.get(b, b)
+    if b not in _BACKENDS:
         raise ValueError(f"Unknown backend {backend!r}; valid: "
                          f"{_BACKENDS + tuple(_LEGACY)}")
-    return "serial"
+    if b == "auto":
+        return "sharded" if _n_devices() > 1 else "serial"
+    if b == "sharded" and _n_devices() < 2:
+        return "serial"
+    return b
 
 
 def feast_parallel_capabilities() -> dict:
     """Capability report (feast_parallel_capabilities,
-    feast_backend_utils.jl:212-278): the CUDA cards, or one CPU."""
+    feast_backend_utils.jl:212-278): the cards (the CUDA cards, or one
+    CPU) and the ranks of the default process group; "sharded" is
+    available on two or more ranks."""
     dev = _default_device()
-    n = _n_devices(dev)
+    n = _n_cards(dev)
     kinds = ({torch.cuda.get_device_name(i) for i in range(n)}
              if dev.type == "cuda" else {"cpu"})
+    ranks = _n_devices()
     return {
         "n_devices": n,
+        "n_ranks": ranks,
         "platform": "gpu" if dev.type == "cuda" else "cpu",
-        "backends": {"serial": True, "sharded": False},
+        "backends": {"serial": True, "sharded": ranks > 1},
         "device_kinds": sorted(kinds),
     }
 
@@ -87,6 +108,7 @@ def feast_parallel_info(file=None):
     print(f"  platform      : {caps['platform']}", file=file)
     print(f"  devices       : {caps['n_devices']} "
           f"({', '.join(caps['device_kinds'])})", file=file)
+    print(f"  ranks         : {caps['n_ranks']}", file=file)
     for k, v in caps["backends"].items():
         print(f"  backend {k:<8}: {'available' if v else 'unavailable'}",
               file=file)
@@ -95,24 +117,25 @@ def feast_parallel_info(file=None):
 
 def select_parallel_backend(backend, device=None, *, allow_fallback=True,
                             auto_sharded=True) -> str:
-    """"serial" or "sharded" for ``backend`` on ``device``'s type (None:
-    CUDA, whose cards are counted, none without a card). "auto"
-    picks sharded on two or more devices where ``auto_sharded`` (the JAX
+    """"serial" or "sharded" for ``backend``, over the ranks of the default
+    process group (``_n_devices``; ``device`` is the solve's). "auto"
+    picks sharded on two or more ranks where ``auto_sharded`` (the JAX
     package's sparse operands; dense ones shard only on request). A sharded
-    request on one device warns and runs serially, or raises when
+    request on one rank warns and runs serially, or raises when
     ``allow_fallback`` is False (the JAX package's strict selection)."""
     b = str(backend).lstrip(":")
     b = _LEGACY.get(b, b)
     if b not in _BACKENDS:
         raise ValueError(f"Unknown backend {backend!r}")
-    n = _n_devices(torch.device("cuda" if device is None else device))
+    n = _n_devices(device)
     if b == "auto":
         return "sharded" if (auto_sharded and n > 1) else "serial"
     if b == "sharded" and n < 2:
         if not allow_fallback:
             raise RuntimeError(
                 f"backend='sharded' requires >= 2 devices but only {n} "
-                "visible. Run on a host with several CUDA devices.")
+                "visible. Run every rank of a torch.distributed process "
+                "group (init_process_group) through the same call.")
         warnings.warn("backend='sharded' unavailable (single device); "
                       "falling back to serial", stacklevel=4)
         return "serial"

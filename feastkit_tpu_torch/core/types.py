@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import warnings
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -136,11 +137,23 @@ def _trim(result_cls, lam_full, q_full, res_full, inside, info, epsout, loop,
     """Trim the inside-first ordered M0-sized buffers to the M valid
     entries (``result_cls`` FeastResult or FeastGeneralResult).
     ``lam_full``, ``res_full`` and ``inside`` are host arrays; ``q_full``
-    may be a device tensor and is sliced, not copied."""
+    may be a device tensor and is sliced, not copied.
+
+    ``inner_ok=False`` marks a run whose inner iterative solves missed
+    their tolerance; it counts, and warns, only where the outer loop
+    failed too (inexact inner solves are otherwise a feature)."""
     lam_full = np.asarray(lam_full)
     res_full = np.asarray(res_full)
     inside = np.asarray(inside).astype(bool)
     M = int(inside.sum())
+    inner_ok = bool(inner_ok) or FeastError(int(info)) == FeastError.SUCCESS
+    if not inner_ok:
+        warnings.warn(
+            "FEAST did not converge AND the inner iterative solver "
+            "(GMRES/BiCGStab) stalled above its certification accuracy at "
+            "one or more contour nodes — raise solver_maxiter / "
+            "solver_restart, improve preconditioning, or loosen the outer "
+            "tolerance", RuntimeWarning, stacklevel=3)
     return result_cls(
         lam=lam_full[:M],
         q=q_full[:, :M],
@@ -153,6 +166,5 @@ def _trim(result_cls, lam_full, q_full, res_full, inside, info, epsout, loop,
         q_full=q_full,
         res_full=res_full,
         inside=inside,
-        inner_converged=bool(inner_ok) or FeastError(int(info))
-        == FeastError.SUCCESS,
+        inner_converged=inner_ok,
     )

@@ -18,8 +18,13 @@ modules' attributes. Naming grammar (feast_name, feast_tools.jl:758-832):
 An operand is cast to the prefix's precision where it lives: a scipy
 sparse matrix stays scipy, a tensor stays on its device, anything else
 becomes a numpy array. The solves run on ``device=`` (None: CUDA). The
-parallel p-names (``p{s,d,c,z}[i]feast_*``) are the sharded drivers of
-ROADMAP.md queue 1 item 15 and are not defined here.
+parallel p-names (``p{s,d,c,z}[i]feast_*``) run the sharded drivers of
+``parallel/pfeast.py`` (every rank of the process group calling):
+dense names ``pfeast_dense`` / ``pfeast_general``, sparse ones
+``pfeast_sparse`` / ``pfeast_sparse_general``, and the i-names the sparse
+drivers' Krylov inner solves on any operand, as in the JAX package;
+``p{s,d}feast_srci`` are the parallel RCI machine of
+``interfaces/compat.py``.
 """
 from __future__ import annotations
 
@@ -29,11 +34,13 @@ import torch
 
 from ..core.backend import resolve_device
 from ..core.types import Contour
+from ..parallel import pfeast as _pf
 from ..solvers import banded as _bnd
 from ..solvers import dense as _dn
 from ..solvers import dense_general as _dg
 from ..solvers import matfree as _mf
 from ..solvers import sparse as _sp
+from .compat import pdfeast_srci, psfeast_srci
 
 _REAL = {"s": np.float32, "d": np.float64}
 _CPLX = {"c": np.complex64, "z": np.complex128}
@@ -346,6 +353,24 @@ def _looks_like_fpm(obj):
             and np.issubdtype(arr.dtype, np.integer))
 
 
+def _make_parallel(driver, dtype, generalized, **flags):
+    """A p-name: ``driver`` of ``parallel/pfeast.py`` (called through the
+    module's attribute) on the operands cast to ``dtype``, with ``flags``
+    (``hermitian=`` for an interval driver, ``bilinear=`` for a general
+    one)."""
+    def alias(A, *args, **kw):
+        if generalized:
+            B, lo, hi, M0, *rest = args
+            B = _cast(B, dtype)
+        else:
+            lo, hi, M0, *rest = args
+            B = None
+        fpm = _split_fpm(rest, kw)
+        return getattr(_pf, driver)(_cast(A, dtype), B, lo, hi, M0, fpm,
+                                    **flags, **kw)
+    return alias
+
+
 def _xify(fn):
     """x-variant: the trailing (Zne, Wne) positional arguments register a
     custom contour in the fpm[29] registry for the call (the reference's
@@ -390,6 +415,17 @@ def _build():
                                                          iterative=True)
         out[f"{p}ifeast_sbgv"] = _iterative_banded_interval(dt, True, False)
         out[f"{p}ifeast_sbev"] = _iterative_banded_interval(dt, False, False)
+        # parallel: the sharded drivers, and the parallel RCI machine
+        out[f"p{p}feast_sygv"] = _make_parallel("pfeast_dense", dt, True,
+                                                hermitian=False)
+        out[f"p{p}feast_syev"] = _make_parallel("pfeast_dense", dt, False,
+                                                hermitian=False)
+        out[f"p{p}feast_scsrgv"] = _make_parallel("pfeast_sparse", dt, True,
+                                                  hermitian=False)
+        out[f"p{p}feast_scsrev"] = _make_parallel("pfeast_sparse", dt,
+                                                  False, hermitian=False)
+    out["psfeast_srci"] = psfeast_srci
+    out["pdfeast_srci"] = pdfeast_srci
     for p, dt in _CPLX.items():
         out[f"{p}feast_hegv"] = _make_dense_interval(dt, True, True)
         out[f"{p}feast_heev"] = _make_dense_interval(dt, False, True)
@@ -437,6 +473,23 @@ def _build():
                                                         iterative=True)
         out[f"{p}ifeast_gcsrev"] = _make_sparse_general(dt, False, False,
                                                         iterative=True)
+        # parallel: dense names on the dense sharded drivers, sparse ones
+        # on the sparse ones; the i-names take the sparse drivers' Krylov
+        # inner solves for any operand
+        for i, dense, sparse, gdense, gsparse in (
+                ("", "pfeast_dense", "pfeast_sparse", "pfeast_general",
+                 "pfeast_sparse_general"),
+                ("i", "pfeast_sparse", "pfeast_sparse",
+                 "pfeast_sparse_general", "pfeast_sparse_general")):
+            for form, gen in (("gv", True), ("ev", False)):
+                out[f"p{p}{i}feast_he{form}"] = _make_parallel(
+                    dense, dt, gen, hermitian=True)
+                out[f"p{p}{i}feast_hcsr{form}"] = _make_parallel(
+                    sparse, dt, gen, hermitian=True)
+                out[f"p{p}{i}feast_ge{form}"] = _make_parallel(
+                    gdense, dt, gen, bilinear=False)
+                out[f"p{p}{i}feast_gcsr{form}"] = _make_parallel(
+                    gsparse, dt, gen, bilinear=False)
 
     # x-variants: every serial and iterative name gains an explicit
     # custom-contour form (the reference generates *x for all of them)

@@ -10,11 +10,15 @@ feast_parallel_rci.jl:269-383). The reference's mutating ``foo!(...)``
 convention drops the bang and returns results instead of writing into
 argument arrays.
 
-The names whose JAX bodies run the sharded drivers or build a device mesh
-(``pfeast_sygv`` / ``pfeast_scsrgv``, the ``mpi_feast*`` family,
-``MPIFeastState``, ``feast_hybrid``) are ROADMAP.md queue 1 item 15 and
-are not defined here. The parallel RCI machine and its helpers are: they
-need no mesh (``pfeast_srci``, ``distribute_contour_points``,
+The sharded names run ``parallel/pfeast.py`` on the ranks of a
+``torch.distributed`` process group (every rank calling): ``pfeast_sygv``
+/ ``pfeast_scsrgv``, and the MPI surface (feast_mpi.jl,
+feast_mpi_interface.jl), where a communicator becomes a mesh
+(``_mesh_from_comm``: None, a rank count, or a ``DeviceMesh``):
+``MPIFeastState``, ``mpi_feast``, ``mpi_feast_general``, ``feast_hybrid``
+(contour x rhs over the world) and the ``mpi_feast_{he,ge}{ev,gv}`` /
+``mpi_feast_{h,g}csr{ev,gv}`` drivers. The parallel RCI machine and its
+helpers need no mesh (``pfeast_srci``, ``distribute_contour_points``,
 ``pfeast_compute_all_contour_points``, ``pfeast_show_distribution``).
 """
 from __future__ import annotations
@@ -48,6 +52,12 @@ __all__ = [
     "pfeast_srci", "psfeast_srci", "pdfeast_srci",
     "distribute_contour_points", "pfeast_compute_all_contour_points",
     "pfeast_show_distribution",
+    # the sharded drivers and the MPI surface
+    "pfeast_sygv", "pfeast_scsrgv",
+    "MPIFeastState", "mpi_feast", "mpi_feast_general", "feast_hybrid",
+    "mpi_feast_heev", "mpi_feast_hegv", "mpi_feast_geev", "mpi_feast_gegv",
+    "mpi_feast_hcsrev", "mpi_feast_hcsrgv", "mpi_feast_gcsrev",
+    "mpi_feast_gcsrgv",
 ]
 
 
@@ -290,8 +300,8 @@ def feast_with_backend(backend, A, B, interval, M0, fpm=None, **kw):
 def feast_parallel(A, B, interval, M0=10, fpm=None, *, use_threads=True,
                    auto_rci=True, **kw):
     """Auto-managed parallel solve (feast_parallel,
-    feast_parallel_rci.jl:325-383): serial on one device of the solve's
-    type, else the sharded backend (item 15, which ``feast`` refuses)."""
+    feast_parallel_rci.jl:325-383): serial on one rank, else the sharded
+    backend over the default process group's ranks."""
     del use_threads, auto_rci
     from .feast import feast
     device = resolve_device(kw.get("device"))
@@ -301,9 +311,10 @@ def feast_parallel(A, B, interval, M0=10, fpm=None, *, use_threads=True,
 
 def mpi_available() -> bool:
     """Whether the distributed backend is usable (mpi_available,
-    feast_backend_utils.jl:8-10): not in the port, whose sharded drivers are
-    item 15 (a request for them runs serially on one device)."""
-    return False
+    feast_backend_utils.jl:8-10): wherever ``torch.distributed`` is (a
+    world of one rank runs serially)."""
+    import torch.distributed as dist
+    return bool(dist.is_available())
 
 
 def pfeast_srci(N, M0, Emin, Emax, fpm=None, **kw) -> FeastPRCI:
@@ -364,3 +375,203 @@ def pfeast_show_distribution(ne, *, n_devices=None, use_threads=True,
     for d, rng in enumerate(distribute_contour_points(ne, nd)):
         print(f"  Device {d}: contour points {rng.start + 1}:{rng.stop}",
               file=file)
+
+
+# ---------------------------------------------------------------------------
+# The sharded drivers and the MPI surface (feast_parallel.jl, feast_mpi.jl,
+# feast_mpi_interface.jl): communicators become meshes over the ranks of
+# the default process group, Allreduce the all-reduces of the drivers.
+# ---------------------------------------------------------------------------
+
+def pfeast_sygv(A, B, Emin, Emax, M0, fpm=None, **kw):
+    """Contour-parallel dense symmetric solve (pfeast_sygv!,
+    feast_parallel.jl:58-207) over the ranks."""
+    from ..parallel.pfeast import pfeast_dense
+    return pfeast_dense(A, B, Emin, Emax, M0, fpm, **kw)
+
+
+def pfeast_scsrgv(A, B, Emin, Emax, M0, fpm=None, **kw):
+    """Contour-parallel sparse symmetric solve (pfeast_scsrgv!,
+    feast_parallel.jl:450-572)."""
+    from ..parallel.pfeast import pfeast_sparse
+    return pfeast_sparse(A, B, Emin, Emax, M0, fpm, **kw)
+
+
+def _mesh_from_comm(comm):
+    """None -> the drivers' default contour mesh; an int -> a contour mesh
+    of that many ranks (the world's size); a DeviceMesh -> as is. Anything
+    else (e.g. an mpi4py communicator) is refused."""
+    if comm is None:
+        return None
+    if isinstance(comm, (int, np.integer)):
+        from ..parallel.pfeast import contour_mesh
+        return contour_mesh(int(comm))
+    from torch.distributed.device_mesh import DeviceMesh
+    if isinstance(comm, DeviceMesh):
+        return comm
+    raise TypeError(
+        f"comm must be None, an int rank count, or a "
+        f"torch.distributed.device_mesh.DeviceMesh; got "
+        f"{type(comm).__name__}. The communicator is the mesh over the "
+        "ranks of the default process group (parallel/pfeast.py).")
+
+
+class MPIFeastState:
+    """Per-rank contour bookkeeping (MPIFeastState{T}, feast_mpi.jl:9-54):
+    the block partition of the nodes over the ranks (``local_points``,
+    ``local_Zne``, ``local_Wne``, one entry per rank), this process's
+    ``rank`` and the shared convergence state."""
+
+    def __init__(self, N, M0, Zne, Wne, *, comm=None, root=0):
+        import torch.distributed as dist
+        mesh = _mesh_from_comm(comm)
+        self.comm = mesh
+        self.size = int(mesh.size()) if mesh is not None else _n_devices()
+        self.rank = dist.get_rank() if (dist.is_available()
+                                        and dist.is_initialized()) else 0
+        self.root = int(root)
+        self.N, self.M0 = int(N), int(M0)
+        Zne = np.asarray(Zne, complex)
+        Wne = np.asarray(Wne, complex)
+        self.ne = len(Zne)
+        parts = distribute_contour_points(self.ne, self.size)
+        self.local_points = [list(p) for p in parts]
+        self.local_Zne = [Zne[list(p)] for p in parts]
+        self.local_Wne = [Wne[list(p)] for p in parts]
+        self.converged = False
+        self.loop = 0
+        self.epsout = np.inf
+        self.info = 0
+
+
+def _interval_args(B, interval):
+    """The reference's 2-positional standard form ``(A, interval)``."""
+    if interval is None and isinstance(B, (tuple, list)) and len(B) == 2:
+        B, interval = None, B
+    if interval is None:
+        raise ValueError("interval=(Emin, Emax) is required")
+    return B, interval
+
+
+def _mpi_kw(comm, root, kw):
+    del root
+    mesh = _mesh_from_comm(comm)
+    if mesh is not None:
+        kw["mesh"] = mesh
+    return kw
+
+
+def mpi_feast(A, B=None, interval=None, M0=10, fpm=None, *, comm=None,
+              root=0, **kw):
+    """Distributed solve, communicator -> mesh (mpi_feast dispatchers,
+    feast_mpi.jl:1077-1197), through ``feast(..., backend="mpi")``.
+    Accepts the reference's 2-positional standard form
+    ``mpi_feast(A, interval)``."""
+    from .feast import feast
+    B, interval = _interval_args(B, interval)
+    return feast(A, B, interval, M0, fpm, backend="mpi",
+                 **_mpi_kw(comm, root, kw))
+
+
+def mpi_feast_general(A, B=None, center=0.0 + 0.0j, radius=1.0, M0=10,
+                      fpm=None, *, comm=None, root=0, **kw):
+    """Distributed general solve (mpi_feast_general,
+    feast_mpi.jl:1199-1273)."""
+    from .feast import feast_general
+    return feast_general(A, B, center, radius, M0, fpm, backend="mpi",
+                         **_mpi_kw(comm, root, kw))
+
+
+def feast_hybrid(A, B=None, interval=None, M0=10, fpm=None, *, comm=None,
+                 use_threads_per_rank=True, **kw):
+    """Hybrid MPI x threads -> a contour x rhs mesh over the world
+    (feast_hybrid, feast_mpi_interface.jl:10-178): the contour axis the
+    largest divisor of the rank count not above the node count, the RHS
+    columns across the rest (the threads-within-a-rank analog)."""
+    from .feast import feast
+    B, interval = _interval_args(B, interval)
+    mesh = _mesh_from_comm(comm)
+    if mesh is None and use_threads_per_rank:
+        from ..core.parameters import _ensure_fpm
+        from ..parallel.pfeast import contour_rhs_mesh
+        nd = _n_devices()
+        ne = max(int(_ensure_fpm(fpm)[2]), 1)
+        n_contour = 1
+        for d in range(min(ne, nd), 0, -1):
+            if nd % d == 0:
+                n_contour = d
+                break
+        n_rhs = nd // n_contour
+        if n_rhs > 1:
+            mesh = contour_rhs_mesh(n_contour, n_rhs)
+    if mesh is not None:
+        kw["mesh"] = mesh
+    return feast(A, B, interval, M0, fpm, backend="mpi", **kw)
+
+
+def mpi_feast_hegv(A, B, Emin, Emax, M0, fpm=None, *, comm=None, root=0,
+                   **kw):
+    """Distributed dense Hermitian generalized solve (mpi_feast_hegv!,
+    feast_mpi.jl:925-932)."""
+    from ..parallel.pfeast import pfeast_dense
+    return pfeast_dense(A, B, Emin, Emax, M0, fpm, hermitian=True,
+                        **_mpi_kw(comm, root, kw))
+
+
+def mpi_feast_heev(A, Emin, Emax, M0, fpm=None, *, comm=None, root=0, **kw):
+    """Distributed dense Hermitian standard solve (mpi_feast_heev!,
+    feast_mpi.jl:934-939)."""
+    from ..parallel.pfeast import pfeast_dense
+    return pfeast_dense(A, None, Emin, Emax, M0, fpm, hermitian=True,
+                        **_mpi_kw(comm, root, kw))
+
+
+def mpi_feast_hcsrgv(A, B, Emin, Emax, M0, fpm=None, *, comm=None, root=0,
+                     **kw):
+    """Distributed sparse Hermitian generalized solve (mpi_feast_hcsrgv!,
+    feast_mpi.jl:911-916)."""
+    from ..parallel.pfeast import pfeast_sparse
+    return pfeast_sparse(A, B, Emin, Emax, M0, fpm, hermitian=True,
+                         **_mpi_kw(comm, root, kw))
+
+
+def mpi_feast_hcsrev(A, Emin, Emax, M0, fpm=None, *, comm=None, root=0,
+                     **kw):
+    """Distributed sparse Hermitian standard solve (mpi_feast_hcsrev!,
+    feast_mpi.jl:918-923)."""
+    from ..parallel.pfeast import pfeast_sparse
+    return pfeast_sparse(A, None, Emin, Emax, M0, fpm, hermitian=True,
+                         **_mpi_kw(comm, root, kw))
+
+
+def mpi_feast_gegv(A, B, Emid, r, M0, fpm=None, *, comm=None, root=0, **kw):
+    """Distributed dense general solve (mpi_feast_gegv!,
+    feast_mpi.jl:1063-1068)."""
+    from ..parallel.pfeast import pfeast_general
+    return pfeast_general(A, B, Emid, r, M0, fpm,
+                          **_mpi_kw(comm, root, kw))
+
+
+def mpi_feast_geev(A, Emid, r, M0, fpm=None, *, comm=None, root=0, **kw):
+    """Distributed dense general standard solve (mpi_feast_geev!,
+    feast_mpi.jl:1070-1074)."""
+    from ..parallel.pfeast import pfeast_general
+    return pfeast_general(A, None, Emid, r, M0, fpm,
+                          **_mpi_kw(comm, root, kw))
+
+
+def mpi_feast_gcsrgv(A, B, Emid, r, M0, fpm=None, *, comm=None, root=0,
+                     **kw):
+    """Distributed sparse general solve (mpi_feast_gcsrgv!,
+    feast_mpi.jl:1048-1053)."""
+    from ..parallel.pfeast import pfeast_sparse_general
+    return pfeast_sparse_general(A, B, Emid, r, M0, fpm,
+                                 **_mpi_kw(comm, root, kw))
+
+
+def mpi_feast_gcsrev(A, Emid, r, M0, fpm=None, *, comm=None, root=0, **kw):
+    """Distributed sparse general standard solve (mpi_feast_gcsrev!,
+    feast_mpi.jl:1055-1061)."""
+    from ..parallel.pfeast import pfeast_sparse_general
+    return pfeast_sparse_general(A, None, Emid, r, M0, fpm,
+                                 **_mpi_kw(comm, root, kw))

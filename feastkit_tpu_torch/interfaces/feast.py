@@ -18,10 +18,12 @@ A ``LinearOperator`` goes to the matrix-free drivers of
 ``method="matfree"``) to the companion linearization by operators, as
 in the JAX package; a bare callable is refused as there. Backend
 selection (``backend=``, ``parallel=``, ``strict_backend=``) is the JAX
-package's, over the devices of the solve's type. Everything runs on
-``device`` (``None`` means CUDA). The sharded backend is not ported yet
-and raises ``NotImplementedError``; a matrix-free operand runs serially
-instead, as in the JAX package.
+package's, over the ranks of the default ``torch.distributed`` process
+group: a request that resolves to sharded goes to the drivers of
+``parallel/pfeast.py`` (every rank calling), as the JAX package's
+``feast`` and ``feast_general`` route it, and a matrix-free operand runs
+serially instead, as in the JAX package. Everything runs on ``device``
+(``None`` means CUDA).
 """
 from __future__ import annotations
 
@@ -68,17 +70,12 @@ def _normalize_backend(backend, parallel):
 
 def _resolve_backend(backend, parallel, strict_backend, device, *,
                      auto_sharded):
-    """"serial", or raise: the sharded drivers are not ported. auto_sharded:
-    whether "auto" may pick the sharded mesh for this operand class (sparse
-    yes, dense only on request, as in the JAX package)."""
-    backend = select_parallel_backend(
+    """"serial" or "sharded". auto_sharded: whether "auto" may pick the
+    sharded mesh for this operand class (sparse yes, dense only on
+    request, as in the JAX package)."""
+    return select_parallel_backend(
         _normalize_backend(backend, parallel), device,
         allow_fallback=not strict_backend, auto_sharded=auto_sharded)
-    if backend == "sharded":
-        raise NotImplementedError(
-            "the sharded backend is not ported to feastkit_tpu_torch yet "
-            "(ROADMAP.md, queue 1 item 15)")
-    return backend
 
 
 def _resolve_matfree_backend(backend, parallel, strict_backend, device,
@@ -150,10 +147,11 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
       fpm: the 64-slot FEAST parameters (None: defaults).
       backend, parallel, strict_backend: backend selection as in the JAX
         package: "auto" (sharded for sparse operands on two or more
-        devices), "serial", "sharded"; ``parallel=True`` is "sharded". A
-        sharded request on one device warns and runs serially, or raises
-        RuntimeError with ``strict_backend=True``; anything that resolves
-        to sharded raises NotImplementedError (not ported).
+        ranks), "serial", "sharded"; ``parallel=True`` is "sharded". A
+        sharded request on one rank warns and runs serially, or raises
+        RuntimeError with ``strict_backend=True``; on two or more ranks it
+        runs ``parallel/pfeast.pfeast_sparse`` / ``pfeast_dense`` (the
+        contour mesh over every rank; ``kw`` may give ``mesh=``).
       contour: an explicit quadrature for the dense driver (taken and not
         passed on for sparse operands, as in the JAX package).
       device: torch device; None means "cuda" (raises without CUDA).
@@ -180,11 +178,15 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
                             min(int(M0 or max(8, N // 10)), N), fpm,
                             Q0=Q0, device=device, **kw)
     if sp.issparse(A):
-        _resolve_backend(backend, parallel, strict_backend, device,
-                         auto_sharded=True)
-        from ..solvers.sparse import sparse_feast_interval
+        backend = _resolve_backend(backend, parallel, strict_backend,
+                                   device, auto_sharded=True)
         N = A.shape[0]
         M0r = min(int(M0 or max(8, N // 10)), N)
+        if backend == "sharded":
+            from ..parallel.pfeast import pfeast_sparse
+            return pfeast_sparse(A, B, Emin, Emax, M0r, fpm, Q0=Q0,
+                                 device=device, **kw)
+        from ..solvers.sparse import sparse_feast_interval
         return sparse_feast_interval(A, B, Emin, Emax, M0r, fpm, Q0=Q0,
                                      device=device, **kw)
 
@@ -201,10 +203,14 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
                          "definite B; use feast_general() otherwise")
     feast_validate_interval(A, Emin, Emax)
     fpm = _ensure_fpm(fpm)
-    _resolve_backend(backend, parallel, strict_backend, device,
-                     auto_sharded=False)
+    backend = _resolve_backend(backend, parallel, strict_backend, device,
+                               auto_sharded=False)
     hermitian = _as_tensor(A).is_complex() or (
         B is not None and _as_tensor(B).is_complex())
+    if backend == "sharded":
+        from ..parallel.pfeast import pfeast_dense
+        return pfeast_dense(A, B, Emin, Emax, M0, fpm, hermitian=hermitian,
+                            contour=contour, Q0=Q0, device=device, **kw)
     from ..solvers.dense import dense_hermitian_feast
     return dense_hermitian_feast(A, B, Emin, Emax, M0, fpm,
                                  hermitian=hermitian, contour=contour,
@@ -235,19 +241,25 @@ def feast_general(A, B=None, Emid=0.0, r=1.0, M0=None, fpm=None, *,
     A that is symmetric and not Hermitian takes the transpose pairing
     unless ``complex_symmetric`` says otherwise (for sparse operands it is
     False unless given). Backend selection as in ``feast``: "auto" is
-    sharded for sparse operands on two or more devices, which (like any
-    sharded request that resolves so) raises NotImplementedError. A
+    sharded for sparse operands on two or more ranks, and a request that
+    resolves so runs ``parallel/pfeast.pfeast_sparse_general`` /
+    ``pfeast_general`` (every rank calling). A
     ``LinearOperator`` runs the matrix-free driver
     ``feast_matvec_general`` (serially, as in the JAX package).
     ``device=None`` means CUDA; ``kw`` goes to the driver."""
     fpm = _ensure_fpm(fpm)
     device = resolve_device(device)
     if sp.issparse(A):
-        _resolve_backend(backend, parallel, strict_backend, device,
-                         auto_sharded=True)
-        from ..solvers.sparse import sparse_feast_general
+        backend = _resolve_backend(backend, parallel, strict_backend,
+                                   device, auto_sharded=True)
         N = A.shape[0]
         M0r = min(int(M0 or max(8, N // 10)), N)
+        if backend == "sharded":
+            from ..parallel.pfeast import pfeast_sparse_general
+            return pfeast_sparse_general(A, B, Emid, r, M0r, fpm,
+                                         bilinear=bool(complex_symmetric),
+                                         device=device, **kw)
+        from ..solvers.sparse import sparse_feast_general
         return sparse_feast_general(A, B, Emid, r, M0r, fpm,
                                     bilinear=bool(complex_symmetric),
                                     device=device, **kw)
@@ -265,10 +277,15 @@ def feast_general(A, B=None, Emid=0.0, r=1.0, M0=None, fpm=None, *,
     if M0 is None:
         M0 = min(N, max(8, N // 10))
     M0 = min(int(M0), N)
-    _resolve_backend(backend, parallel, strict_backend, device,
-                     auto_sharded=False)
+    backend = _resolve_backend(backend, parallel, strict_backend, device,
+                               auto_sharded=False)
     if complex_symmetric is None:
         complex_symmetric = _complex_symmetric(A)
+    if backend == "sharded":
+        from ..parallel.pfeast import pfeast_general
+        return pfeast_general(A, B, Emid, r, M0, fpm,
+                              bilinear=bool(complex_symmetric),
+                              device=device, **kw)
     from ..solvers.dense_general import dense_general_feast
     return dense_general_feast(A, B, Emid, r, M0, fpm,
                                bilinear=bool(complex_symmetric),

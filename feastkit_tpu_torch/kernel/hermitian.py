@@ -12,9 +12,14 @@ warm-start and tolerance-hint protocols of ``_filter_with_ok``. The JAX
 package's core is one fused ``while_loop``; here it is a host loop that
 reads the convergence flag (with epsout, for the next hint) once per loop.
 The orthonormalization is the thin-SVD route the JAX package takes off
-the TPU (computed as QR + SVD of the small factor); its Gram +
-Newton-Schulz route exists only for the TPU's weak f64 matrix products and
-is not ported.
+the TPU (computed as QR + SVD of the small factor). Where the rows of N are
+split over ranks (``nsum``, the sum over the model axis of
+``parallel/pfeast.py``), it is the JAX package's Gram route instead: G0 =
+nsum(Q^H Q), its eigh on every rank, U = Q V s^-1 and a Newton-Schulz
+re-orthonormalization, with every contraction over N an explicit ``nsum``
+(the Rayleigh-Ritz pencil, the column norms, the residuals and the
+verification's rho); the JAX package's other use of that route, the TPU's
+weak f64 matrix products, does not arise here.
 """
 from __future__ import annotations
 
@@ -77,11 +82,28 @@ def init_hermitian_state(Q0: torch.Tensor) -> HermitianState:
         inner_ok=torch.tensor(True, device=Q0.device))
 
 
+def _col_sq(X):
+    return torch.sum((X.conj() * X).real, dim=0)
+
+
+def _gram_basis(Qproj, nsum):
+    """(U, s) of the filtered subspace whose rows are split over ranks:
+    G0 = nsum(Q^H Q), its eigenpairs in descending order, U = Q V s^-1
+    (the JAX package's Gram route)."""
+    lamG, Vg = torch.linalg.eigh(nsum(Qproj.mH @ Qproj))
+    s = torch.sqrt(torch.clamp(lamG.flip(0), min=0.0)).to(Qproj.real.dtype)
+    Vg = Vg.flip(-1)
+    return Qproj @ (Vg / torch.where(s > 0, s, 1.0)[None, :].to(Vg.dtype)), s
+
+
 def make_rayleigh_ritz_update(apply_A: Callable, apply_B: Callable,
                               Emin, Emax, *, tol: float,
-                              convergence_criterion: int = 1) -> Callable:
+                              convergence_criterion: int = 1,
+                              nsum: Optional[Callable] = None) -> Callable:
     """(state, Qproj, solves_ok) -> next state: the non-filter half of a
-    refinement loop (same steps and thresholds as the JAX package)."""
+    refinement loop (same steps and thresholds as the JAX package).
+    ``nsum``: the sum over the ranks that hold N's row blocks (the Gram
+    route, see the module docstring), or None."""
 
     def update(state: HermitianState, Qproj, solves_ok=True):
         rdtype = Qproj.real.dtype
@@ -91,18 +113,35 @@ def make_rayleigh_ritz_update(apply_A: Callable, apply_B: Callable,
         cut = float(torch.finfo(rdtype).eps) ** 0.25
         # Deflated directions get a Ritz value just outside the interval.
         BIG = float(Emax) + 2.0 * (float(Emax) - float(Emin))
-        U, s = thin_svd(Qproj)
+        U, s = thin_svd(Qproj) if nsum is None else _gram_basis(Qproj, nsum)
         m = (s >= cut * s[0]).to(rdtype)
         Um = U * m[None, :].to(U.dtype)
         dead = torch.diag(1.0 - m).to(U.dtype)
-        S = Um.mT.conj() @ apply_A(Um) + BIG * dead
-        G = Um.mT.conj() @ apply_B(Um) + dead
+        red = (lambda x: x) if nsum is None else nsum
+        if nsum is not None:
+            # Newton-Schulz inverse square root of the kept Gram matrix
+            # (one re-orthonormalization pass; masked columns stay zero)
+            G1 = nsum(Um.mH @ Um) + dead
+            G1 = 0.5 * (G1 + G1.mH)
+            eye = torch.eye(G1.shape[0], dtype=G1.dtype, device=dev)
+            X = eye
+            for _ in range(6):
+                X = 0.5 * (X @ (3.0 * eye - G1 @ X @ X))
+            Um = (Um @ X) * m[None, :].to(U.dtype)
+        S = red(Um.mT.conj() @ apply_A(Um)) + BIG * dead
+        G = red(Um.mT.conj() @ apply_B(Um)) + dead
         lam, V = reduced_hermitian_gevp(S, G)
         q = Um @ V
-        nrm = torch.linalg.vector_norm(q, dim=0)
+        nrm = torch.linalg.vector_norm(q, dim=0) if nsum is None \
+            else torch.sqrt(nsum(_col_sq(q)))
         q = q / torch.where(nrm > 0, nrm, torch.ones_like(nrm))[None, :]
         lam = lam.real.to(rdtype)
-        res = residuals(apply_A, apply_B, lam, q)
+        if nsum is None:
+            res = residuals(apply_A, apply_B, lam, q)
+        else:
+            r = apply_A(q) - lam[None, :].to(q.dtype) * apply_B(q)
+            res = torch.sqrt(nsum(_col_sq(r))) / torch.clamp(lam.abs(),
+                                                              min=1.0)
         inside = (lam >= Emin) & (lam <= Emax)
         order = inside_first_order(lam, inside)
         lam, q, res, inside = lam[order], q[:, order], res[order], \
@@ -127,11 +166,14 @@ def make_rayleigh_ritz_update(apply_A: Callable, apply_B: Callable,
 
 
 def verify_spurious_from(state: HermitianState, Qproj, ok=True, *,
-                         general: bool = False) -> HermitianState:
+                         general: bool = False,
+                         nsum: Optional[Callable] = None) -> HermitianState:
     """Final spurious verification from a filtered subspace: a genuine
     inside pair keeps projector norm rho = ||P q|| > 0.25. ``general``: a
-    ``kernel/general.GeneralState``, reordered by |lam|."""
-    rho = torch.linalg.vector_norm(Qproj, dim=0)
+    ``kernel/general.GeneralState``, reordered by |lam|. ``nsum``: the sum
+    over the ranks that hold N's row blocks, or None."""
+    rho = torch.linalg.vector_norm(Qproj, dim=0) if nsum is None \
+        else torch.sqrt(nsum(_col_sq(Qproj)))
     genuine = state.inside & (rho > 0.25) & (state.res < SPURIOUS_RES)
     order = inside_first_order(state.lam, genuine, general=general)
     zero = torch.zeros((), dtype=state.res.dtype, device=state.res.device)
@@ -166,12 +208,13 @@ def _filter_with_ok(filter_apply, Q, lam=None, tol_hint=None):
 
 def make_hermitian_body(apply_A: Callable, apply_B: Callable,
                         filter_apply: Callable, Emin, Emax, *, tol: float,
-                        convergence_criterion: int = 1) -> Callable:
+                        convergence_criterion: int = 1,
+                        nsum: Optional[Callable] = None) -> Callable:
     """One FEAST refinement iteration, (state, epsout) -> state, epsout the
     previous loop's as a host float."""
     update = make_rayleigh_ritz_update(
         apply_A, apply_B, Emin, Emax, tol=tol,
-        convergence_criterion=convergence_criterion)
+        convergence_criterion=convergence_criterion, nsum=nsum)
 
     def body(state: HermitianState, epsout: float) -> HermitianState:
         # inexact-FEAST inner target 0.1 epsout^2, capped (epsout = inf on
@@ -184,34 +227,39 @@ def make_hermitian_body(apply_A: Callable, apply_B: Callable,
     return body
 
 
-def verify_spurious(state: HermitianState, filter_apply: Callable
-                    ) -> HermitianState:
+def verify_spurious(state: HermitianState, filter_apply: Callable,
+                    nsum: Optional[Callable] = None) -> HermitianState:
     """Final spurious verification with one more filter application (at
     the verify hint VERIFY_FILTER_TOL): see :func:`verify_spurious_from`."""
     Qproj, ok = _filter_with_ok(filter_apply, state.Q, state.lam,
                                 VERIFY_FILTER_TOL)
-    return verify_spurious_from(state, Qproj, ok)
+    return verify_spurious_from(state, Qproj, ok, nsum=nsum)
 
 
 def feast_hermitian_core(apply_A: Callable, apply_B: Callable,
                          filter_apply: Callable, Q0, Emin, Emax, *,
                          tol: float, max_loops: int,
                          convergence_criterion: int = 1,
-                         subspace_only: bool = False) -> HermitianState:
+                         subspace_only: bool = False,
+                         nsum: Optional[Callable] = None) -> HermitianState:
     """The FEAST refinement around ``filter_apply`` (counterpart of the JAX
     package's fused core): at most max_loops + 1 loops, stopping once the
     state converges, then the spurious verification. subspace_only
     (fpm[14]=1): return the first filtered subspace, orthonormalized, with
-    loop = 1."""
+    loop = 1. ``nsum``: the sum over the ranks that hold N's row blocks
+    (every rank then holds its rows of Q0 and of the result), or None."""
     init = init_hermitian_state(Q0)
     if subspace_only:
         Qproj, ok = _filter_with_ok(filter_apply, init.Q)
-        U, _, _ = orthonormalize(Qproj)
+        U = orthonormalize(Qproj)[0] if nsum is None \
+            else _gram_basis(Qproj, nsum)[0]
         return init._replace(Q=U, loop=1, inner_ok=ok)
     body = make_hermitian_body(apply_A, apply_B, filter_apply, Emin, Emax,
                                tol=tol,
-                               convergence_criterion=convergence_criterion)
-    return verify_spurious(refine(body, init, max_loops), filter_apply)
+                               convergence_criterion=convergence_criterion,
+                               nsum=nsum)
+    return verify_spurious(refine(body, init, max_loops), filter_apply,
+                           nsum=nsum)
 
 
 def refine(body: Callable, state, max_loops: int):

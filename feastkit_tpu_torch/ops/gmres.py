@@ -26,8 +26,19 @@ per-column Hessenberg least squares goes through the SVD with
 ``jnp.linalg.lstsq``'s default cut, so the all-zero Hessenberg of a done or
 zero-padded column gives a zero step, and every update of a column that is
 not active is a ``torch.where`` select, never a multiply (a NaN times 0 is
-NaN). The JAX package's sharding hooks (``axis_name``, ``sync_axes``) are
-not ported (queue 1 item 15).
+NaN).
+
+The JAX package's sharding hooks are ported for a row dimension N split
+over the ranks of a process group (``parallel/pfeast.py``'s model axis):
+``axis_name`` is that axis's group, and every contraction over N (column
+norms, the Gram-Schmidt projections, BiCGStab's inner products) is summed
+over it with ``torch.distributed.all_reduce`` (the second Gram-Schmidt
+pass and the new basis vector's norm in one: ``_gram_schmidt_sharded``);
+``sync_axes`` is the group
+whose ranks must run the same number of loop trips (their operators hold
+collectives), and each loop goes on while any of its ranks still has a
+node running (a MAX all-reduce of the flag per trip). A node that has
+exited keeps its state on the extra trips, as above.
 
 CG is absent, as in the JAX package: z B - A is never HPD for complex z.
 """
@@ -49,8 +60,34 @@ class IterativeInfo(NamedTuple):
     #   each trip applied the operator to the whole group
 
 
-def _col_norms(X):
-    return torch.linalg.vector_norm(X, dim=-2)
+def _col_norms(X, axis_name=None):
+    """Column norms over the row axis, summed over ``axis_name``'s ranks
+    where N is sharded."""
+    if axis_name is None:
+        return torch.linalg.vector_norm(X, dim=-2)
+    return torch.sqrt(_psum(torch.sum((X.conj() * X).real, dim=-2),
+                            axis_name))
+
+
+def _psum(t, group):
+    """``t`` summed over the ranks of ``group`` (None: not sharded)."""
+    if group is not None:
+        import torch.distributed as dist
+        t = t.resolve_conj().contiguous()
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def _any(flag, sync_axes):
+    """A host bool: whether ``flag`` (a bool tensor) holds on any rank of
+    ``sync_axes`` (None: on this one)."""
+    if sync_axes is None:
+        return bool(flag)
+    import torch.distributed as dist
+    t = torch.as_tensor(flag, dtype=torch.int32).reshape(1).to(
+        flag.device if torch.is_tensor(flag) else "cpu")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=sync_axes)
+    return bool(t.item())
 
 
 def _mul(a, b):
@@ -93,6 +130,24 @@ def _gram_schmidt(Vj, W):
     return h
 
 
+def _gram_schmidt_sharded(Vj, W, axis_name):
+    """:func:`_gram_schmidt` for rows split over ``axis_name``'s ranks, and
+    the new vector's norm: the second pass's projections and the squared
+    norm before it meet in ONE all-reduce, and the norm after the pass
+    follows by Pythagoras (||W - V h2||^2 = ||W||^2 - ||h2||^2 for the
+    orthonormal V; h2 is at the rounding level of W). Returns (h, norm)."""
+    hp = _psum((Vj @ W.conj().unsqueeze(-1)).squeeze(-1), axis_name).conj()
+    W -= (Vj.transpose(-1, -2) @ hp.unsqueeze(-1)).squeeze(-1)
+    p2 = (Vj @ W.conj().unsqueeze(-1)).squeeze(-1)
+    n2 = torch.sum((W.conj() * W).real, dim=-1)
+    both = _psum(torch.cat([p2, n2.to(p2.dtype).unsqueeze(-1)], dim=-1),
+                 axis_name)
+    hp2 = both[..., :-1].conj()
+    W -= (Vj.transpose(-1, -2) @ hp2.unsqueeze(-1)).squeeze(-1)
+    wn2 = both[..., -1].real - torch.sum((hp2.conj() * hp2).real, dim=-1)
+    return hp + hp2, torch.sqrt(torch.clamp(wn2, min=0.0))
+
+
 def _hessenberg_lstsq(H, beta):
     """min ||beta e1 - H y|| per (node, column) for H (g, K, m+1, m),
     through the SVD with ``jnp.linalg.lstsq``'s default cut: singular
@@ -108,13 +163,13 @@ def _hessenberg_lstsq(H, beta):
     return (Vh.conj().transpose(-1, -2) @ coef.unsqueeze(-1)).squeeze(-1)
 
 
-def _gmres_cycle(op, prec, B, X, done, stall, thresh, m):
+def _gmres_cycle(op, prec, B, X, done, stall, thresh, m, axis_name=None):
     """One restart cycle for every node of the group: m Arnoldi steps, the
     least squares, and the per-column accept. Returns the candidate state
     (the caller keeps it only for the nodes still running)."""
     g, N, K = B.shape
     R = B - op(X)
-    beta = _col_norms(R)
+    beta = _col_norms(R, axis_name)
     active = (~done) & (beta > thresh)
     safe_beta = torch.where(beta > 0, beta, 1.0)
     V = torch.zeros((g, K, m + 1, N), dtype=B.dtype, device=B.device)
@@ -124,8 +179,12 @@ def _gmres_cycle(op, prec, B, X, done, stall, thresh, m):
     for j in range(m):
         v = V[:, :, j, :].transpose(-1, -2)
         W = op(v if prec is None else prec(v)).transpose(-1, -2).contiguous()
-        H[:, :, :j + 1, j] = _gram_schmidt(V[:, :, :j + 1, :], W)
-        wn = torch.linalg.vector_norm(W, dim=-1)
+        if axis_name is None:
+            H[:, :, :j + 1, j] = _gram_schmidt(V[:, :, :j + 1, :], W)
+            wn = torch.linalg.vector_norm(W, dim=-1)
+        else:
+            H[:, :, :j + 1, j], wn = _gram_schmidt_sharded(
+                V[:, :, :j + 1, :], W, axis_name)
         V[:, :, j + 1, :] = W / torch.where(wn > 0, wn, 1.0)[..., None].to(
             B.dtype)
         H[:, :, j + 1, j] = wn.to(B.dtype)
@@ -138,7 +197,7 @@ def _gmres_cycle(op, prec, B, X, done, stall, thresh, m):
         dX = prec(dX)
     X_cand = torch.where(active[:, None, :], X + dX, X)
     del dX
-    res_cand = _col_norms(B - op(X_cand))
+    res_cand = _col_norms(B - op(X_cand), axis_name)
     # accept the correction per column only where it lowered the true
     # residual (the small least squares is noisy at the rounding floor)
     keep = (res_cand < beta) & active
@@ -158,7 +217,8 @@ def _gmres_cycle(op, prec, B, X, done, stall, thresh, m):
 def gmres_block(apply_op: Callable, B, *, tol: float = 1e-12,
                 restart: int = 30, maxiter: int = 200,
                 apply_prec: Callable | None = None, x0=None,
-                flag_tol: float | None = None):
+                flag_tol: float | None = None, axis_name=None,
+                sync_axes=None):
     """Restarted GMRES on K right-hand sides at once, for one system (B of
     shape (N, K)) or a group of g (B of shape (g, N, K)).
 
@@ -172,24 +232,28 @@ def gmres_block(apply_op: Callable, B, *, tol: float = 1e-12,
         returns x = M^-1 u); it may return a non-contiguous view.
       x0: optional initial guess of B's shape.
       flag_tol: certify against max(tol, flag_tol) instead of tol.
+      axis_name: the process group whose ranks hold N's row blocks (every
+        contraction over N is summed over it), or None.
+      sync_axes: the process group whose ranks run the same number of
+        restart cycles, or None.
 
     Returns (X, IterativeInfo); converged = ||B - A X|| <= 10 cert scale.
     """
     op, prec, Bb, x0b, squeeze = _batched(apply_op, B, apply_prec, x0)
     g, N, K = Bb.shape
     m = int(restart)
-    scale = torch.clamp(_col_norms(Bb), min=1.0)
+    scale = torch.clamp(_col_norms(Bb, axis_name), min=1.0)
     thresh = float(tol) * scale
     X = torch.zeros_like(Bb) if x0b is None else x0b.to(Bb.dtype)
     n_cycles = max(1, -(-int(maxiter) // m))
-    done = _col_norms(Bb - op(X)) <= thresh
+    done = _col_norms(Bb - op(X), axis_name) <= thresh
     running = ~torch.all(done, dim=-1)
     iters = torch.zeros(g, dtype=torch.int64, device=Bb.device)
     stall = torch.zeros(g, dtype=torch.int64, device=Bb.device)
     trips = 0
-    while trips < n_cycles and bool(running.any()):
+    while trips < n_cycles and _any(running.any(), sync_axes):
         X_new, done_new, it_add, stall_new, exit_new = _gmres_cycle(
-            op, prec, Bb, X, done, stall, thresh, m)
+            op, prec, Bb, X, done, stall, thresh, m, axis_name)
         X = torch.where(running[:, None, None], X_new, X)
         done = torch.where(running[:, None], done_new, done)
         iters = iters + torch.where(running, it_add, 0)
@@ -198,7 +262,7 @@ def gmres_block(apply_op: Callable, B, *, tol: float = 1e-12,
         trips += 1
     cert = max(float(tol), float(flag_tol)) if flag_tol is not None \
         else float(tol)
-    true_res = _col_norms(Bb - op(X))
+    true_res = _col_norms(Bb - op(X), axis_name)
     converged = true_res <= 10.0 * cert * scale
     if squeeze:
         return X[0], IterativeInfo(iters[0], true_res[0], converged[0],
@@ -208,24 +272,25 @@ def gmres_block(apply_op: Callable, B, *, tol: float = 1e-12,
 
 def bicgstab_block(apply_op: Callable, B, *, tol: float = 1e-12,
                    maxiter: int = 200, apply_prec: Callable | None = None,
-                   x0=None, flag_tol: float | None = None):
+                   x0=None, flag_tol: float | None = None, axis_name=None,
+                   sync_axes=None):
     """BiCGStab on K right-hand sides at once (constant memory per column),
     for one system (N, K) or a group (g, N, K). The IFEAST default inner
-    solver (fpm[44]=0). Same tolerance and re-verification contract as
-    :func:`gmres_block`."""
+    solver (fpm[44]=0). Same tolerance, re-verification and sharding
+    contract as :func:`gmres_block`."""
     op, prec, Bb, x0b, squeeze = _batched(apply_op, B, apply_prec, x0)
     if prec is None:
         def prec(X):
             return X
     g, N, K = Bb.shape
-    scale = torch.clamp(_col_norms(Bb), min=1.0)
+    scale = torch.clamp(_col_norms(Bb, axis_name), min=1.0)
     thresh = float(tol) * scale
     X = torch.zeros_like(Bb) if x0b is None else x0b.to(Bb.dtype)
     R = Bb - op(X)
     Rhat = R
 
     def dots(P, Q):
-        return torch.sum(P.conj() * Q, dim=-2)
+        return _psum(torch.sum(P.conj() * Q, dim=-2), axis_name)
 
     def safe(x):
         return torch.where(x.abs() > 0, x, torch.ones_like(x))
@@ -237,10 +302,10 @@ def bicgstab_block(apply_op: Callable, B, *, tol: float = 1e-12,
     V = torch.zeros_like(Bb)
     rho = alpha = omega = torch.ones((g, K), dtype=Bb.dtype, device=Bb.device)
     it = torch.zeros(g, dtype=torch.int64, device=Bb.device)
-    done = _col_norms(R) <= thresh
+    done = _col_norms(R, axis_name) <= thresh
     running = ~torch.all(done, dim=-1)
     trips = 0
-    while trips < int(maxiter) and bool(running.any()):
+    while trips < int(maxiter) and _any(running.any(), sync_axes):
         rho_n = dots(Rhat, R)
         beta = _mul(rho_n / safe(rho), alpha / safe(omega))
         P_n = R + col(beta) * (P - col(omega) * V)
@@ -254,7 +319,7 @@ def bicgstab_block(apply_op: Callable, B, *, tol: float = 1e-12,
         X_n = torch.where(col(~done), X + (col(alpha_n) * Ph
                                            + col(omega_n) * Sh), X)
         R_n = S - col(omega_n) * T
-        done_n = done | (_col_norms(R_n) <= thresh)
+        done_n = done | (_col_norms(R_n, axis_name) <= thresh)
         sel = running[:, None, None]
         X, R, P, V = (torch.where(sel, a, b) for a, b in
                       ((X_n, X), (R_n, R), (P_n, P), (V_n, V)))
@@ -267,7 +332,7 @@ def bicgstab_block(apply_op: Callable, B, *, tol: float = 1e-12,
         trips += 1
     cert = max(float(tol), float(flag_tol)) if flag_tol is not None \
         else float(tol)
-    true_res = _col_norms(Bb - op(X))
+    true_res = _col_norms(Bb - op(X), axis_name)
     converged = true_res <= 10.0 * cert * scale
     if squeeze:
         return X[0], IterativeInfo(it[0], true_res[0], converged[0], trips)

@@ -18,8 +18,11 @@ constant stencil.
   a group: a (g,) shift preconditions (g, N, K) operands, with the coarse
   dense LU factored for the g nodes at once (``torch.linalg.lu_factor``).
 
-The JAX package's opt-in convolution realization of the stencil
-(``FEAST_STENCIL_CONV=1``) is not ported; setting it raises.
+``FEAST_STENCIL_CONV=1`` (off by default, as in the JAX package) realizes
+``apply_stencil`` as one ``torch.nn.functional.conv2d`` / ``conv3d`` under
+the JAX package's gate (a 2-D or 3-D grid, real coefficients, |disp| <= 1,
+32-bit or narrower; a complex x as two real convolutions): the
+counterpart of its XLA convolution, a library call on the card.
 """
 from __future__ import annotations
 
@@ -102,19 +105,44 @@ def detect_grid_stencil(diags, offsets, grid, tol=1e-12):
     return GridStencil(np.asarray(disps, np.int64), np.asarray(coeffs), grid)
 
 
-def _conv_requested():
-    if os.environ.get("FEAST_STENCIL_CONV", "0") == "1":
-        raise NotImplementedError(
-            "FEAST_STENCIL_CONV=1 (the convolution realization of the "
-            "multigrid stencil) is not ported to feastkit_tpu_torch yet "
-            "(ROADMAP.md, queue 1 item 10)")
+def _stencil_conv(x, disps, coeffs, grid):
+    """The stencil as ONE convolution (a correlation: kern[d + 1]
+    multiplies x[i + d], zero padding 1, exactly the zero-boundary
+    stencil); complex x as two real convolutions."""
+    if x.is_complex():
+        return torch.complex(_stencil_conv(x.real, disps, coeffs, grid),
+                             _stencil_conv(x.imag, disps, coeffs, grid))
+    ndim = len(grid)
+    kern = np.zeros((3,) * ndim, np.float32)
+    for d, c in zip(np.asarray(disps), coeffs):
+        kern[tuple(int(dd) + 1 for dd in d)] = np.real(c)
+    conv = (torch.nn.functional.conv2d if ndim == 2
+            else torch.nn.functional.conv3d)
+    w = torch.as_tensor(kern, device=x.device).to(x.dtype)
+    out = conv(x.reshape((-1, 1) + tuple(grid)),
+               w.reshape((1, 1) + kern.shape), padding=1)
+    return out.reshape(x.shape)
+
+
+def _conv_ok(x, disps, coeffs, grid):
+    """The JAX package's gate: opt-in (FEAST_STENCIL_CONV=1), a 2-D or 3-D
+    grid, real coefficients, reach <= 1, 32-bit or narrower."""
+    if os.environ.get("FEAST_STENCIL_CONV", "0") != "1":
+        return False
+    return bool(len(grid) in (2, 3)
+                and not np.iscomplexobj(np.asarray(coeffs))
+                and np.abs(np.asarray(disps)).max(initial=0) <= 1
+                and torch.finfo(x.real.dtype).bits <= 32)
 
 
 def apply_stencil(x, disps, coeffs, grid):
     """y = A x for a constant stencil, zero boundary; x has the grid axes
     LAST (leading axes are batch). Coefficients are Python scalars, so the
-    product stays in x's dtype."""
+    product stays in x's dtype. Under ``FEAST_STENCIL_CONV=1`` and its gate
+    (``_conv_ok``) one convolution."""
     ndim = len(grid)
+    if _conv_ok(x, disps, coeffs, grid):
+        return _stencil_conv(x, disps, coeffs, grid)
     y = torch.zeros_like(x)
     pre = (slice(None),) * (x.dim() - ndim)
     for disp, c in zip(np.asarray(disps), coeffs):
@@ -321,7 +349,6 @@ def make_shifted_vcycle(stA: GridStencil, stB, z, *, nu_pre=2, nu_post=2,
     stB=None means B = I; n_levels (from plan_mg_levels) bounds the depth.
     The output has X's shape and ``dtype``; it may be a non-contiguous
     view (the grid layout is (..., K, *grid))."""
-    _conv_requested()
     levels = _stencil_levels(stA, stB, n_levels=n_levels)
     ndim = len(stA.grid)
     # a Python complex becomes a tensor in the target dtype directly

@@ -51,9 +51,11 @@ __all__ = ["feast_sbev", "feast_sbgv", "feast_hbev", "feast_hbgv",
            "feast_gbev", "feast_gbgv", "feast_sbev_complex",
            "feast_sbgv_complex", "identity_bands"]
 
-def identity_bands(N, kl, ku, dtype, device="cpu") -> torch.Tensor:
-    """Band storage of the identity in a (kl+ku+1, N) layout."""
-    bands = torch.zeros((kl + ku + 1, N), dtype=dtype, device=device)
+def identity_bands(N, kl, ku, dtype, device=None) -> torch.Tensor:
+    """Band storage of the identity in a (kl+ku+1, N) layout on ``device``
+    (None means CUDA, as at every entry point)."""
+    bands = torch.zeros((kl + ku + 1, N), dtype=dtype,
+                        device=resolve_device(device))
     bands[ku] = 1.0
     return bands
 

@@ -90,8 +90,9 @@ exist because a TPU has no complex128, and its choice of the on-device QR
 eigensolver where complex I/O is required because a remote TPU runtime
 cannot call back to the host; they are not ported. The stochastic count
 fpm[14]=2 runs on every engine (``_stochastic_estimate_result``).
-Sharded meshes (ROADMAP.md queue 1 item 15) are refused by ``feast()`` and
-``feast_general()``.
+The sharded drivers (``parallel/pfeast.py``) run these engines on each
+rank's share: ``_sparse_ops`` with a rank's contour nodes or row block,
+and ``_sparse_cheb_interval(mesh=...)`` with a rank's column block.
 """
 from __future__ import annotations
 
@@ -606,7 +607,7 @@ def _backxform(apply_A, apply_B, dscale, Q, lam):
 
 def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                           device, Q0=None, contour=None,
-                          route=False) -> FeastResult:
+                          route=False, mesh=None) -> FeastResult:
     """Polynomial-filtered FEAST for standard, positive-diagonal-B and
     sparse-SPD-B pencils, real symmetric or complex Hermitian (counterpart
     of the JAX package's ``_sparse_cheb_interval``, host-loop branch).
@@ -616,7 +617,12 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
     ChebInfeasible. The fused kernels carry a real operator on at most 32
     diagonals (and a B on at most 32 for the SPD-B composite); every other
     operator runs the unfused recurrence (``_sparse_cheb_filter_host``),
-    as the JAX package decides (``_fuse_base``, sparse.py:2027)."""
+    as the JAX package decides (``_fuse_base``, sparse.py:2027).
+    ``mesh`` (a ``parallel/pfeast.py`` mesh, every rank calling): where
+    M0 is a multiple of its rank count, each rank filters its own block
+    of M0 / ranks columns (the recurrence is column-independent) and the
+    blocks meet in one all-reduce before the replicated Rayleigh-Ritz;
+    otherwise nothing is sharded."""
     elig_err = ChebInfeasible if route else ValueError
     fpm = _ensure_fpm(fpm)
     b_kind, b_diag = _b_diagonal(B)
@@ -788,6 +794,11 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
     use_lp = _mixed_enabled(config, device, f64)
     fused = (not hermitian and offsets is not None
              and (b_kind != "spd" or offsets_B is not None))
+    block = None
+    if mesh is not None:
+        from ..parallel.pfeast import _column_block
+        block = _column_block(mesh, M0)
+    M_loc = M0 if block is None else block[1] - block[0]
     if fused:
         A_dia = torch.as_tensor(A_dia_np, dtype=tdtype).to(device)
 
@@ -800,13 +811,14 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
             # rung
             ctx = _cheb_gen_context(A_dia, offsets, B_dia, offsets_B,
                                     coeffs, lo, hi, b_lo, b_hi, qc,
-                                    qc_lo if f64 else qc, M0)
+                                    qc_lo if f64 else qc, M_loc)
             filt = _sparse_cheb_filter_host_fused_gen
 
             def apply_B(X):
                 return dia_matvec(B_dia, offsets_B, X)
         else:
-            ctx = _cheb_fused_context(A_dia, offsets, coeffs, lo, hi, M0)
+            ctx = _cheb_fused_context(A_dia, offsets, coeffs, lo, hi,
+                                      M_loc)
             filt = _sparse_cheb_filter_host_fused
     else:
         # the unfused recurrence (a Hermitian operator, or an operand with
@@ -836,6 +848,9 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         if use_lp:
             ctx["f32"] = rung(lo_dtype, operators(lo_dtype), qc_lo)
         filt = _sparse_cheb_filter_host
+    if block is not None:
+        from ..parallel.pfeast import _column_sharded
+        filt = _column_sharded(filt, block)
     if b_kind != "spd":
         def apply_B(X):      # identity: a diagonal B is congruenced away
             return X
@@ -1166,8 +1181,15 @@ def _contour_poly_default():
     return os.environ.get("FEAST_CONTOUR_POLY", "1") not in ("0", "")
 
 
-def _col_sq(X):
-    return torch.linalg.vector_norm(X, dim=-2).square()
+def _col_sq(X, axis_name=None):
+    """Squared column norms over the row axis, summed over the ranks of
+    ``axis_name`` where N is sharded over them."""
+    if axis_name is None:
+        return torch.linalg.vector_norm(X, dim=-2).square()
+    import torch.distributed as dist
+    out = torch.sum((X.conj() * X).real, dim=-2)
+    dist.all_reduce(out, group=axis_name)
+    return out
 
 
 def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
@@ -1177,7 +1199,8 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
                            mg_B=None, mixed=False, apply_A_lo=None,
                            apply_B_lo=None, ir_max=5, mg_opts=(2, 2, 0.8, 1),
                            group_max=2, device="cpu", record=None,
-                           complex_sum=False):
+                           complex_sum=False, axis_name=None,
+                           sync_axes=None, prec_gather_axis=None):
     """filter_partial(Z, W, rhs, Q, lam, tol_hint) -> (sum_e Re(W_e X_e),
     conv) with X_e = (z_e B - A)^-1 rhs (counterpart of
     ``_make_sparse_solve_all``); ``complex_sum``: the complex sum
@@ -1202,7 +1225,16 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
     "bicgstab", nodes, dtype, trips, restart) and per batch of shifted
     applications outside one (op "shift", nodes, dtype, count): the
     solve's accounting of its operator applications
-    (:func:`krylov_dia_launches`)."""
+    (:func:`krylov_dia_launches`).
+
+    The JAX package's sharding hooks, for N split over the ranks of a
+    process group (``parallel/pfeast.py``'s model axis): ``axis_name`` (that
+    group: the Krylov contractions and the refinement's residual norms are
+    summed over it), ``sync_axes`` (the group whose ranks run the same
+    number of Krylov and refinement trips: the refinement goes on while
+    any of them wants to) and ``prec_gather_axis`` (the group the V-cycle
+    gathers its rows over: ``parallel/pfeast._gather_rows_prec``)."""
+    from ..ops.gmres import _any
 
     def note(**ev):
         if record is not None:
@@ -1237,12 +1269,14 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
         if solver == "gmres":
             X, info = gmres_block(apply_op, rhs, tol=tol, restart=restart,
                                   maxiter=solver_maxiter, apply_prec=prec,
-                                  x0=x0, flag_tol=flag_tol)
+                                  x0=x0, flag_tol=flag_tol,
+                                  axis_name=axis_name, sync_axes=sync_axes)
         else:
             X, info = bicgstab_block(apply_op, rhs, tol=tol,
                                      maxiter=solver_maxiter,
                                      apply_prec=prec, x0=x0,
-                                     flag_tol=flag_tol)
+                                     flag_tol=flag_tol, axis_name=axis_name,
+                                     sync_axes=sync_axes)
         note(op=solver, nodes=rhs.shape[0], dtype=str(rhs.dtype),
              trips=info.trips, restart=restart)
         return X, info
@@ -1252,7 +1286,7 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
         iterate (one operator application)."""
         R0 = rhs - apply_fn(X0g)
         note(op="shift", nodes=X0g.shape[0], dtype=str(X0g.dtype), count=1)
-        n_g2, n_b2 = _col_sq(R0), _col_sq(rhs)
+        n_g2, n_b2 = _col_sq(R0, axis_name), _col_sq(rhs, axis_name)
         good = n_g2 < n_b2
         return (torch.where(good[:, None, :], X0g, 0.0),
                 torch.sqrt(torch.minimum(n_g2, n_b2)))
@@ -1272,7 +1306,7 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
             return X, info.converged
         hi, lo = rhs.dtype, torch.complex64
         z_lo = z.to(lo)
-        nrm = torch.sqrt(_col_sq(rhs))
+        nrm = torch.sqrt(_col_sq(rhs, axis_name))
         scale = torch.clamp(nrm, min=1.0)
         target = tol_eff * scale
         lo_eff = lo_tol if tol_hint is None else max(tol_eff, 2e-5)
@@ -1282,7 +1316,7 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
         stall = torch.zeros(g, dtype=torch.int64, device=rhs.device)
         go = torch.any(rn > target, dim=-1) & (ir_max > 0)
         it = 0
-        while bool(go.any()):
+        while _any(go.any(), sync_axes):
             R = rhs - apply_shift(z, X)
             safe = torch.where(rn > 0, rn, 1.0)[:, None, :]
             dX, _ = krylov(lambda V: apply_shift_lo(z_lo, V),
@@ -1290,7 +1324,8 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
             del R
             X_new = X + dX.to(hi) * safe
             del dX
-            rn_new = torch.sqrt(_col_sq(rhs - apply_shift(z, X_new)))
+            rn_new = torch.sqrt(_col_sq(rhs - apply_shift(z, X_new),
+                                        axis_name))
             note(op="shift", nodes=g, dtype=str(hi), count=2)
             improved = rn_new < rn
             X_upd = torch.where(improved[:, None, :], X_new, X)
@@ -1320,10 +1355,14 @@ def _make_sparse_solve_all(apply_A_c, apply_B_c, standard, *, solver,
         """The preconditioner of the g nodes of shifts z (g,)."""
         dt = torch.complex64 if mixed else z.dtype
         if precond == "mg" and stA is not None:
-            return make_shifted_vcycle(
+            vcycle = make_shifted_vcycle(
                 stA, stB, z.to(dt), dtype=dt, n_levels=mg_n_levels,
                 nu_pre=nu_pre, nu_post=nu_post, omega=mg_omega,
                 n_cycles=mg_cycles, device=device)
+            if prec_gather_axis is None:
+                return vcycle
+            from ..parallel.pfeast import _gather_rows_prec
+            return _gather_rows_prec(vcycle, prec_gather_axis)
         if precond == "jacobi" and dA_t is not None:
             zc = z.to(dt)[:, None]
             dshift = (zc - dA_t.to(dt)) if dB_t is None \
@@ -1396,7 +1435,8 @@ def _sparse_ops(A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
                 Zne, Wne, *, N, config, standard, solver, solver_tol,
                 solver_maxiter, solver_restart, offsets_A, offsets_B,
                 precond, mg_A=None, mg_B=None, device, f64, record=None,
-                nodes="half"):
+                nodes="half", make_operator=None, axis_name=None,
+                sync_axes=None, prec_gather_axis=None):
     """(apply_A, apply_B, filter_apply) of the Krylov engine (counterpart
     of ``_sparse_ops``): the operators on the solve's device (DIA kernels
     or CSR) and the contour filter with the Ritz warm start and the
@@ -1407,7 +1447,12 @@ def _sparse_ops(A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
     "mirrored" (a Hermitian one) the node set Zall = [Z, conj Z], Wall =
     [W, conj W] in complex work (complex64 / complex128) with the complex
     sum; "full" (a general one) the full contour as given in complex work,
-    with the complex sum sum_e W_e (z_e B - A)^-1 B Q."""
+    with the complex sum sum_e W_e (z_e B - A)^-1 B Q.
+
+    The model axis of ``parallel/pfeast.py`` passes ``make_operator``
+    (dia, offsets, dtype) -> apply, its halo products on the rank's rows
+    (N is then the rank's row count, and diagA / diagB its rows), with the
+    sharding hooks of ``_make_sparse_solve_all``."""
     if nodes not in _NODE_SETS:
         raise ValueError(f"nodes must be one of {_NODE_SETS}, got {nodes!r}")
     complex_work = nodes != "half"
@@ -1418,6 +1463,8 @@ def _sparse_ops(A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
     mixed = _mixed_enabled(config, device, f64)
 
     def operator(data, idx, dia, offsets, dtype):
+        if make_operator is not None:
+            return make_operator(dia, offsets, dtype)
         return _operator(data, idx, dia, offsets, N, dtype, device)
 
     def counted(apply, name):
@@ -1466,7 +1513,8 @@ def _sparse_ops(A_data, A_idx, B_data, B_idx, A_dia, B_dia, diagA, diagB,
         mg_opts=(config.mg_nu_pre, config.mg_nu_post, config.mg_omega,
                  config.mg_cycles),
         group_max=config.group_max, device=device, record=record,
-        complex_sum=complex_work)
+        complex_sum=complex_work, axis_name=axis_name, sync_axes=sync_axes,
+        prec_gather_axis=prec_gather_axis)
     Z = torch.as_tensor(Zne, dtype=cdt, device=device)
     W = torch.as_tensor(Wne, dtype=cdt, device=device)
     if nodes == "mirrored":

@@ -102,9 +102,9 @@ def feast_parallel_comparison(A, B, interval, M0, fpm=None, file=None,
                               **kw) -> dict:
     """Serial against sharded wall clock on the same problem
     (feast_parallel_comparison, feast_mpi_interface.jl:181-249). On one
-    device the sharded request warns and runs serially, as ``feast`` does
-    (the sharded drivers are ROADMAP.md queue 1 item 15). ``kw`` goes to
-    ``feast`` (``device=``)."""
+    rank the sharded request warns and runs serially, as ``feast`` does;
+    on two or more every rank must call it (``parallel/pfeast.py``).
+    ``kw`` goes to ``feast`` (``device=``)."""
     import sys
     from ..interfaces.feast import feast
     file = file or sys.stdout

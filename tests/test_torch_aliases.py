@@ -1,14 +1,20 @@
 """PyTorch port: the FEAST-named aliases against the JAX package's.
 
 Every alias name the port defines (``interfaces/aliases.py``, the
-s/d/c/z, i and x names and the unprefixed x names) is called in both
-packages with the drivers that the alias modules reach through their
-modules' attributes replaced by recorders, no solve run: both must
-reach the same driver with operands of the same dtype and shape, the same
-positional layout and the same keywords (``solver``, ``hermitian``,
-``bilinear``, the fpm slots, and the custom contour an x name registers
-in the fpm[29] registry for the call; the port's own ``device`` keyword
-aside). One parametrised case per name. Then a handful of real solves per
+s/d/c/z, i and x names, the unprefixed x names and the parallel p-names,
+all 300 of the JAX package's) is called in both packages with the drivers
+that the alias modules reach through their modules' attributes replaced
+by recorders (the p-names': ``parallel/pfeast.py``'s drivers and the
+parallel RCI machine), no solve run: both must reach the same driver with
+operands of the same dtype and shape, the same positional layout and the
+same keywords (``solver``, ``hermitian``, ``bilinear``, the fpm slots, and
+the custom contour an x name registers in the fpm[29] registry for the
+call; the port's own ``device`` keyword aside). One parametrised case per
+name. The compatibility layer's sharded names (``pfeast_sygv`` /
+``pfeast_scsrgv``, the ``mpi_feast*`` family, ``feast_hybrid``) get the
+same route parity, in a world of one rank (one JAX device): the sharded
+drivers where the JAX package calls them, else the serial driver its
+fallback reaches. Then a handful of real solves per
 family (n <= 120) against the JAX package's, its solves in one child
 process (this file run as a script, one core): the same M, eigenvalues
 within ROADMAP.md's tolerances (real symmetric 1e-10, Hermitian 1e-9,
@@ -19,6 +25,7 @@ import importlib
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -50,15 +57,20 @@ NAMES = sorted(port_aliases.__all__)
 
 # the driver attributes the alias modules call, per module
 DRIVERS = {
-    "dense": ("dense_hermitian_feast",),
-    "dense_general": ("dense_general_feast", "feast_pep"),
-    "sparse": ("sparse_feast_interval", "sparse_feast_general",
-               "feast_scsrpev"),
-    "banded": ("feast_sbev", "feast_sbgv", "feast_hbev", "feast_hbgv",
-               "feast_gbev", "feast_gbgv", "feast_sbev_complex",
-               "feast_sbgv_complex"),
-    "matfree": ("feast_matvec", "feast_polynomial_matvec"),
+    "solvers.dense": ("dense_hermitian_feast",),
+    "solvers.dense_general": ("dense_general_feast", "feast_pep"),
+    "solvers.sparse": ("sparse_feast_interval", "sparse_feast_general",
+                       "feast_scsrpev"),
+    "solvers.banded": ("feast_sbev", "feast_sbgv", "feast_hbev",
+                       "feast_hbgv", "feast_gbev", "feast_gbgv",
+                       "feast_sbev_complex", "feast_sbgv_complex"),
+    "solvers.matfree": ("feast_matvec", "feast_polynomial_matvec"),
+    "parallel.pfeast": ("pfeast_dense", "pfeast_sparse", "pfeast_general",
+                        "pfeast_sparse_general"),
 }
+# the step machines an alias constructs, and the modules that bind them
+MACHINES = {"FeastPolyRCI": ("kernel.rci",),
+            "FeastPRCI": ("kernel.rci", "interfaces.compat")}
 
 
 class _Recorded(Exception):
@@ -71,6 +83,8 @@ def _norm(pkg, x):
     slots and the contour registered under fpm[29]."""
     if x is None or isinstance(x, (bool, str)):
         return x
+    if isinstance(x, torch.device):
+        return str(x)
     if isinstance(x, (int, float, complex, np.number)):
         return complex(x)
     if isinstance(x, (list, tuple)):
@@ -97,32 +111,42 @@ def _record(pkg, module, monkeypatch, name, args, kw):
     recorder; returns (driver, positional summary, keyword summary)."""
     seen = []
     for mod, fns in DRIVERS.items():
-        m = importlib.import_module(f"{pkg.__name__}.solvers.{mod}")
+        m = importlib.import_module(f"{pkg.__name__}.{mod}")
         for fn in fns:
             def rec(*a, _fn=fn, **k):
                 seen.append((_fn, [_norm(pkg, v) for v in a],
                              {key: _norm(pkg, v) for key, v in k.items()}))
                 raise _Recorded
             monkeypatch.setattr(m, fn, rec)
-    rci = importlib.import_module(f"{pkg.__name__}.kernel.rci")
-
-    def rec_rci(*a, **k):
-        seen.append(("FeastPolyRCI", [_norm(pkg, v) for v in a],
-                     {key: _norm(pkg, v) for key, v in k.items()}))
-        raise _Recorded
-    monkeypatch.setattr(rci, "FeastPolyRCI", rec_rci)
-    with pytest.raises(_Recorded):
-        getattr(module, name)(*args, **kw)
+    for machine, mods in MACHINES.items():
+        def rec_rci(*a, _m=machine, **k):
+            seen.append((_m, [_norm(pkg, v) for v in a],
+                         {key: _norm(pkg, v) for key, v in k.items()}))
+            raise _Recorded
+        for mod in mods:
+            m = importlib.import_module(f"{pkg.__name__}.{mod}")
+            if hasattr(m, machine):
+                monkeypatch.setattr(m, machine, rec_rci)
+    with warnings.catch_warnings():
+        # a sharded request in a world of one warns before its fallback
+        warnings.simplefilter("ignore", UserWarning)
+        with pytest.raises(_Recorded):
+            getattr(module, name)(*args, **kw)
     assert len(seen) == 1
     return seen[0]
 
 
 def _parse(name):
-    """(prefix, iterative, kind, form, x) of an alias name."""
+    """(prefix, iterative, kind, form, x) of an alias name (a parallel
+    p-name parses as its serial name)."""
+    if name[:1] == "p" and name[1:2] in ("s", "d", "c", "z"):
+        name = name[1:]
     x = name.endswith("x")
     core = name[:-1] if x else name
     head, tail = core.split("feast_")
     prefix = head[:1] if head[:1] in "sdcz" and head else ""
+    if tail == "srci":
+        return prefix, False, "prci", "", False
     iterative = head.endswith("i")
     for form in ("pev", "gv", "ev"):
         if tail.endswith(form):
@@ -134,6 +158,8 @@ def _arguments(name):
     """Positional arguments of alias ``name`` on small operands."""
     prefix, _, kind, form, x = _parse(name)
     n = 12
+    if kind == "prci" and not form:
+        return [n, 4, 0.5, 1.5]
     rng = np.random.default_rng(3)
     cplx = prefix in ("c", "z") or (prefix == "" and kind not in (
         "sy", "sb", "scsr"))
@@ -168,11 +194,15 @@ def _arguments(name):
 
 
 def test_alias_names_match_the_reference():
-    """The port defines the JAX package's alias names, less the parallel
-    p-names of the sharded drivers (item 15)."""
-    ref = set(ref_aliases.__all__)
-    assert set(NAMES) == {n for n in ref if not n.startswith("p")}
-    assert len(NAMES) == 258
+    """The port defines the JAX package's alias names, the parallel
+    p-names of the sharded drivers among them; ``p{s,d}feast_srci`` are
+    the compatibility layer's parallel RCI machine."""
+    from feastkit_tpu_torch.interfaces import compat as port_compat
+    assert set(NAMES) == set(ref_aliases.__all__)
+    assert len(NAMES) == 300
+    assert sum(n.startswith("p") for n in NAMES) == 42
+    assert port_aliases.psfeast_srci is port_compat.psfeast_srci \
+        is port_compat.pfeast_srci
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -181,6 +211,60 @@ def test_alias_route_matches_reference(name, monkeypatch):
     ref = _record(ref_ft, ref_aliases, monkeypatch, name, args, {})
     port = _record(ft, port_aliases, monkeypatch, name, args,
                    {"device": "cpu"})
+    assert port[2].pop("device") == "cpu"
+    assert port[0] == ref[0]
+    assert port[1] == ref[1]
+    assert port[2] == ref[2]
+
+
+# the compatibility layer's sharded names: name -> arguments
+def _compat_arguments(name):
+    rng = np.random.default_rng(4)
+    n = 12
+    A = rng.standard_normal((n, n))
+    A = A + A.T
+    Ac = A + 1j * (rng.standard_normal((n, n)) - 0.5)
+    H = (Ac + Ac.conj().T) / 2
+    sparse = "csr" in name
+    op = (lambda X: sp.csr_matrix(X)) if sparse else (lambda X: X)
+    B = np.eye(n)
+    general = "_ge" in name or "_gcsr" in name or name.endswith("general")
+    if name in ("pfeast_sygv", "pfeast_scsrgv"):
+        return [op(A), op(B), 0.5, 1.5, 4]
+    if name == "mpi_feast":
+        return [A, (0.5, 1.5)], {"M0": 4}
+    if name == "feast_hybrid":
+        return [sp.csr_matrix(A), None, (0.5, 1.5), 4]
+    if name == "mpi_feast_general":
+        # complex symmetric: both packages pass the transpose pairing
+        return [Ac + Ac.T, None, 1.0 + 0.5j, 0.5, 4]
+    M = Ac if general else H
+    region = [1.0 + 0.5j, 0.5] if general else [0.5, 1.5]
+    if name.endswith("gv"):
+        return [op(M), op(B)] + region + [4]
+    return [op(M)] + region + [4]
+
+
+COMPAT_SHARDED = ["pfeast_sygv", "pfeast_scsrgv", "mpi_feast",
+                  "mpi_feast_general", "feast_hybrid", "mpi_feast_heev",
+                  "mpi_feast_hegv", "mpi_feast_geev", "mpi_feast_gegv",
+                  "mpi_feast_hcsrev", "mpi_feast_hcsrgv", "mpi_feast_gcsrev",
+                  "mpi_feast_gcsrgv"]
+
+
+@pytest.mark.parametrize("name", COMPAT_SHARDED)
+def test_compat_sharded_route_matches_reference(name, monkeypatch):
+    """In a world of one rank (the JAX package on one device): the same
+    driver, operands and keywords as the JAX package's name reaches."""
+    from feastkit_tpu.core import backend as ref_backend
+    from feastkit_tpu.interfaces import compat as ref_compat
+    from feastkit_tpu_torch.interfaces import compat as port_compat
+    monkeypatch.setattr(ref_backend, "_n_devices", lambda: 1)
+    args = _compat_arguments(name)
+    args, kw = args if isinstance(args, tuple) else (args, {})
+    ref = _record(ref_ft, ref_compat, monkeypatch, name, args, dict(kw))
+    port = _record(ft, port_compat, monkeypatch, name, args,
+                   dict(kw, device="cpu"))
     assert port[2].pop("device") == "cpu"
     assert port[0] == ref[0]
     assert port[1] == ref[1]

@@ -1406,3 +1406,114 @@ def test_trace_to_names_a_port_kernel(tmp_path):
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     assert any(("cheb" in n or "dia_" in n) for n in names), sorted(names)
+
+
+_HALO_RANK = r"""
+import sys
+from datetime import timedelta
+import numpy as np, torch, torch.distributed as dist
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                        world_size=2, timeout=timedelta(seconds=60))
+from feastkit_tpu_torch.ops import dia
+from feastkit_tpu_torch.parallel import pfeast as pf
+rng = np.random.default_rng(7)
+N, offsets = 4096, (-64, -1, 0, 1, 64)
+diags = torch.as_tensor(rng.standard_normal((5, N)))
+x = torch.as_tensor(rng.standard_normal((2, N, 24))
+                    + 1j * rng.standard_normal((2, N, 24)))
+mesh = pf.contour_model_mesh(1, 2)
+size, index, group = pf._axis(mesh, "model")
+rows = slice(index * N // 2, (index + 1) * N // 2)
+res = {}
+for label, X in (("f64", x[0].real), ("c128", x[0]), ("batched", x)):
+    d, X = diags.cuda(), X[..., rows, :].contiguous().cuda()
+    before = dict(dia.launch_counts())
+    y = pf._dia_halo_matvec(d[:, rows], X, offsets, (size, index, group))
+    after = dia.launch_counts()
+    yp = pf._dia_halo_matvec_plain(d[:, rows], X, offsets,
+                                   (size, index, group))
+    res[label] = y.cpu().numpy()
+    res[label + "/plain"] = yp.cpu().numpy()
+    res[label + "/launches"] = sum(after.values()) - sum(before.values())
+res["rows"] = np.array([rows.start, rows.stop])
+np.savez(out, **res)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_halo_product_on_cuda_matches_serial(tmp_path):
+    """Two ranks on the card (gloo, CUDA tensors): each rank's rows of the
+    halo DIA product, the DIA kernel on the extended block (one launch a
+    product), equal the serial plain product's rows and the plain shifted
+    adds."""
+    _need_cuda()
+    import os
+    import subprocess
+    import sys
+    from feastkit_tpu_torch.ops.dia import dia_matvec_plain
+    script = tmp_path / "rank.py"
+    script.write_text(_HALO_RANK)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    outs = [tmp_path / f"r{r}.npz" for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(script), str(r),
+                               str(tmp_path / "store"), str(outs[r])],
+                              env=env) for r in range(2)]
+    try:
+        for p in procs:
+            assert p.wait(timeout=300) == 0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    rng = np.random.default_rng(7)
+    N, offsets = 4096, (-64, -1, 0, 1, 64)
+    diags = torch.as_tensor(rng.standard_normal((5, N)))
+    x = torch.as_tensor(rng.standard_normal((2, N, 24))
+                        + 1j * rng.standard_normal((2, N, 24)))
+    for label, X in (("f64", x[0].real), ("c128", x[0]), ("batched", x)):
+        want = dia_matvec_plain(diags.to(X.dtype), offsets, X).numpy()
+        for out in outs:
+            with np.load(out) as z:
+                lo, hi = z["rows"]
+                bar = 1e-13 * np.abs(want).max()
+                assert np.abs(z[label] - want[..., lo:hi, :]).max() <= bar
+                assert np.abs(z[label + "/plain"]
+                              - want[..., lo:hi, :]).max() <= bar
+                assert int(z[label + "/launches"]) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(64, 48), (16, 12, 10)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_stencil_conv_on_cuda_matches_shifted_adds(grid, dtype, monkeypatch):
+    """FEAST_STENCIL_CONV=1 on the card: one cuDNN convolution (complex64
+    as two) against the shifted adds on the same tensor, within float32
+    rounding."""
+    _need_cuda()
+    from feastkit_tpu_torch.ops.multigrid import apply_stencil
+    nd = len(grid)
+    disps = [[0] * nd]
+    coeffs = [2.0 * nd]
+    for k in range(nd):
+        for s in (1, -1):
+            d = [0] * nd
+            d[k] = s
+            disps.append(d)
+            coeffs.append(-1.0)
+    disps = np.asarray(disps)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((3,) + grid, generator=g, dtype=torch.float32)
+    if dtype == torch.complex64:
+        x = torch.complex(x, torch.randn((3,) + grid, generator=g))
+    x = x.cuda()
+    monkeypatch.delenv("FEAST_STENCIL_CONV", raising=False)
+    want = apply_stencil(x, disps, coeffs, grid)
+    monkeypatch.setenv("FEAST_STENCIL_CONV", "1")
+    got = apply_stencil(x, disps, coeffs, grid)
+    assert got.dtype == dtype and got.shape == x.shape
+    err = float((got - want).abs().max())
+    assert err <= 8 * 1.2e-7 * len(coeffs) * float(want.abs().max())

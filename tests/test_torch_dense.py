@@ -15,8 +15,9 @@ determinism, the input validation and the backend conflicts.
 ``feast()``'s ``parallel=``, ``strict_backend=`` and ``contour=`` (F2 of
 ROADMAP.md): on ``lap2d(16)`` as a sparse matrix each gives the JAX
 package's M and eigenvalues; a sharded request on one device warns as the
-JAX package does, or raises its RuntimeError under ``strict_backend``; two
-devices make the port refuse the sharded backend (not ported). For that
+JAX package does, or raises its RuntimeError under ``strict_backend``; on
+two ranks the request runs the sharded drivers (``parallel/pfeast.py``,
+replaced by recorders here). For that
 the JAX package's device count is patched to 1, as on one card.
 
 The JAX package's solves run once, in a child process (this file run as a
@@ -427,21 +428,28 @@ def test_one_device_sharded_request_matches_reference(monkeypatch, operand):
 
 
 def test_two_devices_refuse_the_sharded_backend(monkeypatch):
-    """Anything that resolves to sharded on two or more devices names the
-    parallel item; dense operands shard only on request, as in the JAX
-    package."""
-    monkeypatch.setattr(port_backend, "_n_devices", lambda device: 2)
+    """On two or more ranks anything that resolves to sharded runs the
+    sharded drivers of ``parallel/pfeast.py`` (no longer refused): sparse
+    operands ``pfeast_sparse``, including under "auto"; dense ones shard
+    only on request (``pfeast_dense``), as in the JAX package."""
+    from feastkit_tpu_torch.parallel import pfeast as port_pf
+    monkeypatch.setattr(port_backend, "_n_devices", lambda device=None: 2)
+    seen = []
+    for fn in ("pfeast_sparse", "pfeast_dense"):
+        monkeypatch.setattr(port_pf, fn, lambda *a, _fn=fn, **k: seen.append(
+            (_fn, str(k.get("device")), k.get("hermitian"))) or _fn)
     A, iv = _case("f2_strict")[1][0], _case("f2_strict")[1][2]
     kw = dict(device="cpu")
     for bk in (dict(parallel=True), dict(backend="sharded"), {},
                dict(strict_backend=True)):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            ft.feast(A, None, iv, 16, **bk, **kw)
+        assert ft.feast(A, None, iv, 16, **bk, **kw) == "pfeast_sparse"
     assert ft.feast(A, None, iv, 16, parallel=False, **kw).M == 11
     D = laplacian_1d(40)
     assert ft.feast(D, None, (0.5, 1.5), 16, **kw).M > 0
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ft.feast(D, None, (0.5, 1.5), 16, parallel=True, **kw)
+    assert ft.feast(D, None, (0.5, 1.5), 16, parallel=True, **kw) \
+        == "pfeast_dense"
+    assert seen == [("pfeast_sparse", "cpu", None)] * 4 + [
+        ("pfeast_dense", "cpu", False)]
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@ package, on every driver that takes it.
 
 The fixtures of tests/test_estimate_modes.py (the sparse, banded,
 matrix-free, dense general, sparse general and banded general drivers;
-its two sharded cases are item 15), and the engines those fixtures route
+its two sharded cases are in tests/test_torch_parallel.py), and the
+engines those fixtures route
 past: the polynomial engine (``solver="cheb"``, on a DIA operator that
 the fused kernels would carry: the count runs the unfused recurrence in
 the work dtype, float64 and float32), the Krylov interval engine and the

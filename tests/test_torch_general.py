@@ -678,11 +678,19 @@ def test_one_device_sharded_request_matches_reference(monkeypatch):
 
 
 def test_two_devices_refuse_a_sharded_request(monkeypatch):
-    monkeypatch.setattr(port_backend, "_n_devices", lambda device: 2)
+    """On two or more ranks a dense sharded request runs
+    ``parallel/pfeast.pfeast_general`` (no longer refused); dense operands
+    shard only on request."""
+    from feastkit_tpu_torch.parallel import pfeast as port_pf
+    monkeypatch.setattr(port_backend, "_n_devices", lambda device=None: 2)
+    seen = []
+    monkeypatch.setattr(port_pf, "pfeast_general", lambda *a, **k: seen.append(
+        (str(k.get("device")), k.get("bilinear"))) or "pfeast_general")
     A, w, exp = _small_general()
     for kw in (dict(parallel=True), dict(backend="sharded")):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            ft.feast_general(A, None, w[2], 1.5, 12, device="cpu", **kw)
+        assert ft.feast_general(A, None, w[2], 1.5, 12, device="cpu",
+                                **kw) == "pfeast_general"
+    assert seen == [("cpu", False)] * 2
     # dense operands shard only on request
     assert ft.feast_general(A, None, w[2], 1.5, 12, device="cpu").M \
         == len(exp)

@@ -27,8 +27,8 @@ tolerance, and the engine each port solve entered. Port-only: the Krylov
 record names the complex DIA entries (their plain versions run here),
 and ``feast_general``'s backend semantics on sparse operands (F2's: a
 sharded request on one device warns as the JAX package does, or raises
-its RuntimeError under ``strict_backend``; "auto" on two devices raises
-item 15).
+its RuntimeError under ``strict_backend``; on two ranks a sharded
+request and "auto" run ``parallel/pfeast.pfeast_sparse_general``).
 
 The JAX package's solves run once, in three child processes (this file
 run as a script), each kept to one core, while the port's run here.
@@ -372,13 +372,22 @@ def test_one_device_sharded_request_matches_reference(monkeypatch):
 
 
 def test_two_devices_refuse_the_sharded_backend(monkeypatch):
-    monkeypatch.setattr(port_backend, "_n_devices", lambda device: 2)
+    """On two or more ranks a sparse general problem runs
+    ``parallel/pfeast.pfeast_sparse_general`` under a sharded request and
+    under "auto" (no longer refused)."""
+    from feastkit_tpu_torch.parallel import pfeast as port_pf
+    monkeypatch.setattr(port_backend, "_n_devices", lambda device=None: 2)
+    seen = []
+    monkeypatch.setattr(
+        port_pf, "pfeast_sparse_general", lambda *a, **k: seen.append(
+            (str(k.get("device")), k.get("bilinear")))
+        or "pfeast_sparse_general")
     An = sp.diags([np.arange(1.0, 41.0) * (1 + 0.5j)], [0], format="csr")
     for kw in (dict(parallel=True), dict(backend="sharded"), {},
                dict(strict_backend=True)):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            ft.feast_general(An, None, 3.0 + 1.5j, 1.2, 6, device="cpu",
-                             **kw)
+        assert ft.feast_general(An, None, 3.0 + 1.5j, 1.2, 6, device="cpu",
+                                **kw) == "pfeast_sparse_general"
+    assert seen == [("cpu", False)] * 4
     assert ft.feast_general(An, None, 3.0 + 1.5j, 1.2, 6, parallel=False,
                             device="cpu").M == 3
 

@@ -417,12 +417,23 @@ def test_vcycle_matches_reference(references, name, dtype, tol):
             one.abs().max())
 
 
-def test_stencil_conv_switch_is_refused(monkeypatch):
-    st_r, _, _, _, _ = _stencils()["lap2d"]
+def test_stencil_conv_switch_is_refused(references, monkeypatch):
+    """FEAST_STENCIL_CONV=1 is no longer refused: the complex64 V-cycle of
+    lap2d runs its stencil products as convolutions and agrees with the
+    JAX package's shifted-add V-cycle within the complex64 bar."""
+    st_r, _, _, A, _ = _stencils()["lap2d"]
     monkeypatch.setenv("FEAST_STENCIL_CONV", "1")
-    with pytest.raises(NotImplementedError, match="FEAST_STENCIL_CONV"):
-        port_mg.make_shifted_vcycle(convert.stencil_from_reference(st_r),
-                                    None, 0.5 + 0.1j)
+    calls = []
+    conv = port_mg._stencil_conv
+    monkeypatch.setattr(port_mg, "_stencil_conv",
+                        lambda *a: calls.append(1) or conv(*a))
+    got = port_mg.make_shifted_vcycle(
+        convert.stencil_from_reference(st_r), None, VCYCLE_Z,
+        dtype=torch.complex64, n_levels=VCYCLE_LEVELS)(torch.as_tensor(
+            _vcycle_input(A.shape[0], "complex64")))
+    ref = references[f"{_key('vcycle', 'lap2d', 'complex64')}.y"]
+    assert calls
+    assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
 # ---------------------------------------------------------- the filter

@@ -1,11 +1,12 @@
 """PyTorch port: the public surface against the JAX package's.
 
-Export parity: the port's public names are the JAX package's less the
-names of ROADMAP.md queue 1 item 15 (``ITEM_15``), and each of those
-reaches the JAX package's ``parallel/pfeast.py`` or a device mesh; the
-FeastKit.jl export list of tests/test_compat_surface.py resolves on the
-port less the same names. Then, against the JAX package on the same
-inputs: the validation, info, memory and count helpers of ``core/aux.py``,
+Export parity: the port's public names are the JAX package's and its two
+extra names, and ``feastkit_tpu_torch.parallel`` imports; the names of the
+sharded drivers (``ITEM_15``) each reach the JAX package's
+``parallel/pfeast.py`` or a device mesh, and the port's own
+``parallel/pfeast.py`` or a mesh over the ranks; the FeastKit.jl export
+list of tests/test_compat_surface.py resolves on the port. Then, against
+the JAX package on the same inputs: the validation, info, memory and count helpers of ``core/aux.py``,
 the backend reports, the ``Feast_*`` constants and their deprecated
 spellings, ``feast_name``, ``feastinit_driver`` and ``feast_set_defaults``
 (equal values and texts); the compatibility layer (workspaces, the RCI
@@ -51,7 +52,7 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-# ROADMAP.md queue 1 item 15: the sharded drivers and what reaches them
+# the sharded drivers and what reaches them
 ITEM_15 = sorted("""
 parallel contour_mesh contour_model_mesh contour_rhs_mesh pfeast_dense
 pfeast_general pfeast_sparse pfeast_sparse_general pfeast_sygv pfeast_scsrgv
@@ -91,34 +92,50 @@ def _reaches_item_15(obj):
     return "parallel.pfeast import" in src or "_mesh_from_comm(" in src
 
 
+def _reaches_port_drivers(obj):
+    """Whether the port's ``obj`` runs its sharded drivers or builds a mesh
+    over the ranks (the module ``parallel``, a function of
+    ``parallel/pfeast.py``, or a body that calls it or turns a communicator
+    into a mesh, by ``_mesh_from_comm`` or ``_mpi_kw``)."""
+    if isinstance(obj, types.ModuleType):
+        return obj.__name__ == "feastkit_tpu_torch.parallel"
+    if getattr(obj, "__module__", "") == \
+            "feastkit_tpu_torch.parallel.pfeast":
+        return True
+    src = inspect.getsource(obj)
+    return ("parallel.pfeast import" in src or "_mesh_from_comm(" in src
+            or "_mpi_kw(" in src or "getattr(_pf, driver)" in src)
+
+
 def test_exports_match_reference_less_item_15():
+    """The port exports every public name of the JAX package (the sharded
+    drivers' among them) and its own two; ``parallel`` imports."""
     ref, port = _public(ref_ft), _public(ft)
-    assert ref - port == set(ITEM_15) - {"parallel"}
+    assert ref - port == set()
     # the port's two extra names: its sparse drivers under their own names
     assert port - ref == {"sparse_feast_general", "sparse_feast_interval"}
     assert set(ft.__all__) == port
-    # the JAX package's subpackages and modules, less ``parallel``
+    # the JAX package's subpackages and modules, ``parallel`` among them
     for name in dir(ref_ft):
         if isinstance(getattr(ref_ft, name), types.ModuleType) \
                 and not name.startswith("_"):
-            if name == "parallel":
-                with pytest.raises(ModuleNotFoundError):
-                    importlib.import_module(f"feastkit_tpu_torch.{name}")
-            else:
-                importlib.import_module(f"feastkit_tpu_torch.{name}")
+            importlib.import_module(f"feastkit_tpu_torch.{name}")
+    assert importlib.import_module("feastkit_tpu_torch.parallel")
 
 
 @pytest.mark.parametrize("name", ITEM_15)
 def test_item_15_names_reach_the_sharded_drivers(name):
     assert _reaches_item_15(getattr(ref_ft, name)), name
+    port = importlib.import_module("feastkit_tpu_torch.parallel") \
+        if name == "parallel" else getattr(ft, name)
+    assert _reaches_port_drivers(port), name
 
 
 def test_reference_exports_resolve():
-    """tests/test_compat_surface.py's FeastKit.jl export list, less the
-    item-15 names."""
+    """tests/test_compat_surface.py's FeastKit.jl export list, the sharded
+    names among them."""
     from test_compat_surface import REFERENCE_EXPORTS
-    missing = [n for n in REFERENCE_EXPORTS
-               if n not in ITEM_15 and not hasattr(ft, n)]
+    missing = [n for n in REFERENCE_EXPORTS if not hasattr(ft, n)]
     assert not missing
     assert [n for n in REFERENCE_EXPORTS if n in ITEM_15]
 
@@ -134,6 +151,9 @@ def test_device_defaults_to_cuda():
             continue
         if "device" in params:
             assert params["device"].default is None, name
+    from feastkit_tpu_torch.solvers.banded import identity_bands
+    assert inspect.signature(identity_bands).parameters[
+        "device"].default is None
     if torch.cuda.is_available():
         return
     A = np.eye(4)
@@ -145,7 +165,19 @@ def test_device_defaults_to_cuda():
                  lambda: ft.pfeast_srci(4, 2, 0.5, 1.5),
                  lambda: ft.feast_parallel(A, None, (0.5, 1.5), 2),
                  lambda: ft.feast_estimate_count(lambda V: V, 4, (0, 1)),
-                 lambda: ft.eigvals_feast(A, (0.5, 1.5), M0=2)):
+                 lambda: ft.eigvals_feast(A, (0.5, 1.5), M0=2),
+                 lambda: ft.pfeast_dense(A, None, 0.5, 1.5, 2),
+                 lambda: ft.pfeast_general(A, None, 1.0, 0.5, 2),
+                 lambda: ft.pfeast_sparse(sp.csr_matrix(A), None, 0.5, 1.5,
+                                          2),
+                 lambda: ft.pfeast_sparse_general(sp.csr_matrix(A), None,
+                                                  1.0, 0.5, 2),
+                 lambda: ft.pdfeast_syev(A, 0.5, 1.5, 2),
+                 lambda: ft.pfeast_sygv(A, None, 0.5, 1.5, 2),
+                 lambda: ft.mpi_feast(A, (0.5, 1.5), M0=2),
+                 lambda: ft.mpi_feast_heev(A, 0.5, 1.5, 2),
+                 lambda: ft.feast_hybrid(A, (0.5, 1.5), M0=2),
+                 lambda: identity_bands(4, 1, 1, torch.float64)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
@@ -249,8 +281,10 @@ def test_backend_reports():
     buf = io.StringIO()
     assert ft.feast_parallel_info(file=buf) == caps
     assert "backend sharded : unavailable" in buf.getvalue()
-    # the JAX package's report has the same keys
-    assert set(ref_ft.feast_parallel_capabilities()) == set(caps)
+    # the JAX package's report has the same keys, and the port's the ranks
+    assert set(ref_ft.feast_parallel_capabilities()) | {"n_ranks"} \
+        == set(caps)
+    assert caps["n_ranks"] == 1 and "ranks         : 1" in buf.getvalue()
     with pytest.warns(UserWarning, match="single device"):
         assert ft.select_parallel_backend("sharded", "cpu") == "serial"
 
@@ -439,7 +473,7 @@ def test_info_helpers_and_backend_conveniences():
     assert ft.check_feast_srci_input(60, 10, 0.5, 1.5) is True
     with pytest.raises(ValueError):
         ft.check_feast_srci_input(60, 0, 0.5, 1.5)
-    assert ft.mpi_available() is False
+    assert ft.mpi_available() is ref_ft.mpi_available() is True
     n = 60
     A = _lap(n)
     exp = _lap_eigs(n)
