@@ -38,6 +38,7 @@ from ..core.aux import with_custom_contour
 from ..core.backend import resolve_device, select_parallel_backend
 from ..core.parameters import FeastParameters, _ensure_fpm, feastinit
 from ..core.types import Contour, FeastGeneralResult, FeastResult
+from ..utils import trace
 
 __all__ = ["feast", "feast_general", "feast_banded", "feast_custom_contour",
            "feast_polynomial", "feast_summary", "feast_validate_interval",
@@ -160,61 +161,65 @@ def feast(A, B=None, interval=None, M0=None, fpm=None, *, backend=None,
         Krylov engine ``solver_tol=``, ``solver_maxiter=``,
         ``solver_restart=``, ``precond=`` and ``grid=``).
     """
-    if interval is None:
-        raise ValueError("interval=(Emin, Emax) is required")
-    Emin, Emax = float(interval[0]), float(interval[1])
-    if not Emax > Emin:
-        raise ValueError(f"Emin={Emin} must be < Emax={Emax}")
-    device = resolve_device(device)
-    from ..solvers.matfree import LinearOperator, feast_matvec
-    if isinstance(A, LinearOperator):
-        _resolve_matfree_backend(
-            backend, parallel, strict_backend, device,
-            "backend='sharded' is not yet available for matrix-free "
-            "operators (the model-axis sharded matvec path); use the "
-            "serial driver or shard inside your operator callables")
-        N = A.shape[0]
-        return feast_matvec(A, B, (Emin, Emax),
-                            min(int(M0 or max(8, N // 10)), N), fpm,
-                            Q0=Q0, device=device, **kw)
-    if sp.issparse(A):
-        backend = _resolve_backend(backend, parallel, strict_backend,
-                                   device, auto_sharded=True)
-        N = A.shape[0]
-        M0r = min(int(M0 or max(8, N // 10)), N)
-        if backend == "sharded":
-            from ..parallel.pfeast import pfeast_sparse
-            return pfeast_sparse(A, B, Emin, Emax, M0r, fpm, Q0=Q0,
-                                 device=device, **kw)
-        from ..solvers.sparse import sparse_feast_interval
-        return sparse_feast_interval(A, B, Emin, Emax, M0r, fpm, Q0=Q0,
+    with trace.span("feast", path="other"):
+        if interval is None:
+            raise ValueError("interval=(Emin, Emax) is required")
+        Emin, Emax = float(interval[0]), float(interval[1])
+        if not Emax > Emin:
+            raise ValueError(f"Emin={Emin} must be < Emax={Emax}")
+        device = resolve_device(device)
+        from ..solvers.matfree import LinearOperator, feast_matvec
+        if isinstance(A, LinearOperator):
+            _resolve_matfree_backend(
+                backend, parallel, strict_backend, device,
+                "backend='sharded' is not yet available for matrix-free "
+                "operators (the model-axis sharded matvec path); use the "
+                "serial driver or shard inside your operator callables")
+            N = A.shape[0]
+            M0r = min(int(M0 or max(8, N // 10)), N)
+            trace.solve_attrs(N=int(N), M0=M0r)
+            return feast_matvec(A, B, (Emin, Emax), M0r, fpm, Q0=Q0,
+                                device=device, **kw)
+        if sp.issparse(A):
+            backend = _resolve_backend(backend, parallel, strict_backend,
+                                       device, auto_sharded=True)
+            N = A.shape[0]
+            M0r = min(int(M0 or max(8, N // 10)), N)
+            trace.solve_attrs(N=int(N), M0=M0r)
+            if backend == "sharded":
+                from ..parallel.pfeast import pfeast_sparse
+                return pfeast_sparse(A, B, Emin, Emax, M0r, fpm, Q0=Q0,
                                      device=device, **kw)
+            from ..solvers.sparse import sparse_feast_interval
+            return sparse_feast_interval(A, B, Emin, Emax, M0r, fpm, Q0=Q0,
+                                         device=device, **kw)
 
-    N = _dense_shape(A)[0]
-    if M0 is None:
-        M0 = min(N, max(8, N // 10))
-    M0 = min(int(M0), N)
-    if not _is_hermitian(A, tol=1e-10):
-        raise ValueError(
-            "feast() requires symmetric/Hermitian A; use feast_general() for "
-            "non-Hermitian problems")
-    if B is not None and not _is_hermitian(B, tol=1e-10):
-        raise ValueError("feast() requires symmetric/Hermitian positive "
-                         "definite B; use feast_general() otherwise")
-    feast_validate_interval(A, Emin, Emax)
-    fpm = _ensure_fpm(fpm)
-    backend = _resolve_backend(backend, parallel, strict_backend, device,
-                               auto_sharded=False)
-    hermitian = _as_tensor(A).is_complex() or (
-        B is not None and _as_tensor(B).is_complex())
-    if backend == "sharded":
-        from ..parallel.pfeast import pfeast_dense
-        return pfeast_dense(A, B, Emin, Emax, M0, fpm, hermitian=hermitian,
-                            contour=contour, Q0=Q0, device=device, **kw)
-    from ..solvers.dense import dense_hermitian_feast
-    return dense_hermitian_feast(A, B, Emin, Emax, M0, fpm,
-                                 hermitian=hermitian, contour=contour,
-                                 Q0=Q0, device=device, **kw)
+        N = _dense_shape(A)[0]
+        if M0 is None:
+            M0 = min(N, max(8, N // 10))
+        M0 = min(int(M0), N)
+        trace.solve_attrs(N=int(N), M0=M0)
+        if not _is_hermitian(A, tol=1e-10):
+            raise ValueError(
+                "feast() requires symmetric/Hermitian A; use feast_general() "
+                "for non-Hermitian problems")
+        if B is not None and not _is_hermitian(B, tol=1e-10):
+            raise ValueError("feast() requires symmetric/Hermitian positive "
+                             "definite B; use feast_general() otherwise")
+        feast_validate_interval(A, Emin, Emax)
+        fpm = _ensure_fpm(fpm)
+        backend = _resolve_backend(backend, parallel, strict_backend, device,
+                                   auto_sharded=False)
+        hermitian = _as_tensor(A).is_complex() or (
+            B is not None and _as_tensor(B).is_complex())
+        if backend == "sharded":
+            from ..parallel.pfeast import pfeast_dense
+            return pfeast_dense(A, B, Emin, Emax, M0, fpm, hermitian=hermitian,
+                                contour=contour, Q0=Q0, device=device, **kw)
+        from ..solvers.dense import dense_hermitian_feast
+        return dense_hermitian_feast(A, B, Emin, Emax, M0, fpm,
+                                     hermitian=hermitian, contour=contour,
+                                     Q0=Q0, device=device, **kw)
 
 
 def _complex_symmetric(A) -> bool:

@@ -77,9 +77,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import time
 
 import torch
 
+from ..utils import trace as _trace
 from .cuda_build import SHARED_BYTES_PER_BLOCK
 from .cuda_build import SM_SHARED_BYTES as _SM_SHARED_BYTES
 from .cuda_build import SMS as _SMS
@@ -199,10 +201,13 @@ def _launch(wrapper, diags, offsets, t0, t1, acc, sc, sh, ck):
 
 
 def _step(wrapper, dtype, diags, offsets, t0, t1, acc, sc, sh, ck):
+    t_on = _trace.ON and time.perf_counter_ns()
     _check(diags, offsets, t0, t1, acc, dtype)
     if t0.is_cuda:
         _launch(wrapper, diags, offsets, t0, t1, acc, float(sc), float(sh),
                 float(ck))
+        if t_on:
+            _trace.launch_done(t_on)
     elif t0.device.type == "cpu":
         cheb_step_plain(diags, offsets, t0, t1, acc, float(sc), float(sh),
                         float(ck))
@@ -311,6 +316,7 @@ def _step_cm(wrapper, dtype, diags, offsets, t0, t1, acc, sc, sh, ck,
     (its plain version on CPU tensors); ``plan``: a block shape to launch
     with instead of :func:`cm_step_plan`'s (from :func:`_cm_shape`).
     Returns the plane that holds T2."""
+    t_on = _trace.ON and time.perf_counter_ns()
     sc, sh, ck = float(sc), float(sh), float(ck)
     _check_cm(diags, offsets, t0, t1, acc, dtype, ck)
     if t1.device.type == "cpu":
@@ -339,6 +345,8 @@ def _step_cm(wrapper, dtype, diags, offsets, t0, t1, acc, sc, sh, ck,
             f"({lib.cheb_step_cm_error_string(err).decode()})")
     wrapper.launches += 1
     wrapper.form_launches[_cm_form(t0, acc)] += 1
+    if t_on:
+        _trace.launch_done(t_on)
     return out
 
 
@@ -391,6 +399,7 @@ def _combine_library():
 
 
 def _combine(wrapper, dtype, z, x, t0, f, sc, sh, ck):
+    t_on = _trace.ON and time.perf_counter_ns()
     named = [("z", z), ("x", x), ("T0", t0), ("F", f)]
     for name, t in named:
         if t is None:
@@ -427,6 +436,8 @@ def _combine(wrapper, dtype, z, x, t0, f, sc, sh, ck):
             f"{wrapper.__name__} launch failed: CUDA error {err} "
             f"({lib.cheb_combine_error_string(err).decode()})")
     wrapper.launches += 1
+    if t_on:
+        _trace.launch_done(t_on)
     return out
 
 
@@ -700,6 +711,7 @@ def _multistep(wrapper, S, dtype, diags, offsets, t0, t1, acc, out0, out1,
     (its plain version on CPU tensors). ``defines``: build flags of the
     kernel's library; ``plan``: a plan to launch with instead of the
     entry's own (from :func:`_stream_shape`)."""
+    t_on = _trace.ON and time.perf_counter_ns()
     planes = (t0, t1, acc, out0, out1)
     _check_multistep(diags, offsets, planes, dtype)
     cs = [float(c) for c in cs]
@@ -736,6 +748,8 @@ def _multistep(wrapper, S, dtype, diags, offsets, t0, t1, acc, out0, out1,
             f"{wrapper.__name__} launch failed: CUDA error {err} "
             f"({lib.cheb_stream4_error_string(err).decode()})")
     wrapper.launches += 1
+    if t_on:
+        _trace.launch_done(t_on)
 
 
 def cheb_step2_f32(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):

@@ -48,10 +48,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import time
 
 import numpy as np
 import torch
 
+from ..utils import trace as _trace
 from .cuda_build import SHARED_BYTES_PER_BLOCK
 from .cuda_build import SM_SHARED_BYTES as _SM_SHARED_BYTES
 from .cuda_build import SMS as _SMS
@@ -393,10 +395,14 @@ def _launch(wrapper, diags, offsets, x, batched, plan=None):
 
 
 def _matvec(wrapper, dtype, batched, diags, offsets, x):
+    t_on = _trace.ON and time.perf_counter_ns()
     offsets = tuple(int(d) for d in offsets)
     _check(diags, offsets, x, dtype, batched)
     if x.is_cuda:
-        return _launch(wrapper, diags, offsets, x, batched)
+        y = _launch(wrapper, diags, offsets, x, batched)
+        if t_on:
+            _trace.launch_done(t_on)
+        return y
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return dia_matvec_plain(diags, offsets, x)

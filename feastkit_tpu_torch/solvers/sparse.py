@@ -130,6 +130,7 @@ from ..ops.eig import check_method
 from ..ops.gmres import bicgstab_block, gmres_block
 from ..ops.multigrid import (GridStencil, detect_grid_stencil,
                              make_shifted_vcycle, plan_mg_levels)
+from ..utils import trace
 from .dense import _TORCH_DTYPE, _np_dtype
 
 __all__ = ["feast_scsrev", "feast_scsrgv", "feast_hcsrev", "feast_hcsrgv",
@@ -137,6 +138,15 @@ __all__ = ["feast_scsrev", "feast_scsrgv", "feast_hcsrev", "feast_hcsrgv",
            "sparse_feast_general", "feast_gcsrev", "feast_gcsrgv",
            "feast_scsrev_complex", "feast_scsrgv_complex", "feast_scsrpev",
            "feast_hcsrpev", "feast_gcsrpev"]
+
+
+def _upload(host, device, dtype=None):
+    """A host tensor on ``device`` (as ``dtype``), its bytes counted where
+    they cross to a card (``utils/trace``): a blocking copy converts on the
+    host, so ``dtype``'s bytes cross."""
+    trace.count_h2d(host, device, dtype)
+    return host.to(device=device, dtype=dtype)
+
 
 def _stochastic_estimate_result(filter_fn, N, fpm, work_dtype, device):
     """fpm[14] = 2, shared by every driver: the JAX package's Rademacher
@@ -148,7 +158,7 @@ def _stochastic_estimate_result(filter_fn, N, fpm, work_dtype, device):
     trials = max(int(fpm[32]), 1)
     rng_probe = np.random.default_rng((N * 31 + trials) % (2**31 - 1))
     V = rng_probe.choice([-1.0, 1.0], size=(N, trials)).astype(work_dtype)
-    out = filter_fn(torch.as_tensor(V).to(device))
+    out = filter_fn(_upload(torch.as_tensor(V), device))
     PV = (out[0] if isinstance(out, tuple) else out).cpu().numpy()
     est = float(np.einsum("nt,nt->", np.real(V), np.real(PV)) / trials)
     return FeastResult(np.zeros(0), torch.zeros(
@@ -279,8 +289,8 @@ def _lanczos_tridiag(apply_op, apply_ip, v0, steps):
 def _lanczos_v0(N, device):
     # deterministic start vector (the determinism-by-shape contract): the
     # JAX package's, in f32
-    return torch.as_tensor((np.cos(0.7 * np.arange(N)) + 0.5).astype(
-        np.float32).reshape(N, 1)).to(device)
+    return _upload(torch.as_tensor((np.cos(0.7 * np.arange(N)) + 0.5)
+                                   .astype(np.float32).reshape(N, 1)), device)
 
 
 def _tridiag_edges(al, be):
@@ -298,8 +308,8 @@ def _pencil_upper_edge_fast(A_dia, offsets_A, B_dia, offsets_B, qc, b_lo,
     q(B~) A~ (``make_apply_binv_a``) in the B~ inner product, every
     product a plain DIA matvec on ``device`` (the JAX package runs the same
     outside its kernels)."""
-    A32 = torch.as_tensor(np.asarray(A_dia, np.float32)).to(device)
-    B32 = torch.as_tensor(np.asarray(B_dia, np.float32)).to(device)
+    A32 = _upload(torch.as_tensor(np.asarray(A_dia, np.float32)), device)
+    B32 = _upload(torch.as_tensor(np.asarray(B_dia, np.float32)), device)
 
     def apply_B(x):
         return dia_matvec(B32, offsets_B, x)
@@ -324,7 +334,7 @@ def _b_spd_bounds(B_data, B_idx, N, B_dia, offsets_B, device):
     polynomial inverse."""
     b_lo, b_hi = gershgorin_interval(B_data, B_idx, N)
     if b_lo <= 0.02 * b_hi and offsets_B is not None:
-        B32 = torch.as_tensor(np.asarray(B_dia, np.float32)).to(device)
+        B32 = _upload(torch.as_tensor(np.asarray(B_dia, np.float32)), device)
         al, be = _lanczos_tridiag(lambda x: dia_matvec(B32, offsets_B, x),
                                   lambda x: x, _lanczos_v0(N, device),
                                   min(128, N))
@@ -479,6 +489,7 @@ def _sparse_cheb_filter_host_fused(ctx, Q, *, rung, n_coeffs=None):
     coeffs = r["coeffs"]
     if n_coeffs is not None:
         coeffs = coeffs[:max(int(n_coeffs), 3)]
+    trace.note("filter", steps=len(coeffs) - 1, inner=0)
     dia, offsets, sc, sh = r["dia"], ctx["offsets"], r["sc"], r["sh"]
     t1 = Q.to(r["dtype"], copy=True)      # overwritten as the carry rotates
     carry = (torch.zeros_like(t1), t1, t1 * float(coeffs[0]))
@@ -556,6 +567,7 @@ def _sparse_cheb_filter_host_fused_gen(ctx, Q, *, rung, n_coeffs=None):
     coeffs = r["coeffs"]
     if n_coeffs is not None:
         coeffs = coeffs[:max(int(n_coeffs), 3)]
+    trace.note("filter", steps=len(coeffs) - 1, inner=len(r["qc"]))
     ops = (r["dA"], ctx["offsets_A"], r["dB"], ctx["offsets_B"], r["qc"])
     q = Q.to(r["dtype"]).t().contiguous()
     carry = cheb_gen_init(*ops, q, coeffs[:2], r["scals"],
@@ -581,6 +593,7 @@ def _sparse_cheb_filter_host(ctx, Q, *, rung, n_coeffs=None):
     work per TPU dispatch; a host loop needs no such budget."""
     r = ctx[rung]
     coeffs = r["coeffs"] if n_coeffs is None else r["coeffs"][:n_coeffs]
+    trace.note("filter", steps=len(coeffs) - 1, inner=r.get("inner", 0))
     carry = _cheb_init(r["apply"], r["lo"], r["hi"], Q.to(r["dtype"]),
                        coeffs)
     step = make_cheb_stepper(r["apply"], r["lo"], r["hi"])
@@ -625,255 +638,291 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
     otherwise nothing is sharded."""
     elig_err = ChebInfeasible if route else ValueError
     fpm = _ensure_fpm(fpm)
-    b_kind, b_diag = _b_diagonal(B)
-    if b_kind is None:
-        b_kind, b_diag = _b_sparse_spd(B)
-    if b_kind is None:
-        raise elig_err(
-            "solver='cheb' (polynomial filter) requires a standard problem "
-            "(B=None/identity), a positive diagonal B (lumped mass), or a "
-            "real symmetric positive-definite sparse B (consistent mass); "
-            "indefinite/nonsymmetric pencils need the contour solvers "
-            "(gmres/bicgstab)")
-    is_complex = np.iscomplexobj(_peek_dtype(A))
-    if hermitian is None:
-        hermitian = is_complex
-    if b_kind == "spd" and hermitian:
-        raise elig_err(
-            "solver='cheb' with a sparse SPD B currently supports real "
-            "symmetric A (complex Hermitian A + sparse B: use the contour "
-            "solvers)")
-    f64 = _is_double(_peek_dtype(A).dtype)
-    rdtype = np.float64 if f64 else np.float32
-    tdtype = torch.float64 if f64 else torch.float32
-    cdtype = np.complex128 if f64 else np.complex64
-    work = np.dtype(cdtype if hermitian else rdtype)
-    wdtype = _TORCH_DTYPE[work]
-    lo_dtype = torch.complex64 if hermitian else torch.float32
+    trace.solve_attrs(path="cheb")
+    with trace.span("route") as route_span:
+        with trace.span("route.coo", of="B"):
+            b_kind, b_diag = _b_diagonal(B)
+            if b_kind is None:
+                b_kind, b_diag = _b_sparse_spd(B)
+        if b_kind is None:
+            raise elig_err(
+                "solver='cheb' (polynomial filter) requires a standard "
+                "problem (B=None/identity), a positive diagonal B (lumped "
+                "mass), or a real symmetric positive-definite sparse B "
+                "(consistent mass); indefinite/nonsymmetric pencils need the "
+                "contour solvers (gmres/bicgstab)")
+        is_complex = np.iscomplexobj(_peek_dtype(A))
+        if hermitian is None:
+            hermitian = is_complex
+        if b_kind == "spd" and hermitian:
+            raise elig_err(
+                "solver='cheb' with a sparse SPD B currently supports real "
+                "symmetric A (complex Hermitian A + sparse B: use the "
+                "contour solvers)")
+        f64 = _is_double(_peek_dtype(A).dtype)
+        rdtype = np.float64 if f64 else np.float32
+        tdtype = torch.float64 if f64 else torch.float32
+        cdtype = np.complex128 if f64 else np.complex64
+        work = np.dtype(cdtype if hermitian else rdtype)
+        wdtype = _TORCH_DTYPE[work]
+        lo_dtype = torch.complex64 if hermitian else torch.float32
 
-    A_data, A_idx, shape = sparse_coo_arrays(A, work)
-    N = shape[0]
-    if b_kind in ("diagonal", "spd"):
-        dscale = 1.0 / np.sqrt(b_diag.astype(np.float64))
-        A_data = (A_data * (dscale[A_idx[:, 0]] * dscale[A_idx[:, 1]])
-                  ).astype(work)
-    if not 0 < M0 <= N:
-        raise ValueError(f"M0 must be in 1..N={N}, got {M0}")
-    if not Emax > Emin:
-        raise ValueError(f"Emin={Emin} must be < Emax={Emax}")
-    outA = bcoo_to_dia(A_data, A_idx, N)
-    A_dia_np, offsets = outA if outA else (None, None)
+        with trace.span("route.coo", of="A"):
+            A_data, A_idx, shape = sparse_coo_arrays(A, work)
+            N = shape[0]
+            if b_kind in ("diagonal", "spd"):
+                dscale = 1.0 / np.sqrt(b_diag.astype(np.float64))
+                A_data = (A_data * (dscale[A_idx[:, 0]]
+                                    * dscale[A_idx[:, 1]])).astype(work)
+        if not 0 < M0 <= N:
+            raise ValueError(f"M0 must be in 1..N={N}, got {M0}")
+        if not Emax > Emin:
+            raise ValueError(f"Emin={Emin} must be < Emax={Emax}")
+        with trace.span("route.dia", of="A"):
+            outA = bcoo_to_dia(A_data, A_idx, N)
+        A_dia_np, offsets = outA if outA else (None, None)
 
-    config = FeastConfig.from_fpm(fpm, dtype=cdtype)
-    qinfo = qinfo_lo = qc = qc_lo = None
-    offsets_B = None
-    if b_kind == "spd":
-        # unit-diagonal congruence of B and a polynomial inverse
-        # q(B~) ~= B~^-1: the recurrence filters the composite q(B~) A~
-        # while Rayleigh-Ritz and the residuals use the exact pencil
-        B_data, B_idx, _ = sparse_coo_arrays(B, work)
-        B_data = (B_data * (dscale[B_idx[:, 0]] * dscale[B_idx[:, 1]])
-                  ).astype(work)
-        outB = bcoo_to_dia(B_data, B_idx, N)
-        B_dia_np, offsets_B = outB if outB else (None, None)
-        try:
-            b_lo, b_hi = _b_spd_bounds(B_data, B_idx, N, B_dia_np,
-                                       offsets_B, device)
-        except ValueError as e:
-            if route:
-                raise ChebInfeasible(str(e)) from e
-            raise
-        inv_tol = float(np.clip(0.01 * config.tol, 1e-14, 1e-6))
-        qc, qinfo = cheb_inverse_coeffs(b_lo, b_hi, inv_tol)
-        # rung-adaptive inner inverse: the f32 rung's own rounding floor
-        # (~sqrt(degree) eps_f32) only needs q to ~1e-5, about half the
-        # inner degree of the f64 rung's
-        qc_lo, qinfo_lo = cheb_inverse_coeffs(b_lo, b_hi, max(inv_tol, 1e-5))
-        a_lo, a_hi = gershgorin_interval(A_data, A_idx, N)
-        lo, hi = binva_enclosure(a_lo, a_hi, b_lo, b_hi,
-                                 max(qinfo["rel_err"], qinfo_lo["rel_err"]))
-        # tighten the upper edge with a measured pencil eigenvalue (the
-        # degree scales as sqrt(enclosure span)); 1.1x over the Lanczos
-        # estimate, which converges from below, keeps the spectrum inside.
-        # Operands with no DIA form take the host Lanczos (None on
-        # failure: the quotient bound stays), as in the JAX package.
-        if offsets is not None and offsets_B is not None:
-            hi_e = _pencil_upper_edge_fast(A_dia_np, offsets, B_dia_np,
-                                           offsets_B, qc, b_lo, b_hi, N,
-                                           device)
+        config = FeastConfig.from_fpm(fpm, dtype=cdtype)
+        qinfo = qinfo_lo = qc = qc_lo = None
+        offsets_B = None
+        if b_kind == "spd":
+            # unit-diagonal congruence of B and a polynomial inverse
+            # q(B~) ~= B~^-1: the recurrence filters the composite q(B~) A~
+            # while Rayleigh-Ritz and the residuals use the exact pencil
+            with trace.span("route.coo", of="B"):
+                B_data, B_idx, _ = sparse_coo_arrays(B, work)
+                B_data = (B_data * (dscale[B_idx[:, 0]]
+                                    * dscale[B_idx[:, 1]])).astype(work)
+            with trace.span("route.dia", of="B"):
+                outB = bcoo_to_dia(B_data, B_idx, N)
+            B_dia_np, offsets_B = outB if outB else (None, None)
+            try:
+                with trace.span("route.bounds", of="B"):
+                    b_lo, b_hi = _b_spd_bounds(B_data, B_idx, N, B_dia_np,
+                                               offsets_B, device)
+            except ValueError as e:
+                if route:
+                    raise ChebInfeasible(str(e)) from e
+                raise
+            inv_tol = float(np.clip(0.01 * config.tol, 1e-14, 1e-6))
+            with trace.span("route.coeffs", which="inverse"):
+                qc, qinfo = cheb_inverse_coeffs(b_lo, b_hi, inv_tol)
+            # rung-adaptive inner inverse: the f32 rung's own rounding floor
+            # (~sqrt(degree) eps_f32) only needs q to ~1e-5, about half the
+            # inner degree of the f64 rung's
+            with trace.span("route.coeffs", which="inverse_lo"):
+                qc_lo, qinfo_lo = cheb_inverse_coeffs(b_lo, b_hi,
+                                                      max(inv_tol, 1e-5))
+            with trace.span("route.bounds", of="pencil"):
+                a_lo, a_hi = gershgorin_interval(A_data, A_idx, N)
+                lo, hi = binva_enclosure(a_lo, a_hi, b_lo, b_hi,
+                                         max(qinfo["rel_err"],
+                                             qinfo_lo["rel_err"]))
+                # tighten the upper edge with a measured pencil eigenvalue
+                # (the degree scales as sqrt(enclosure span)); 1.1x over
+                # the Lanczos estimate, which converges from below, keeps
+                # the spectrum inside. Operands with no DIA form take the
+                # host Lanczos (None on failure: the quotient bound
+                # stays), as in the JAX package.
+                if offsets is not None and offsets_B is not None:
+                    hi_e = _pencil_upper_edge_fast(A_dia_np, offsets,
+                                                   B_dia_np, offsets_B, qc,
+                                                   b_lo, b_hi, N, device)
+                else:
+                    hi_e = _pencil_upper_edge(A_data, A_idx, B_data, B_idx,
+                                              N)
+            if hi_e is not None and hi_e > max(float(Emax), 0.0):
+                hi = min(hi, (1.1 + qinfo["rel_err"]) * hi_e)
         else:
-            hi_e = _pencil_upper_edge(A_data, A_idx, B_data, B_idx, N)
-        if hi_e is not None and hi_e > max(float(Emax), 0.0):
-            hi = min(hi, (1.1 + qinfo["rel_err"]) * hi_e)
-    else:
-        lo, hi = gershgorin_interval(A_data, A_idx, N)
-    # Ladder degree rule of the JAX package: a mixed-precision solve spends
-    # >= 2 rungs, and a 1.5x-sharper indicator trades a top-rung loop for
-    # ~constant total matvecs. Not for the SPD-B composite, where every
-    # outer step carries the inner recurrence in B (sparse.py:1845-1861).
-    ladder_scale = (1.5 if (_mixed_enabled(config, device, f64)
-                            and config.tol <= 1e-6 and b_kind != "spd")
-                    else 1.0)
-    # FEAST_CHEB_DEGREE (config.cheb_degree > 0) fixes the indicator's
-    # degree and caps the rational realization's
-    user_cap = int(config.cheb_degree or 0)
-    cap_kw = {"cap": user_cap} if user_cap > 0 else {}
-    if contour is not None:
-        if route:
-            # Cost model: rational vs indicator, work = degree x expected
-            # loops (~3 rational, ~5 indicator), on the UNSCALED indicator
-            # degree (a pinned degree is never scaled); a cap-bound
-            # indicator that barely decays outside is refused.
-            rat = ind = None
-            rat_err = None
-            try:
-                rat = rational_filter_cheb_coeffs(
-                    contour.Zne, contour.Wne, lo, hi,
-                    float(Emin), float(Emax), **cap_kw)
-            except ChebInfeasible as e:
-                rat_err = e
-            try:
-                ind = build_cheb_filter_coeffs(
-                    lo, hi, float(Emin), float(Emax),
-                    degree=user_cap or None, degree_scale=ladder_scale)
-                if ind[1]["outside_at_1w"] > 0.25 * ind[1]["inside_min"]:
+            with trace.span("route.bounds", of="A"):
+                lo, hi = gershgorin_interval(A_data, A_idx, N)
+        # Ladder degree rule of the JAX package: a mixed-precision solve
+        # spends >= 2 rungs, and a 1.5x-sharper indicator trades a top-rung
+        # loop for ~constant total matvecs. Not for the SPD-B composite,
+        # where every outer step carries the inner recurrence in B
+        # (sparse.py:1845-1861).
+        ladder_scale = (1.5 if (_mixed_enabled(config, device, f64)
+                                and config.tol <= 1e-6 and b_kind != "spd")
+                        else 1.0)
+        # FEAST_CHEB_DEGREE (config.cheb_degree > 0) fixes the indicator's
+        # degree and caps the rational realization's
+        user_cap = int(config.cheb_degree or 0)
+        cap_kw = {"cap": user_cap} if user_cap > 0 else {}
+        if contour is not None:
+            if route:
+                # Cost model: rational vs indicator, work = degree x
+                # expected loops (~3 rational, ~5 indicator), on the
+                # UNSCALED indicator degree (a pinned degree is never
+                # scaled); a cap-bound indicator that barely decays outside
+                # is refused.
+                rat = ind = None
+                rat_err = None
+                try:
+                    with trace.span("route.coeffs", which="rational"):
+                        rat = rational_filter_cheb_coeffs(
+                            contour.Zne, contour.Wne, lo, hi,
+                            float(Emin), float(Emax), **cap_kw)
+                except ChebInfeasible as e:
+                    rat_err = e
+                try:
+                    with trace.span("route.coeffs", which="indicator"):
+                        ind = build_cheb_filter_coeffs(
+                            lo, hi, float(Emin), float(Emax),
+                            degree=user_cap or None,
+                            degree_scale=ladder_scale)
+                    if ind[1]["outside_at_1w"] > 0.25 * ind[1]["inside_min"]:
+                        ind = None
+                except ValueError:
                     ind = None
-            except ValueError:
-                ind = None
-            if rat is None and ind is None:
-                raise ChebInfeasible(
-                    f"neither polynomial filter resolves this "
-                    f"configuration ({rat_err})")
-            ind_div = 1.0 if user_cap else ladder_scale
-            if rat is not None and (ind is None
-                                    or 3 * rat[1]["degree"]
-                                    <= 5 * ind[1]["degree"] / ind_div):
-                coeffs, cinfo = rat
+                if rat is None and ind is None:
+                    raise ChebInfeasible(
+                        f"neither polynomial filter resolves this "
+                        f"configuration ({rat_err})")
+                ind_div = 1.0 if user_cap else ladder_scale
+                if rat is not None and (ind is None
+                                        or 3 * rat[1]["degree"]
+                                        <= 5 * ind[1]["degree"] / ind_div):
+                    coeffs, cinfo = rat
+                else:
+                    coeffs, cinfo = ind
             else:
-                coeffs, cinfo = ind
+                with trace.span("route.coeffs", which="rational"):
+                    coeffs, cinfo = rational_filter_cheb_coeffs(
+                        contour.Zne, contour.Wne, lo, hi, float(Emin),
+                        float(Emax), **cap_kw)
         else:
-            coeffs, cinfo = rational_filter_cheb_coeffs(
-                contour.Zne, contour.Wne, lo, hi, float(Emin),
-                float(Emax), **cap_kw)
-    else:
-        try:
-            coeffs, cinfo = build_cheb_filter_coeffs(
-                lo, hi, float(Emin), float(Emax), degree=user_cap or None,
-                degree_scale=ladder_scale)
-        except ValueError as _e:
-            if route:
-                raise ChebInfeasible(str(_e)) from _e
-            raise
-    if config.print_level >= 1:
-        extra = (f" B-inverse degree={qinfo['degree']} "
-                 f"(kappa={qinfo['kappa']:.2f})" if qinfo else "")
-        kindname = ("contour-poly" if cinfo.get("kind") == "rational"
-                    else "cheb")
-        print(f"feast {kindname} filter: degree={cinfo['degree']} "
-              f"enclosure=[{lo:.3g},{hi:.3g}] "
-              f"outside@1w={cinfo['outside_at_1w']:.2e}{extra}", flush=True)
-    if config.mode == 2:
-        # the unfused recurrence in the work dtype, no ladder, whatever
-        # operator the fused kernels would carry (the JAX package's
-        # ``_sparse_cheb_filter_host`` on the full series)
-        opA = _operator(A_data, A_idx, A_dia_np, offsets, N, wdtype, device)
-        if b_kind == "spd":
-            opA = make_apply_binv_a(opA, _operator(
-                B_data, B_idx, B_dia_np, offsets_B, N, wdtype, device),
-                b_lo, b_hi, qc)
-        ctx = {"f64": dict(apply=opA, lo=lo, hi=hi, dtype=wdtype,
-                           coeffs=coeffs)}
-        return _stochastic_estimate_result(
-            lambda V: _sparse_cheb_filter_host(ctx, V, rung="f64"),
-            N, fpm, work, device)
-
-    # rung-truncated series for the f32 rung (rational filters only)
-    n_lo = (int(cinfo["degree_lo"]) + 1
-            if cinfo.get("degree_lo") else None)
-    rung_top = "f64" if f64 else "f32"
-    use_lp = _mixed_enabled(config, device, f64)
-    fused = (not hermitian and offsets is not None
-             and (b_kind != "spd" or offsets_B is not None))
-    block = None
-    if mesh is not None:
-        from ..parallel.pfeast import _column_block
-        block = _column_block(mesh, M0)
-    M_loc = M0 if block is None else block[1] - block[0]
-    if fused:
-        A_dia = torch.as_tensor(A_dia_np, dtype=tdtype).to(device)
-
-        def apply_A(X):
-            return dia_matvec(A_dia, offsets, X)
-
-        if b_kind == "spd":
-            B_dia = torch.as_tensor(B_dia_np, dtype=tdtype).to(device)
-            # the f32 rung runs the shorter inverse, unless f32 is the top
-            # rung
-            ctx = _cheb_gen_context(A_dia, offsets, B_dia, offsets_B,
-                                    coeffs, lo, hi, b_lo, b_hi, qc,
-                                    qc_lo if f64 else qc, M_loc)
-            filt = _sparse_cheb_filter_host_fused_gen
-
-            def apply_B(X):
-                return dia_matvec(B_dia, offsets_B, X)
-        else:
-            ctx = _cheb_fused_context(A_dia, offsets, coeffs, lo, hi,
-                                      M_loc)
-            filt = _sparse_cheb_filter_host_fused
-    else:
-        # the unfused recurrence (a Hermitian operator, or an operand with
-        # no DIA form): each rung's operator in its own dtype, the
-        # composite q(B~) A~ on them for a sparse SPD B (the shorter
-        # inverse on the f32 rung, unless f32 is the top rung)
-        def operators(dtype):
-            opA = _operator(A_data, A_idx, A_dia_np, offsets, N, dtype,
+            try:
+                with trace.span("route.coeffs", which="indicator"):
+                    coeffs, cinfo = build_cheb_filter_coeffs(
+                        lo, hi, float(Emin), float(Emax),
+                        degree=user_cap or None, degree_scale=ladder_scale)
+            except ValueError as _e:
+                if route:
+                    raise ChebInfeasible(str(_e)) from _e
+                raise
+        kind = "rational" if cinfo.get("kind") == "rational" else "indicator"
+        route_span.set(b_kind=b_kind, filter=kind,
+                       degree=int(cinfo["degree"]))
+        if config.print_level >= 1:
+            extra = (f" B-inverse degree={qinfo['degree']} "
+                     f"(kappa={qinfo['kappa']:.2f})" if qinfo else "")
+            kindname = "contour-poly" if kind == "rational" else "cheb"
+            print(f"feast {kindname} filter: degree={cinfo['degree']} "
+                  f"enclosure=[{lo:.3g},{hi:.3g}] "
+                  f"outside@1w={cinfo['outside_at_1w']:.2e}{extra}",
+                  flush=True)
+        if config.mode == 2:
+            # the unfused recurrence in the work dtype, no ladder, whatever
+            # operator the fused kernels would carry (the JAX package's
+            # ``_sparse_cheb_filter_host`` on the full series)
+            opA = _operator(A_data, A_idx, A_dia_np, offsets, N, wdtype,
                             device)
-            opB = None if b_kind != "spd" else _operator(
-                B_data, B_idx, B_dia_np, offsets_B, N, dtype, device)
-            return opA, opB
+            if b_kind == "spd":
+                opA = make_apply_binv_a(opA, _operator(
+                    B_data, B_idx, B_dia_np, offsets_B, N, wdtype, device),
+                    b_lo, b_hi, qc)
+            ctx = {"f64": dict(apply=opA, lo=lo, hi=hi, dtype=wdtype,
+                               coeffs=coeffs)}
+            return _stochastic_estimate_result(
+                lambda V: _sparse_cheb_filter_host(ctx, V, rung="f64"),
+                N, fpm, work, device)
 
-        def rung(dtype, ops, q):
-            # lo, hi and the coefficients enter the recurrence in its
-            # operand's precision (ops/chebfilter._map_scalars)
-            opA, opB = ops
-            op = opA if opB is None else make_apply_binv_a(opA, opB, b_lo,
-                                                           b_hi, q)
-            return dict(apply=op, lo=lo, hi=hi, dtype=dtype, coeffs=coeffs)
+        # rung-truncated series for the f32 rung (rational filters only)
+        n_lo = (int(cinfo["degree_lo"]) + 1
+                if cinfo.get("degree_lo") else None)
+        rung_top = "f64" if f64 else "f32"
+        use_lp = _mixed_enabled(config, device, f64)
+        fused = (not hermitian and offsets is not None
+                 and (b_kind != "spd" or offsets_B is not None))
+        block = None
+        if mesh is not None:
+            from ..parallel.pfeast import _column_block
+            block = _column_block(mesh, M0)
+        M_loc = M0 if block is None else block[1] - block[0]
+        with trace.span("route.upload"):
+            if fused:
+                A_dia = _upload(torch.as_tensor(A_dia_np, dtype=tdtype),
+                                device)
 
-        top_ops = operators(wdtype)
-        apply_A = top_ops[0]
-        if b_kind == "spd":
-            apply_B = top_ops[1]
-        ctx = {rung_top: rung(wdtype, top_ops, qc)}
-        if use_lp:
-            ctx["f32"] = rung(lo_dtype, operators(lo_dtype), qc_lo)
-        filt = _sparse_cheb_filter_host
-    if block is not None:
-        from ..parallel.pfeast import _column_sharded
-        filt = _column_sharded(filt, block)
-    if b_kind != "spd":
-        def apply_B(X):      # identity: a diagonal B is congruenced away
-            return X
+                def apply_A(X):
+                    return dia_matvec(A_dia, offsets, X)
 
-    lp_avail = use_lp
-    # switch to the top rung at 2x the predicted f32 floor
-    # sqrt(degree) * eps_f32 (or 30 tol, whichever is larger)
-    lp_switch = max(2.0 * np.sqrt(float(cinfo["degree"])) * 6e-8,
-                    30.0 * float(config.tol))
-    if qinfo_lo is not None:
-        # SPD-B composite: the shorter f32-rung inverse's own error, not
-        # the recurrence's rounding, sets that rung's floor
-        lp_switch = max(lp_switch, 2.0 * float(qinfo_lo["rel_err"]))
+                if b_kind == "spd":
+                    B_dia = _upload(torch.as_tensor(B_dia_np, dtype=tdtype),
+                                    device)
+                    # the f32 rung runs the shorter inverse, unless f32 is
+                    # the top rung
+                    ctx = _cheb_gen_context(A_dia, offsets, B_dia, offsets_B,
+                                            coeffs, lo, hi, b_lo, b_hi, qc,
+                                            qc_lo if f64 else qc, M_loc)
+                    filt = _sparse_cheb_filter_host_fused_gen
 
-    q0_np = initial_subspace(fpm, Q0, N, M0, work)
-    if use_lp and config.mode != 1 and Q0 is None and int(fpm[5]) == 0 \
-            and not hermitian:
-        # as the JAX package ships it on the ladder: the seeded subspace's
-        # f32 bits, widened (Gaussian noise has no information in its f64
-        # mantissa tail, and both packages then start from one subspace)
-        q0_np = q0_np.astype(np.float32)
-    Q0_t = torch.as_tensor(q0_np).to(device=device, dtype=wdtype)
-    del q0_np
+                    def apply_B(X):
+                        return dia_matvec(B_dia, offsets_B, X)
+                else:
+                    ctx = _cheb_fused_context(A_dia, offsets, coeffs, lo, hi,
+                                              M_loc)
+                    filt = _sparse_cheb_filter_host_fused
+            else:
+                # the unfused recurrence (a Hermitian operator, or an
+                # operand with no DIA form): each rung's operator in its own
+                # dtype, the composite q(B~) A~ on them for a sparse SPD B
+                # (the shorter inverse on the f32 rung, unless f32 is the
+                # top rung)
+                def operators(dtype):
+                    opA = _operator(A_data, A_idx, A_dia_np, offsets, N,
+                                    dtype, device)
+                    opB = None if b_kind != "spd" else _operator(
+                        B_data, B_idx, B_dia_np, offsets_B, N, dtype, device)
+                    return opA, opB
+
+                def rung(dtype, ops, q):
+                    # lo, hi and the coefficients enter the recurrence in
+                    # its operand's precision (ops/chebfilter._map_scalars)
+                    opA, opB = ops
+                    op = opA if opB is None else make_apply_binv_a(
+                        opA, opB, b_lo, b_hi, q)
+                    return dict(apply=op, lo=lo, hi=hi, dtype=dtype,
+                                coeffs=coeffs,
+                                inner=0 if opB is None else len(q))
+
+                top_ops = operators(wdtype)
+                apply_A = top_ops[0]
+                if b_kind == "spd":
+                    apply_B = top_ops[1]
+                ctx = {rung_top: rung(wdtype, top_ops, qc)}
+                if use_lp:
+                    ctx["f32"] = rung(lo_dtype, operators(lo_dtype), qc_lo)
+                filt = _sparse_cheb_filter_host
+        if block is not None:
+            from ..parallel.pfeast import _column_sharded
+            filt = _column_sharded(filt, block)
+        if b_kind != "spd":
+            def apply_B(X):      # identity: a diagonal B is congruenced away
+                return X
+
+        lp_avail = use_lp
+        # switch to the top rung at 2x the predicted f32 floor
+        # sqrt(degree) * eps_f32 (or 30 tol, whichever is larger)
+        lp_switch = max(2.0 * np.sqrt(float(cinfo["degree"])) * 6e-8,
+                        30.0 * float(config.tol))
+        if qinfo_lo is not None:
+            # SPD-B composite: the shorter f32-rung inverse's own error, not
+            # the recurrence's rounding, sets that rung's floor
+            lp_switch = max(lp_switch, 2.0 * float(qinfo_lo["rel_err"]))
+
+    with trace.span("q0"):
+        q0_np = initial_subspace(fpm, Q0, N, M0, work)
+        if use_lp and config.mode != 1 and Q0 is None and int(fpm[5]) == 0 \
+                and not hermitian:
+            # as the JAX package ships it on the ladder: the seeded
+            # subspace's f32 bits, widened (Gaussian noise has no
+            # information in its f64 mantissa tail, and both packages then
+            # start from one subspace)
+            q0_np = q0_np.astype(np.float32)
+        with trace.span("q0.upload"):
+            Q0_t = _upload(torch.as_tensor(q0_np), device, wdtype)
+        del q0_np
 
     if config.mode == 1 or not use_lp:
         # mixed precision off, and the subspace-only mode: the JAX
@@ -898,82 +947,99 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         gm_prev = np.inf
         for _loop in range(config.max_loops + 1):
             _t0 = time.perf_counter()
-            # the Rayleigh-Ritz update builds the next basis from Qproj
-            # alone: drop the old (N, M0) subspace while the filter runs
-            Q_in = state.Q
-            state = state._replace(Q=None)
             rung = "f32" if use_lp else rung_top
-            Qp = filt(ctx, Q_in, rung=rung,
-                      n_coeffs=n_lo if rung == "f32" else None).to(wdtype)
-            Q_in = None
-            state = update(state, Qp)
-            Qp = None
-            # one host fetch per loop: flag, epsout, residuals, mask
-            conv = bool(state.converged)
-            eps_now = float(state.epsout)
-            res_h = state.res.cpu().numpy()
-            ins_h = state.inside.cpu().numpy()
-            M_now = int(np.sum(ins_h))
-            if config.print_level >= 1:
-                print(f"feast cheb loop {_loop}: epsout={eps_now:.2e} "
-                      f"M={M_now} ({rung} recurrence, "
-                      f"{time.perf_counter() - _t0:.1f}s)", flush=True)
-            if eps_now < eps_best and M_now > 0 and not use_lp:
-                eps_best, best_state = eps_now, state
-            if conv:
-                break
-            # a loop stalls only when NEITHER the max nor the geometric
-            # mean of the plausible residuals improves
-            pl = ins_h & (res_h < SPURIOUS_RES)
-            gm_now = (float(np.exp(np.mean(np.log(np.maximum(
-                res_h[pl], 1e-300))))) if pl.any() else np.inf)
-            stalled = _loop >= 1 and eps_now >= 0.5 * eps_prev \
-                and gm_now >= 0.7 * gm_prev
-            # ladder: a stall (or reaching the f32 floor) switches f32 ->
-            # top rung; only a stall on the top rung counts toward giving up
-            if use_lp and (stalled or eps_now <= lp_switch):
-                use_lp = False
-                stall_loops = 0
+            n_coeffs = n_lo if rung == "f32" else None
+            with trace.span("loop", index=_loop, rung=rung):
+                # the Rayleigh-Ritz update builds the next basis from
+                # Qproj alone: drop the old (N, M0) subspace while the
+                # filter runs
+                Q_in = state.Q
+                state = state._replace(Q=None)
+                # the filter records its A-products on the block (the
+                # series length less one, as it truncates it) and the
+                # composite's inner series length
+                with trace.span("filter", rung=rung, columns=M_loc):
+                    Qp = filt(ctx, Q_in, rung=rung,
+                              n_coeffs=n_coeffs).to(wdtype)
+                Q_in = None
+                with trace.span("rr"):
+                    state = update(state, Qp)
+                Qp = None
+                # one host fetch per loop: flag, epsout, residuals, mask
+                with trace.span("fetch"):
+                    conv = bool(state.converged)
+                    eps_now = float(state.epsout)
+                    res_h = state.res.cpu().numpy()
+                    ins_h = state.inside.cpu().numpy()
+                M_now = int(np.sum(ins_h))
                 if config.print_level >= 1:
-                    print(f"feast cheb: recurrence switching to {rung_top}",
-                          flush=True)
-            elif stalled:
-                stall_loops += 1
-                if stall_loops >= 2:
+                    print(f"feast cheb loop {_loop}: epsout={eps_now:.2e} "
+                          f"M={M_now} ({rung} recurrence, "
+                          f"{time.perf_counter() - _t0:.1f}s)", flush=True)
+                if eps_now < eps_best and M_now > 0 and not use_lp:
+                    eps_best, best_state = eps_now, state
+                if conv:
                     break
-            else:
-                stall_loops = 0
-            eps_prev, gm_prev = eps_now, gm_now
+                # a loop stalls only when NEITHER the max nor the geometric
+                # mean of the plausible residuals improves
+                pl = ins_h & (res_h < SPURIOUS_RES)
+                gm_now = (float(np.exp(np.mean(np.log(np.maximum(
+                    res_h[pl], 1e-300))))) if pl.any() else np.inf)
+                stalled = _loop >= 1 and eps_now >= 0.5 * eps_prev \
+                    and gm_now >= 0.7 * gm_prev
+                # ladder: a stall (or reaching the f32 floor) switches f32
+                # -> top rung; only a stall on the top rung counts toward
+                # giving up
+                if use_lp and (stalled or eps_now <= lp_switch):
+                    use_lp = False
+                    stall_loops = 0
+                    if config.print_level >= 1:
+                        print(f"feast cheb: recurrence switching to "
+                              f"{rung_top}", flush=True)
+                elif stalled:
+                    stall_loops += 1
+                    if stall_loops >= 2:
+                        break
+                else:
+                    stall_loops = 0
+                eps_prev, gm_prev = eps_now, gm_now
         if best_state is not None:
             state = best_state
         # spurious-verify filter pass: rho = ||P q|| against 0.25, so the
         # f32 rung's noise is irrelevant under the mixed schedule
         vrung = "f32" if lp_avail else rung_top
-        Qp = filt(ctx, state.Q, rung=vrung,
-                  n_coeffs=n_lo if vrung == "f32" else None).to(wdtype)
-        state = verify_spurious_from(state, Qp)
-        Qp = None
+        n_coeffs = n_lo if vrung == "f32" else None
+        with trace.span("verify"):
+            with trace.span("filter", rung=vrung, columns=M_loc):
+                Qp = filt(ctx, state.Q, rung=vrung,
+                          n_coeffs=n_coeffs).to(wdtype)
+            state = verify_spurious_from(state, Qp)
+            Qp = None
 
-    conv = bool(state.converged)
-    lam = state.lam.cpu().numpy()
-    res = state.res.cpu().numpy()
-    inside = state.inside.cpu().numpy()
-    epsout = float(state.epsout)
-    Q = state.Q
-    if b_kind in ("diagonal", "spd"):
-        Q, res_t = _backxform(
-            apply_A, apply_B, torch.as_tensor(dscale, dtype=tdtype).to(device),
-            Q, state.lam)
-        res = res_t.cpu().numpy()
-        epsout = float(res[inside].max()) if inside.any() else epsout
-    # Post-verify SUCCESS upgrade: every genuine pair below tol meets the
-    # convergence contract even when junk columns pinned the loop's flag.
-    if (not conv and inside.any()
-            and float(np.max(res[inside])) <= config.tol):
-        conv = True
-    info = FeastError.SUCCESS if conv else FeastError.NO_CONVERGENCE
-    return _trim(FeastResult, lam, Q, res, inside, int(info), epsout,
-                 int(state.loop) - 1, inner_ok=bool(state.inner_ok))
+    with trace.span("result"):
+        with trace.span("fetch"):
+            conv = bool(state.converged)
+            lam = state.lam.cpu().numpy()
+            res = state.res.cpu().numpy()
+            inside = state.inside.cpu().numpy()
+            epsout = float(state.epsout)
+        Q = state.Q
+        if b_kind in ("diagonal", "spd"):
+            Q, res_t = _backxform(
+                apply_A, apply_B,
+                _upload(torch.as_tensor(dscale, dtype=tdtype), device),
+                Q, state.lam)
+            res = res_t.cpu().numpy()
+            epsout = float(res[inside].max()) if inside.any() else epsout
+        # Post-verify SUCCESS upgrade: every genuine pair below tol meets
+        # the convergence contract even when junk columns pinned the loop's
+        # flag.
+        if (not conv and inside.any()
+                and float(np.max(res[inside])) <= config.tol):
+            conv = True
+        info = FeastError.SUCCESS if conv else FeastError.NO_CONVERGENCE
+        return _trim(FeastResult, lam, Q, res, inside, int(info), epsout,
+                     int(state.loop) - 1, inner_ok=bool(state.inner_ok))
 
 
 # --------------------------------------------------------------------------
@@ -1039,14 +1105,17 @@ def _operator(data, idx, dia, offsets, N, dtype, device):
     its DIA diagonals ``dia`` on the DIA kernels where it has a DIA form
     (``offsets``), else a torch CSR product."""
     if offsets is not None:
-        return _make_apply(None, torch.as_tensor(dia).to(
-            device=device, dtype=dtype), offsets)
+        return _make_apply(None, _upload(torch.as_tensor(dia), device, dtype),
+                           offsets)
     with warnings.catch_warnings():    # "CSR support is in beta"
         warnings.simplefilter("ignore", UserWarning)
         idx = np.asarray(idx, np.int64)
         csr = torch.sparse_coo_tensor(
             torch.as_tensor(idx.T), torch.as_tensor(data).to(dtype),
-            (N, N)).coalesce().to_sparse_csr().to(device)
+            (N, N)).coalesce().to_sparse_csr()
+        for part in (csr.values(), csr.crow_indices(), csr.col_indices()):
+            trace.count_h2d(part, device)
+        csr = csr.to(device)
     return _make_apply(csr, None, None)
 
 
@@ -1547,6 +1616,7 @@ def _sparse_krylov_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
     preconditioner plan, the inner tolerance default (0.02 tol, floored at
     10 eps), the contour, the seeded subspace and the FEAST core around the
     Krylov filter."""
+    trace.solve_attrs(path="krylov")
     is_complex = np.iscomplexobj(_peek_dtype(A)) or (
         B is not None and np.iscomplexobj(_peek_dtype(B)))
     if hermitian is None:
@@ -1711,8 +1781,11 @@ def sparse_feast_interval(A, B, Emin, Emax, M0, fpm=None, *, hermitian=None,
     # band delegation stays available
     auto_inner = (solver is None and not iopts and solver_tol is None
                   and solver_maxiter is None and precond is None)
-    if auto_inner and grid is None and _contour_poly_default() \
-            and not _quick_narrow_band(A, B):
+    poly_route = auto_inner and grid is None and _contour_poly_default()
+    if poly_route:
+        with trace.span("route.band"):
+            poly_route = not _quick_narrow_band(A, B)
+    if poly_route:
         contour_r = (feast_get_custom_contour(fpm)
                      or feast_contour(Emin, Emax, fpm))
         try:
@@ -1720,6 +1793,7 @@ def sparse_feast_interval(A, B, Emin, Emax, M0, fpm=None, *, hermitian=None,
                 A, B, Emin, Emax, M0, fpm, hermitian=hermitian, Q0=Q0,
                 device=device, contour=contour_r, route=True)
         except ChebInfeasible as e:
+            trace.solve_attrs(path="other")
             n = A.shape[0]
             if n <= int(os.environ.get("FEAST_SPARSE_DENSE_N", "2048")):
                 # a small pencil off the polynomial route is usually hostile

@@ -4,16 +4,20 @@ Counterpart of ``feastkit_tpu/utils/profiling.py`` (the reference's
 @elapsed printers: pfeast_benchmark feast_parallel.jl:754-805,
 feast_parallel_comparison feast_mpi_interface.jl:181-249): per-phase wall
 timers under the fpm[1] print level, a benchmark that synchronises the
-card, a ``torch.profiler`` trace in place of ``jax.profiler``, and the
-serial / sharded comparison.
+card, a ``torch.profiler`` trace in place of ``jax.profiler`` (with the
+port's own spans beside it, ``utils/trace``), and the serial / sharded
+comparison.
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 
 import torch
+
+from . import trace
 
 __all__ = ["phase_timer", "FeastTimer", "trace_to", "feast_benchmark",
            "feast_parallel_comparison"]
@@ -64,16 +68,32 @@ def phase_timer(name: str, *, print_level: int = 1, file=None):
 def trace_to(logdir: str):
     """A ``torch.profiler`` trace of the block, CPU and (with a card) CUDA
     activities, written as a Chrome trace (``trace.json``) into
-    ``logdir``; the profiler is yielded (``key_averages()`` sums by
-    kernel)."""
+    ``logdir``, and the port's own spans of the block (``utils/trace``,
+    turned on for it) as ``spans.json`` beside it: each span's index,
+    name, start and end in ns on the Unix-epoch clock (``time.time_ns()``),
+    the index of its parent, its solve's id and its attributes (where
+    tracing was off before the block, its spans are then forgotten). The
+    profiler is yielded (``key_averages()`` sums by kernel)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-        _sync()
+    was_on, first = trace.enabled(), trace.mark()
+    trace.enable()
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            yield prof
+            _sync()
+    finally:
+        block = [s.as_dict() for s in trace.since(first)]
+        if not was_on:
+            # the block's spans go with it where tracing was off before
+            trace.disable()
+            trace.drop_since(first)
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    with open(os.path.join(logdir, "spans.json"), "w") as f:
+        json.dump({"clock": "time.time_ns(): ns since the Unix epoch",
+                   "spans": block}, f)
 
 
 def _sync():

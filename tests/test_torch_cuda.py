@@ -1406,6 +1406,89 @@ def test_trace_to_names_a_port_kernel(tmp_path):
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     assert any(("cheb" in n or "dia_" in n) for n in names), sorted(names)
+    # the port's spans beside it: the filter applications and their launches
+    with open(tmp_path / "spans.json") as f:
+        spans = json.load(f)["spans"]
+    filters = [s for s in spans if s["name"] == "filter"]
+    assert filters and all(s["attrs"]["launches"] > 0 for s in filters)
+    assert {"route", "q0", "loop", "rr", "verify", "result"} <= {
+        s["name"] for s in spans}
+
+
+_H2D_SOLVE = r"""
+import json, sys
+import scipy.sparse as sp
+import feastkit_tpu_torch as ft
+from feastkit_tpu_torch.ops import cheb_kernels as ck, dia
+from feastkit_tpu_torch.utils import trace
+out, nx, M0, Emax = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    float(sys.argv[4])
+T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+A = (sp.kron(sp.eye(nx), T) + sp.kron(T, sp.eye(nx))).tocsr()
+
+
+def launches():
+    return sum(ck.launch_counts().values()) + sum(dia.launch_counts().values())
+
+
+before = launches()
+with ft.trace_to(out):
+    r = ft.feast(A, None, (0.0, Emax), M0)
+with open(out + "/result.json", "w") as f:
+    json.dump(dict(M=int(r.M), info=int(r.info), moved=launches() - before,
+                   on=trace.enabled(), left=len(trace.spans())), f)
+"""
+
+
+@pytest.mark.cuda
+def test_trace_counts_the_bytes_sent_to_the_card(tmp_path):
+    """A traced standard solve on the card through ``feast``: its span
+    counts the bytes that cross to the card as the profiler's host-to-
+    device copies carry them (the seeded subspace, f32 bits widened on the
+    host to the f64 work dtype, and the operator's five f64 diagonals;
+    less than 64 KiB of scalars and small index arrays cross outside the
+    counter), its launches as the kernels' counters moved, and host time
+    inside the launch wrappers. The solve runs in a fresh process under
+    ``trace_to``: torch.profiler (2.11, CUDA 12.8) records the pageable
+    host-to-device copies only in a process's first profiling session."""
+    _need_cuda()
+    import json
+    import os
+    import subprocess
+    import sys
+    nx, M0 = 64, 24
+    w1 = 2.0 - 2.0 * np.cos(np.arange(1, nx + 1) * np.pi / (nx + 1))
+    w = np.sort(np.add.outer(w1, w1).ravel())
+    Emax = float((w[16] + w[17]) / 2)      # a gap past 17 pairs
+    script = tmp_path / "solve.py"
+    script.write_text(_H2D_SOLVE)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    subprocess.run([sys.executable, str(script), str(tmp_path), str(nx),
+                    str(M0), repr(Emax)], env=env, check=True, timeout=600)
+    with open(tmp_path / "result.json") as f:
+        r = json.load(f)
+    with open(tmp_path / "spans.json") as f:
+        spans = json.load(f)["spans"]
+    with open(tmp_path / "trace.json") as f:
+        copies = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "gpu_memcpy"
+                  and "HtoD" in e.get("name", "")]
+    sent = sorted(int(e["args"]["bytes"]) for e in copies)
+    assert r["M"] == 17 and r["info"] == 0
+    assert not r["on"] and r["left"] == 0
+    feast = spans[0]
+    assert feast["name"] == "feast" and feast["attrs"]["path"] == "cheb"
+    N = nx * nx
+    q0 = [s for s in spans if s["name"] == "q0.upload"]
+    up = [s for s in spans if s["name"] == "route.upload"]
+    assert [s["attrs"]["h2d_bytes"] for s in q0] == [N * M0 * 8]
+    assert [s["attrs"]["h2d_bytes"] for s in up] == [5 * N * 8]
+    assert feast["attrs"]["h2d_bytes"] == N * M0 * 8 + 5 * N * 8
+    assert 0 <= sum(sent) - feast["attrs"]["h2d_bytes"] < 1 << 16, sent
+    assert feast["attrs"]["launches"] == r["moved"] > 0
+    assert feast["attrs"]["launch_host_ns"] > 0
 
 
 _HALO_RANK = r"""

@@ -620,10 +620,61 @@ def test_timers_and_benchmark():
 
 
 def test_trace_to_writes_a_trace(tmp_path):
+    import json
+    import time
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(20, 20))
+    A2 = (sp.kron(sp.eye(20), T) + sp.kron(T, sp.eye(20))).tocsr()
+    t0 = time.time_ns()
     with ft.trace_to(str(tmp_path)) as prof:
         ft.feast_syev(_lap(40), 0.5, 1.5, 12, device="cpu")
+        r = ft.feast(A2, None, (0.0, 0.3), 16, device="cpu")
+    t1 = time.time_ns()
     assert (tmp_path / "trace.json").stat().st_size > 0
     assert any("lu" in e.key for e in prof.key_averages())
+    # the port's spans of the block beside it, and tracing off again
+    from feastkit_tpu_torch.utils import trace
+    assert not trace.enabled() and r.M > 0
+    with open(tmp_path / "spans.json") as f:
+        spans = json.load(f)["spans"]
+    by_index = {s["index"]: s for s in spans}
+    assert spans[0]["name"] == "feast" and spans[0]["parent"] is None
+    assert spans[0]["attrs"]["path"] == "cheb"
+    assert spans[0]["attrs"]["N"] == 400 and spans[0]["attrs"]["M0"] == 16
+    assert {"route", "route.coeffs", "q0", "result"} <= {
+        s["name"] for s in spans}
+    for s in spans:
+        assert s["solve"] == spans[0]["solve"]
+        assert t0 <= s["start_ns"] <= s["end_ns"] <= t1
+        assert s is spans[0] or s["parent"] in by_index
+
+
+@pytest.mark.parametrize("was_on", [False, True])
+def test_trace_to_leaves_the_span_list_as_it_found_it(tmp_path, was_on):
+    """trace_to forgets its block's spans where tracing was off before the
+    block and keeps them where it was on; a ``trace.clear()`` inside the
+    block leaves ``spans.json`` the spans recorded after it."""
+    import json
+    from feastkit_tpu_torch.utils import trace
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(12, 12))
+    A = (sp.kron(sp.eye(12), T) + sp.kron(T, sp.eye(12))).tocsr()
+    trace.clear()
+    if was_on:
+        trace.enable()
+    try:
+        with ft.trace_to(str(tmp_path)):
+            ft.feast(A, None, (0.0, 0.6), 12, device="cpu")
+            trace.clear()
+            r = ft.feast(A, None, (0.0, 0.6), 12, device="cpu")
+        assert trace.enabled() is was_on and r.M > 0
+        left = [s.as_dict() for s in trace.spans()]
+    finally:
+        trace.disable()
+        trace.clear()
+    with open(tmp_path / "spans.json") as f:
+        spans = json.load(f)["spans"]
+    assert spans[0]["name"] == "feast" and spans[0]["index"] == 0
+    assert {s["solve"] for s in spans} == {spans[0]["solve"]}
+    assert left == (spans if was_on else [])
 
 
 if __name__ == "__main__":
