@@ -3,7 +3,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py           # every phase (about a few minutes)
-    python3 chip_smoke.py --quick   # phases 1-3c: build and check kernels
+    python3 chip_smoke.py --quick   # phases 1-3d: build and check kernels
     python3 chip_smoke.py --krylov-solve 9   # one Krylov solve at P = 9
     python3 chip_smoke.py --stream-sweep     # block shapes and bodies of the
                                              # streamed 2- and 4-step kernel,
@@ -84,11 +84,22 @@ Phases, each printed before the last line:
      and offsets all negative), tolerance c64 1e-5, c128 1e-13, the
      library time a complex CSR product; and that a CUDA entry refuses a
      wrong dtype, a non-contiguous operand and a CPU tensor;
+  3d. the seeded subspace drawn on the card (ops/seeded_draw.py,
+     ops/csrc/seeded_draw.cu): the card's log1p and exp against the host
+     libm's (the once-a-process check, which must pass), then
+     seeded_subspace_f32_bits at the main path's shape (N = 1,048,576,
+     M0 = 72) and the consistent-mass cell's (N = 65,536, M0 = 72) held
+     bit for bit against the host draw it replaces (seeded_subspace(...)
+     rounded to float32 and widened), its five launches a draw, its time
+     (CUDA events), the host draw's time, and the bound: the (N, M0)
+     float64 buffer written by the parse, read by the column norms, read
+     and written by the scaling, at the card's bandwidth;
   4. the main path: feast(lap2d(1024), None, (Emin, Emax), 72, fpm) with
      fpm[3] = 8 and the default fpm[42] (mixed precision on CUDA) under the
      default switches, once cold and three times warm, the kernel launch
-     counts reset just before the first warm solve and read just after it;
-     checks M = 52, eigenvalue error against the analytic values <= 1e-8,
+     counts (the seeded draw's among them) reset just before the first
+     warm solve and read just after it; checks that it drew its subspace
+     on the card once (five launches, the libm check already made), M = 52, eigenvalue error against the analytic values <= 1e-8,
      residuals <= 1e-8, info = 0, and, from the series lengths read back
      from that solve, that per filter application the 1-step kernel
      launched once for the init, the 4-step kernel floor(r/4) times and the
@@ -224,7 +235,7 @@ Phases, each printed before the last line:
      the main path's feast call (run here when phase 4 is not), M = 52,
      error <= 1e-8, residuals <= 1e-8, info 0; (2) save_checkpoint of that
      solve into a temporary directory, load_checkpoint, and feast with
-     resume_kwargs: no seeded Q0 drawn, the same M, eigenvalues within
+     resume_kwargs: no seeded Q0 drawn, on the host or the card, the same M, eigenvalues within
      1e-10 of (1), no more loops; (3) the stochastic count fpm[14] = 2
      (fpm[32] = 10 probes): the unfused recurrence on dia_matvec_f64 at
      (N, 10), its launches equal to the series' products, |est - 52| <=
@@ -268,7 +279,9 @@ Phases, each printed before the last line:
      and its "count_p10" object phase 14 leg (3)'s launches and phase
      3c's times at the count's shape; every entry phase 15 launches has a
      "sharded" object, its launches on each rank per leg), its error
-     against its plain version and its times; the
+     against its plain version and its times (for seeded_draw_f64 the host
+     draw's, phase 3d's times at the main path's shape and, under
+     "cmass_p8", at the consistent-mass cell's); the
      column-major entries' ms, bound_ms and library_ms are those of the
      form without T0 and acc, and their "forms" give every form's times,
      bound and launches.
@@ -2301,6 +2314,54 @@ def switches(**env):
         os.environ.update({k: v for k, v in saved.items() if v is not None})
 
 
+def phase_seeded_draw(card_name):
+    """The seeded subspace drawn on the card against the host draw it
+    replaces, bit for bit, at the main path's shape and the consistent-mass
+    cell's; each draw's time (CUDA events), the host draw's, the bound."""
+    import torch
+    from feastkit_tpu_torch.core.tools import seeded_subspace
+    from feastkit_tpu_torch.ops import seeded_draw as sd
+    print("== 3d. the seeded subspace on the card against the host draw",
+          flush=True)
+    bw = _card_rates(card_name)[0]
+    check(sd.libm_matches(torch.cuda.current_device()),
+          "the card's log1p and exp give the host libm's bits")
+    out = {}
+    for N, M0 in ((1048576, 72), (65536, 72)):
+        t0 = time.perf_counter()
+        want = seeded_subspace(N, M0, np.float64).astype(
+            np.float32).astype(np.float64)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        before = sd.seeded_draw_f64.launches
+        q = sd.seeded_subspace_f32_bits(N, M0, "cuda")
+        launches = sd.seeded_draw_f64.launches - before
+        got = q.cpu().numpy()
+        differ = int(np.count_nonzero(got.view(np.uint64)
+                                      != want.view(np.uint64)))
+        err = float(np.abs(got - want).max())
+        rel = err / float(np.abs(want).max())
+        check(differ == 0, f"({N}, {M0}): the card's subspace is the host "
+              f"draw's float32 bits widened, bit for bit")
+        check(launches == 5, f"({N}, {M0}): five launches a draw")
+        ms = cuda_time_ms(lambda: sd.seeded_draw_f64(q), 5, warm=1)
+        # the buffer written by the parse, read by the column norms, read
+        # and written by the scaling
+        nbytes = 4 * N * M0 * 8
+        bound_ms = nbytes / bw * 1e3
+        print(f"   ({N}, {M0}): {ms:.4f} ms a draw on the card (host draw "
+              f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms = "
+              f"{nbytes / 1e9:.3f} GB at {bw / 1e12:.2f} TB/s, "
+              f"{bound_ms / ms:.1%} of bound)", flush=True)
+        out[N] = dict(shape=[N, M0], ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by="bandwidth",
+                      max_abs_err=err, max_rel_err=rel,
+                      bits_differing=differ,
+                      launches_per_draw=launches)
+        del q, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def _counted_solve(A, B, Emin, Emax, M0, fpm, label, gen=False,
                    solve=None):
     """One solve (``feast``, or ``solve`` as ``_run_feast`` takes it) with
@@ -2334,6 +2395,7 @@ def _counted_solve(A, B, Emin, Emax, M0, fpm, label, gen=False,
 def phase_main_path(kernels):
     import torch
     import feastkit_tpu_torch as ft
+    from feastkit_tpu_torch.ops import seeded_draw as sd
     print("== 4. main path: feast on the 2D Laplacian, P=10", flush=True)
     nx = 1024
     A = lap2d(nx)
@@ -2352,9 +2414,15 @@ def phase_main_path(kernels):
     torch.cuda.empty_cache()
     gc.collect()    # no earlier phase's cyclic garbage in this peak
     torch.cuda.reset_peak_memory_stats()
+    sd.reset_launch_counts()
     with switches():
         r, warm_s, counts, seen = _counted_solve(A, None, Emin, Emax, M0,
                                                  fpm, "P=10 warm")
+    seeded = sd.launch_counts()
+    print(f"   P=10 warm: seeded draw launches {seeded}", flush=True)
+    check(seeded == {"seeded_draw_f64": 5, "libm_matches": 0},
+          "the warm solve draws its subspace on the card once (five "
+          "launches; the libm check made by the cold solve)")
     peak = torch.cuda.max_memory_allocated()
     print(f"   warm solve {warm_s:.2f} s, peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
@@ -2384,6 +2452,7 @@ def phase_main_path(kernels):
               f"{breakdown.get('filter_' + rung, 0.0):.3f} s", flush=True)
     return dict(cold_s=cold_s, warm_s=warm, warm_median_s=float(
         np.median(warm)), peak_bytes=peak, counts=counts,
+        seeded_launches=seeded["seeded_draw_f64"],
         applications=seen["applications"], breakdown=breakdown,
         lam=r_lam)
 
@@ -4050,9 +4119,12 @@ def phase_matfree(dia_rr, staged=True, p=10, p_krylov=MATFREE_P_REAL):
 
 @contextlib.contextmanager
 def _seeded_draws():
-    """Count the host draws of the seeded subspace (``core/tools.
-    seeded_subspace``) made inside the block, in the dict it yields."""
+    """Count the draws of the seeded subspace made inside the block, in the
+    dict it yields: on the host (``core/tools.seeded_subspace``) under
+    "draws", on the card (``ops/seeded_draw``'s launches) under
+    "card_launches"."""
     from feastkit_tpu_torch.core import tools
+    from feastkit_tpu_torch.ops import seeded_draw as sd
     orig = tools.seeded_subspace
     seen = {"draws": 0}
 
@@ -4060,10 +4132,12 @@ def _seeded_draws():
         seen["draws"] += 1
         return orig(*a, **k)
     tools.seeded_subspace = counted
+    before = sd.seeded_draw_f64.launches
     try:
         yield seen
     finally:
         tools.seeded_subspace = orig
+        seen["card_launches"] = sd.seeded_draw_f64.launches - before
 
 
 @contextlib.contextmanager
@@ -4171,9 +4245,11 @@ def _surface_p10(main=None):
     print(f"   leg 2: checkpoint {size / 1e6:.1f} MB, saved in {save_s:.2f} s "
           f"(warm page cache), loaded in {load_s:.2f} s; resume {resume_s:.2f} "
           f"s, {r2.loop} loops against leg 1's {leg1_s:.2f} s, {loops1} "
-          f"loops; seeded draws {draws['draws']}; eigenvalues against leg "
-          f"1 {resume_diff:.3e}", flush=True)
-    check(draws["draws"] == 0, "leg 2: the resume draws no seeded Q0")
+          f"loops; seeded draws {draws['draws']} on the host, "
+          f"{draws['card_launches']} launches on the card; eigenvalues "
+          f"against leg 1 {resume_diff:.3e}", flush=True)
+    check(draws["draws"] == 0 and draws["card_launches"] == 0,
+          "leg 2: the resume draws no seeded Q0, on the host or the card")
     check(r2.M == 52 and resume_diff <= 1e-10,
           "leg 2: the same M, eigenvalues within 1e-10 of leg 1")
     check(r2.loop <= loops1, "leg 2: no more loops than leg 1")
@@ -4865,12 +4941,15 @@ def main(argv):
                                                ptxas["dia_matvec"])
     dia_general = general_dia_rows(dia_other)
     rr_ms = phase_rayleigh_ritz()
+    draw = phase_seeded_draw(smi.split(",")[0])
     counts = {name: None for name in (*KERNELS, *DIA_KERNELS)}
+    seeded_launches = None
     form_counts = {}
     per_rank = {}
     if not quick:
         main_path = phase_main_path(kernels)
         main_lam = main_path.pop("lam")
+        seeded_launches = main_path["seeded_launches"]
         p9 = phase_p9()
         # each kernel's launches on its own path: the main path for the
         # kernels it runs, the SPD-B path for the composite's own, the
@@ -4972,6 +5051,20 @@ def main(argv):
                     "eager_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")},
                 launches=surface["count_p10"]["launches"])
+    # the seeded draw: the main path's launches, phase 3d's times at its
+    # shape and at the consistent-mass cell's
+    main_draw, cmass_draw = draw[1048576], draw[65536]
+    rows.append(dict(
+        name="seeded_draw_f64", route="cuda",
+        source="feastkit_tpu_torch/ops/csrc/seeded_draw.cu",
+        replaces=None, launches=seeded_launches,
+        max_abs_err=main_draw["max_abs_err"],
+        max_rel_err=main_draw["max_rel_err"],
+        ms=main_draw["ms"], plain_ms=main_draw["plain_ms"],
+        bound_ms=main_draw["bound_ms"], bound_by=main_draw["bound_by"],
+        library_ms=None, steps_per_launch=0, ms_per_step=main_draw["ms"],
+        csr_spmm_ms=None, shape=main_draw["shape"],
+        bits_differing=main_draw["bits_differing"], cmass_p8=cmass_draw))
     print(json.dumps({"rayleigh_ritz_ms": rr_ms, "copy_tbs": copy_tbs,
                       "multistep_nine_diagonals": nd9,
                       "two_step_p9": {n: kernels[n].pop("p9") for n in (

@@ -35,10 +35,22 @@ def seeded_subspace(N: int, M0: int, dtype, *, general: bool = False) -> np.ndar
 
 
 def initial_subspace(fpm, Q0, N: int, M0: int, dtype, *,
-                     general: bool = False) -> np.ndarray:
+                     general: bool = False, f32_bits_on=None):
     """The caller's Q0 only when fpm[5]=1, else the seeded subspace; a Q0
     with fewer than M0 columns is padded with seeded columns and zero
-    columns are replaced by seeded ones (same policy as the JAX package)."""
+    columns are replaced by seeded ones (same policy as the JAX package).
+
+    ``f32_bits_on`` (a CUDA device; the real float64 seeded draw only):
+    the seeded subspace rounded to float32 and widened, the precision
+    ladder's start, drawn on that card as a float64 tensor bit for bit the
+    host's (``ops/seeded_draw``)."""
+    if f32_bits_on is not None:
+        if (Q0 is not None and int(fpm[5]) == 1) or general \
+                or np.dtype(dtype) != np.float64:
+            raise ValueError("f32_bits_on draws the real float64 seeded "
+                             "subspace only")
+        from ..ops.seeded_draw import seeded_subspace_f32_bits
+        return seeded_subspace_f32_bits(N, M0, f32_bits_on)
     if Q0 is None or int(fpm[5]) != 1:
         return seeded_subspace(N, M0, dtype, general=general)
     if isinstance(Q0, torch.Tensor):

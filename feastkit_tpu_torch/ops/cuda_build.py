@@ -3,8 +3,9 @@
 ``csrc/<name>.cu`` is compiled at first use by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, which is then
 loaded with ``ctypes``. Libraries go to ``csrc/build/`` inside the package
-(listed in ``.gitignore``) under a name that carries a hash of the source
-and the flags, so an edited source is rebuilt and never loaded stale.
+(listed in ``.gitignore``) under a name that carries a hash of the source,
+the headers beside it (``csrc/*.h``) and the flags, so an edited source or
+header is rebuilt and never loaded stale.
 ``defines`` (``-D`` flags) build a variant of a source beside the default
 library (``chip_smoke.py`` times ``cheb_stream4.cu`` built with
 ``-DCHEB_RUNTIME_COUNT_ONLY`` against the default build).
@@ -62,7 +63,8 @@ def library_path(name: str, defines: tuple = ()) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     src = SRC_DIR / f"{name}.cu"
     flags = (*NVCC_FLAGS, *defines)
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.h")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

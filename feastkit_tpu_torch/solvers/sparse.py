@@ -763,7 +763,10 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                             contour.Zne, contour.Wne, lo, hi,
                             float(Emin), float(Emax), **cap_kw)
                 except ChebInfeasible as e:
-                    rat_err = e
+                    # its message only: the exception's traceback holds
+                    # this frame, and a frame in a reference cycle keeps
+                    # the solve's device tensors until a full collection
+                    rat_err = str(e)
                 try:
                     with trace.span("route.coeffs", which="indicator"):
                         ind = build_cheb_filter_coeffs(
@@ -911,18 +914,24 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
             # the recurrence's rounding, sets that rung's floor
             lp_switch = max(lp_switch, 2.0 * float(qinfo_lo["rel_err"]))
 
-    with trace.span("q0"):
-        q0_np = initial_subspace(fpm, Q0, N, M0, work)
-        if use_lp and config.mode != 1 and Q0 is None and int(fpm[5]) == 0 \
-                and not hermitian:
-            # as the JAX package ships it on the ladder: the seeded
-            # subspace's f32 bits, widened (Gaussian noise has no
-            # information in its f64 mantissa tail, and both packages then
-            # start from one subspace)
-            q0_np = q0_np.astype(np.float32)
-        with trace.span("q0.upload"):
-            Q0_t = _upload(torch.as_tensor(q0_np), device, wdtype)
-        del q0_np
+    with trace.span("q0") as q0_span:
+        # as the JAX package ships it on the ladder: the seeded subspace's
+        # f32 bits, widened (Gaussian noise has no information in its f64
+        # mantissa tail, and both packages then start from one subspace);
+        # on a card they are drawn there, bit for bit the host's
+        f32_start = (use_lp and config.mode != 1 and Q0 is None
+                     and int(fpm[5]) == 0 and not hermitian)
+        if f32_start and work == np.float64 and device.type == "cuda":
+            q0_span.set(draw="card")
+            Q0_t = initial_subspace(fpm, Q0, N, M0, work, f32_bits_on=device)
+        else:
+            q0_span.set(draw="host")
+            q0_np = initial_subspace(fpm, Q0, N, M0, work)
+            if f32_start:
+                q0_np = q0_np.astype(np.float32)
+            with trace.span("q0.upload"):
+                Q0_t = _upload(torch.as_tensor(q0_np), device, wdtype)
+            del q0_np
 
     if config.mode == 1 or not use_lp:
         # mixed precision off, and the subspace-only mode: the JAX

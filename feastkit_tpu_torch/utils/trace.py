@@ -20,7 +20,8 @@ Each span also holds, as attributes, how much three counters moved while
 it was open:
 
 - ``launches``: the kernel launches the port's wrappers count
-  (``ops/cheb_kernels.launch_counts`` and ``ops/dia.launch_counts``);
+  (``ops/cheb_kernels.launch_counts``, ``ops/dia.launch_counts`` and
+  ``ops/seeded_draw.launch_counts``);
 - ``launch_host_ns``: host ns spent inside those wrappers, counted only
   while tracing is on (two clock reads a launch);
 - ``h2d_bytes``: bytes the sparse polynomial path copies from a host array
@@ -99,9 +100,10 @@ def drop_since(m: tuple) -> None:
 def counters() -> dict:
     """The three counters' totals now (``launch_host_ns`` and ``h2d_bytes``
     count only while tracing is on)."""
-    from ..ops import cheb_kernels, dia
+    from ..ops import cheb_kernels, dia, seeded_draw
     return dict(launches=sum(cheb_kernels.launch_counts().values())
-                + sum(dia.launch_counts().values()), **_counts)
+                + sum(dia.launch_counts().values())
+                + sum(seeded_draw.launch_counts().values()), **_counts)
 
 
 def count_h2d(host, device, dtype=None) -> None:

@@ -1419,7 +1419,7 @@ _H2D_SOLVE = r"""
 import json, sys
 import scipy.sparse as sp
 import feastkit_tpu_torch as ft
-from feastkit_tpu_torch.ops import cheb_kernels as ck, dia
+from feastkit_tpu_torch.ops import cheb_kernels as ck, dia, seeded_draw
 from feastkit_tpu_torch.utils import trace
 out, nx, M0, Emax = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
     float(sys.argv[4])
@@ -1428,7 +1428,9 @@ A = (sp.kron(sp.eye(nx), T) + sp.kron(T, sp.eye(nx))).tocsr()
 
 
 def launches():
-    return sum(ck.launch_counts().values()) + sum(dia.launch_counts().values())
+    return (sum(ck.launch_counts().values())
+            + sum(dia.launch_counts().values())
+            + sum(seeded_draw.launch_counts().values()))
 
 
 before = launches()
@@ -1444,13 +1446,14 @@ with open(out + "/result.json", "w") as f:
 def test_trace_counts_the_bytes_sent_to_the_card(tmp_path):
     """A traced standard solve on the card through ``feast``: its span
     counts the bytes that cross to the card as the profiler's host-to-
-    device copies carry them (the seeded subspace, f32 bits widened on the
-    host to the f64 work dtype, and the operator's five f64 diagonals;
-    less than 64 KiB of scalars and small index arrays cross outside the
-    counter), its launches as the kernels' counters moved, and host time
-    inside the launch wrappers. The solve runs in a fresh process under
-    ``trace_to``: torch.profiler (2.11, CUDA 12.8) records the pageable
-    host-to-device copies only in a process's first profiling session."""
+    device copies carry them (the operator's five f64 diagonals: the
+    seeded subspace is drawn on the card, its ``q0`` span says so and has
+    no upload; less than 64 KiB of scalars and small index arrays cross
+    outside the counter), its launches as the kernels' counters moved, and
+    host time inside the launch wrappers. The solve runs in a fresh
+    process under ``trace_to``: torch.profiler (2.11, CUDA 12.8) records
+    the pageable host-to-device copies only in a process's first profiling
+    session."""
     _need_cuda()
     import json
     import os
@@ -1481,11 +1484,14 @@ def test_trace_counts_the_bytes_sent_to_the_card(tmp_path):
     feast = spans[0]
     assert feast["name"] == "feast" and feast["attrs"]["path"] == "cheb"
     N = nx * nx
-    q0 = [s for s in spans if s["name"] == "q0.upload"]
+    q0 = [s for s in spans if s["name"] == "q0"]
     up = [s for s in spans if s["name"] == "route.upload"]
-    assert [s["attrs"]["h2d_bytes"] for s in q0] == [N * M0 * 8]
+    assert [s["attrs"]["draw"] for s in q0] == ["card"]
+    assert [s["attrs"]["libm"] for s in q0] == ["same"]
+    assert [s["attrs"]["h2d_bytes"] for s in q0] == [0]
+    assert not [s for s in spans if s["name"] == "q0.upload"]
     assert [s["attrs"]["h2d_bytes"] for s in up] == [5 * N * 8]
-    assert feast["attrs"]["h2d_bytes"] == N * M0 * 8 + 5 * N * 8
+    assert feast["attrs"]["h2d_bytes"] == 5 * N * 8
     assert 0 <= sum(sent) - feast["attrs"]["h2d_bytes"] < 1 << 16, sent
     assert feast["attrs"]["launches"] == r["moved"] > 0
     assert feast["attrs"]["launch_host_ns"] > 0
@@ -1600,3 +1606,84 @@ def test_stencil_conv_on_cuda_matches_shifted_adds(grid, dtype, monkeypatch):
     assert got.dtype == dtype and got.shape == x.shape
     err = float((got - want).abs().max())
     assert err <= 8 * 1.2e-7 * len(coeffs) * float(want.abs().max())
+
+
+def _host_ladder_start(N, M0):
+    """The precision ladder's start as the host draws it."""
+    from feastkit_tpu_torch.core.tools import seeded_subspace
+    q = seeded_subspace(N, M0, np.float64)
+    return q.astype(np.float32).astype(np.float64)
+
+
+@pytest.mark.cuda
+def test_seeded_draw_libm_is_the_hosts():
+    """The card's log1p and exp (glibc's x86-64 FMA builds) give the host
+    libm's bits on the probe's inputs, with no warning."""
+    _need_cuda()
+    import warnings
+    from feastkit_tpu_torch.ops import seeded_draw as sd
+    sd.libm_matches.cache_clear()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert sd.libm_matches(torch.cuda.current_device())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,M0", [(1048576, 72), (65536, 72), (1000, 7),
+                                  (3001, 2), (20011, 1), (7, 1), (1, 5)])
+def test_seeded_draw_on_the_card_is_the_host_draw(N, M0):
+    """The subspace drawn on the card equals the host's float32 bits
+    widened, bit for bit: the main path's shape (~17,500 tail draws), the
+    consistent-mass cell's, and small and odd shapes (N * M0 not a multiple
+    of any chunk, M0 = 1's pairwise norm)."""
+    _need_cuda()
+    from feastkit_tpu_torch.ops import seeded_draw as sd
+    before = sd.seeded_draw_f64.launches
+    q = sd.seeded_subspace_f32_bits(N, M0, "cuda")
+    assert q.is_cuda and q.dtype == torch.float64
+    assert sd.seeded_draw_f64.launches == before + (5 if M0 >= 2 else 6)
+    got = q.cpu().numpy()
+    assert np.array_equal(got.view(np.uint64),
+                          _host_ladder_start(N, M0).view(np.uint64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,entries,group", [(7, 2, 5), (16, 1, 3),
+                                                 (64, 3, 2)])
+def test_seeded_draw_small_chunks_on_the_card(chunk, entries, group):
+    """The same passes cut small on the card: many chunks, tails and wedges
+    across chunk ends, the walk's fix-ups past the maps."""
+    _need_cuda()
+    from feastkit_tpu_torch.ops import seeded_draw as sd
+    N, M0 = 4099, 24
+    out = torch.empty((N, M0), dtype=torch.float64, device="cuda")
+    assert sd.seeded_draw_f64(out, chunk=chunk, entries=entries,
+                              group=group) is out
+    assert np.array_equal(out.cpu().numpy(), _host_ladder_start(N, M0))
+
+
+@pytest.mark.cuda
+def test_card_draw_solve_is_the_host_draw_solve():
+    """A five-point solve on the card that draws its subspace there gives
+    the same eigenvalues, vectors and loop count, bit for bit, as the same
+    solve handed the host draw's widened f32 bits as Q0 (fpm[5] = 1)."""
+    _need_cuda()
+    from feastkit_tpu_torch.ops import seeded_draw as sd
+    nx, M0 = 64, 24
+    A = _lap2d_csr(nx)
+    w1 = 2.0 - 2.0 * np.cos(np.arange(1, nx + 1) * np.pi / (nx + 1))
+    w = np.sort(np.add.outer(w1, w1).ravel())
+    Emax = float((w[16] + w[17]) / 2)
+    before = sd.seeded_draw_f64.launches
+    r_card = ft.feast(A, None, (0.0, Emax), M0)
+    assert sd.seeded_draw_f64.launches > before
+    fpm = ft.feastinit()
+    fpm[5] = 1
+    Q0 = _host_ladder_start(nx * nx, M0)
+    drawn = sd.seeded_draw_f64.launches
+    r_host = ft.feast(A, None, (0.0, Emax), M0, fpm, Q0=Q0)
+    assert sd.seeded_draw_f64.launches == drawn
+    assert r_card.M == r_host.M == 17 and r_card.info == r_host.info == 0
+    assert r_card.loop == r_host.loop
+    assert np.array_equal(np.asarray(r_card.lam), np.asarray(r_host.lam))
+    assert torch.equal(r_card.q, r_host.q)

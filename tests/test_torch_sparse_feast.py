@@ -241,3 +241,40 @@ def test_switches_keep_the_result(switch, mixed):
     assert int(other.info) == int(default.info) == 0
     assert np.abs(np.sort(other.lam) - np.sort(default.lam)).max() <= 1e-10
     assert np.asarray(other.res).max() <= TOL
+
+
+def test_auto_route_leaves_no_frame_for_the_collector():
+    """An auto-routed solve whose rational filter is refused keeps only the
+    refusal's message: no `_sparse_cheb_interval` frame (and none of the
+    solve's tensors it holds) waits in a reference cycle for the cyclic
+    collector after the solve returns."""
+    import gc
+    import types
+    from feastkit_tpu_torch.solvers import sparse as S
+    nx = 120
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
+    A = (sp.kron(sp.eye(nx), T) + sp.kron(T, sp.eye(nx))).tocsr()
+    refused = []
+    orig = S.rational_filter_cheb_coeffs
+
+    def rational(*a, **k):
+        try:
+            return orig(*a, **k)
+        except S.ChebInfeasible:
+            refused.append(True)
+            raise
+    fpm = ft.feastinit()
+    fpm[42] = 2
+    S.rational_filter_cheb_coeffs = rational
+    gc.collect()
+    gc.disable()
+    try:
+        r = ft.feast(A, None, (0.0, 0.0025), 8, fpm, device="cpu")
+        left = [o for o in gc.get_objects()
+                if isinstance(o, types.FrameType)
+                and o.f_code.co_name == "_sparse_cheb_interval"]
+    finally:
+        gc.enable()
+        S.rational_filter_cheb_coeffs = orig
+    assert refused and r.info == 0 and r.M == 1
+    assert not left
