@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
+
 __all__ = [
     "gershgorin_interval", "cheb_indicator_coeffs", "cheb_eval_scalar",
     "auto_cheb_degree", "build_cheb_filter_coeffs", "make_cheb_filter",
@@ -295,7 +297,9 @@ def _ahat(apply_A, lo, hi, X):
 
 
 def _cheb_init(apply_A, lo, hi, Q, coeffs):
-    """(T0, T1, acc) after the k=0,1 terms."""
+    """(T0, T1, acc) after the k=0,1 terms: four torch passes around the
+    product (the scale and the shift of Ahat, c0 Q and the sum)."""
+    trace.count_glue(4)
     T1 = _ahat(apply_A, lo, hi, Q)
     return Q, T1, torch.add(float(coeffs[0]) * Q, T1, alpha=float(coeffs[1]))
 
@@ -304,9 +308,11 @@ def make_cheb_stepper(apply_A, lo, hi):
     """One recurrence step (carry, c_k) -> carry: T2 = 2 Ahat T1 - T0 and
     acc += c_k T2, with the same roundings as the JAX package's
     2 (sc A T1 - sh T1) - T0 (a factor 2 is exact), in place on the new T2
-    and on acc (the carry owns acc)."""
+    and on acc (the carry owns acc): four torch passes around the
+    product."""
 
     def step(carry, ck):
+        trace.count_glue(4)
         T0, T1, acc = carry
         sc, sh = _map_scalars(lo, hi, T1)
         T2 = (2.0 * sc) * apply_A(T1)

@@ -489,7 +489,7 @@ def _sparse_cheb_filter_host_fused(ctx, Q, *, rung, n_coeffs=None):
     coeffs = r["coeffs"]
     if n_coeffs is not None:
         coeffs = coeffs[:max(int(n_coeffs), 3)]
-    trace.note("filter", steps=len(coeffs) - 1, inner=0)
+    trace.note("filter", steps=len(coeffs) - 1, inner=0, body="fused")
     dia, offsets, sc, sh = r["dia"], ctx["offsets"], r["sc"], r["sh"]
     t1 = Q.to(r["dtype"], copy=True)      # overwritten as the carry rotates
     carry = (torch.zeros_like(t1), t1, t1 * float(coeffs[0]))
@@ -567,7 +567,8 @@ def _sparse_cheb_filter_host_fused_gen(ctx, Q, *, rung, n_coeffs=None):
     coeffs = r["coeffs"]
     if n_coeffs is not None:
         coeffs = coeffs[:max(int(n_coeffs), 3)]
-    trace.note("filter", steps=len(coeffs) - 1, inner=len(r["qc"]))
+    trace.note("filter", steps=len(coeffs) - 1, inner=len(r["qc"]),
+               body="fused_gen")
     ops = (r["dA"], ctx["offsets_A"], r["dB"], ctx["offsets_B"], r["qc"])
     q = Q.to(r["dtype"]).t().contiguous()
     carry = cheb_gen_init(*ops, q, coeffs[:2], r["scals"],
@@ -593,7 +594,8 @@ def _sparse_cheb_filter_host(ctx, Q, *, rung, n_coeffs=None):
     work per TPU dispatch; a host loop needs no such budget."""
     r = ctx[rung]
     coeffs = r["coeffs"] if n_coeffs is None else r["coeffs"][:n_coeffs]
-    trace.note("filter", steps=len(coeffs) - 1, inner=r.get("inner", 0))
+    trace.note("filter", steps=len(coeffs) - 1, inner=r.get("inner", 0),
+               body="unfused")
     carry = _cheb_init(r["apply"], r["lo"], r["hi"], Q.to(r["dtype"]),
                        coeffs)
     step = make_cheb_stepper(r["apply"], r["lo"], r["hi"])

@@ -16,7 +16,7 @@ timestamps, so an offset measured between the two clocks places every span
 on the device's timeline. Spans stay in memory (:func:`spans`) until
 :func:`clear`; nothing is written unless a caller asks.
 
-Each span also holds, as attributes, how much three counters moved while
+Each span also holds, as attributes, how much four counters moved while
 it was open:
 
 - ``launches``: the kernel launches the port's wrappers count
@@ -25,7 +25,11 @@ it was open:
 - ``launch_host_ns``: host ns spent inside those wrappers, counted only
   while tracing is on (two clock reads a launch);
 - ``h2d_bytes``: bytes the sparse polynomial path copies from a host array
-  to a card (:func:`count_h2d`).
+  to a card (:func:`count_h2d`);
+- ``glue_passes``: the torch elementwise passes of the unfused Chebyshev
+  recurrence (``ops/chebfilter._cheb_init`` and ``make_cheb_stepper``),
+  the work around its products that no kernel of the port does, counted
+  only while tracing is on (:func:`count_glue`).
 
 The state is the process's: one thread at a time traces.
 """
@@ -37,7 +41,7 @@ import time
 
 __all__ = ["enable", "disable", "enabled", "span", "spans", "clear",
            "mark", "since", "drop_since", "solve_attrs", "note", "counters",
-           "count_h2d", "launch_done", "Span"]
+           "count_h2d", "count_glue", "launch_done", "Span"]
 
 # read by the launch wrappers on every launch: keep it a module global
 ON = False
@@ -45,7 +49,7 @@ _spans: list = []
 _stack: list = []
 _solve_ids = itertools.count()
 _epoch = 0            # moved by clear(): a mark taken before it is stale
-_counts = {"launch_host_ns": 0, "h2d_bytes": 0}
+_counts = {"launch_host_ns": 0, "h2d_bytes": 0, "glue_passes": 0}
 
 
 def enable() -> None:
@@ -98,8 +102,8 @@ def drop_since(m: tuple) -> None:
 
 
 def counters() -> dict:
-    """The three counters' totals now (``launch_host_ns`` and ``h2d_bytes``
-    count only while tracing is on)."""
+    """The four counters' totals now (all but ``launches`` count only
+    while tracing is on)."""
     from ..ops import cheb_kernels, dia, seeded_draw
     return dict(launches=sum(cheb_kernels.launch_counts().values())
                 + sum(dia.launch_counts().values())
@@ -112,6 +116,12 @@ def count_h2d(host, device, dtype=None) -> None:
     blocking copy converts on the host, so ``dtype``'s bytes cross."""
     if ON and getattr(device, "type", str(device).split(":")[0]) != "cpu":
         _counts["h2d_bytes"] += host.numel() * (dtype or host.dtype).itemsize
+
+
+def count_glue(passes: int) -> None:
+    """The unfused recurrence ran ``passes`` torch elementwise passes."""
+    if ON:
+        _counts["glue_passes"] += passes
 
 
 def launch_done(t0_ns: int) -> None:

@@ -10,6 +10,11 @@ id, the filter spans' rung and A-products equal to what the benchmark's
 schedule (``portbench/schedule.py``) records of the same applications,
 the same results to the bit, nothing but plain values behind the spans,
 and no bytes to a card. The card's byte count is in test_torch_cuda.py.
+A third operator, the complex Harper-Hofstadter cylinder of the
+benchmark's ``herm_p9`` cell on 24 x 24 sites, runs the unfused complex
+recurrence: its filter spans say so (``body``) and count its torch passes
+(``glue_passes``, four a step), which the fused bodies of the other two
+never run.
 """
 import functools
 import gc
@@ -25,6 +30,8 @@ import feastkit_tpu_torch as ft  # noqa: E402
 from feastkit_tpu_torch.utils import trace  # noqa: E402
 
 CASES = ["lap2d", "cmass"]
+# with the Hermitian operator, for what holds on every filter body
+BODIES = {"lap2d": "fused", "cmass": "fused_gen", "herm": "unfused"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -50,6 +57,13 @@ def _tracing_off():
 def _problem(case):
     """(A, B, Emax, M0): the pencil, an upper edge in a spectral gap past
     the ten lowest pairs, and the subspace."""
+    if case == "herm":
+        from portbench.generators import hofstadter_cyl
+        A = hofstadter_cyl.operator(0.01 * np.cos(np.arange(24)), 1 / 64, 24)
+        w = np.linalg.eigvalsh(A.toarray())
+        gaps = np.nonzero(np.diff(w) > 1e-6 * w[-1])[0]
+        hi = gaps[np.searchsorted(gaps, 9)]
+        return A, None, float(0.5 * (w[hi] + w[hi + 1])), hi + 7
     nx = 32
     h = 1.0 / (nx + 1)
     T = sp.diags([-np.ones(nx - 1), 2.0 * np.ones(nx), -np.ones(nx - 1)],
@@ -113,7 +127,7 @@ def _children(spans, parent):
     return [s for s in spans if s["parent"] == parent]
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", list(BODIES))
 def test_off_records_nothing(case):
     off, (recorded, h2d, launch_ns), _, _, _ = _traced(case)
     assert off.M > 0
@@ -193,7 +207,7 @@ def test_filter_spans_follow_the_schedule(case):
                                        if gen else 0)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", list(BODIES))
 def test_results_bitwise_identical(case):
     off, _, on, _, _ = _traced(case)
     assert (off.M, int(off.info), off.loop) == (on.M, int(on.info), on.loop)
@@ -203,7 +217,7 @@ def test_results_bitwise_identical(case):
     assert torch.equal(off.q, on.q)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", list(BODIES))
 def test_no_tensor_behind_the_spans(case):
     held = _traced(case)[3]
     gc.collect()
@@ -221,13 +235,50 @@ def test_no_tensor_behind_the_spans(case):
         assert all(type(v) in (int, float, str) for v in s.attrs.values())
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", list(BODIES))
 def test_no_bytes_to_a_card_on_the_cpu(case):
     spans = _dicts(case)
     for s in spans:
         assert s["attrs"]["h2d_bytes"] == 0
         assert s["attrs"]["launches"] == 0
         assert s["attrs"]["launch_host_ns"] == 0
+
+
+@pytest.mark.parametrize("case", list(BODIES))
+def test_filter_body_and_glue_passes(case):
+    """Each filter span names the body that ran; the unfused recurrence
+    counts four torch passes a step (its init is one of the ``steps``:
+    the k = 1 term's product) and the fused bodies none."""
+    spans = _dicts(case)
+    filters = [s for s in spans if s["name"] == "filter"]
+    assert len(filters) >= 3
+    for s in filters:
+        assert s["attrs"]["body"] == BODIES[case]
+        want = 4 * s["attrs"]["steps"] if case == "herm" else 0
+        assert s["attrs"]["glue_passes"] == want
+    feast = spans[0]
+    assert feast["name"] == "feast"
+    assert feast["attrs"]["glue_passes"] == sum(
+        s["attrs"]["glue_passes"] for s in filters)
+    off = _traced(case)[0]
+    assert off.M == 10 and int(off.info) == 0
+    assert off.q.is_complex() == (case == "herm")
+
+
+def test_glue_counted_only_while_tracing():
+    apply = lambda X: 2.0 * X                            # noqa: E731
+    from feastkit_tpu_torch.ops.chebfilter import make_cheb_filter
+    filt = make_cheb_filter(apply, 0.0, 4.0, np.array([0.5, 0.2, 0.1, 0.05]))
+    Q = torch.ones(5, 2, dtype=torch.complex128)
+    before = trace.counters()["glue_passes"]
+    off = filt(Q)
+    assert trace.counters()["glue_passes"] == before
+    trace.enable()
+    with trace.span("filter") as s:
+        on = filt(Q)
+    trace.disable()
+    assert s.attrs["glue_passes"] == 4 + 2 * 4         # the init, 2 steps
+    assert torch.equal(off, on)
 
 
 def test_span_attributes_are_plain_values():
