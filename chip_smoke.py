@@ -3,7 +3,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py           # every phase (about a few minutes)
-    python3 chip_smoke.py --quick   # phases 1-3d: build and check kernels
+    python3 chip_smoke.py --quick   # phases 1-3e: build and check kernels
     python3 chip_smoke.py --krylov-solve 9   # one Krylov solve at P = 9
     python3 chip_smoke.py --stream-sweep     # block shapes and bodies of the
                                              # streamed 2- and 4-step kernel,
@@ -84,6 +84,20 @@ Phases, each printed before the last line:
      and offsets all negative), tolerance c64 1e-5, c128 1e-13, the
      library time a complex CSR product; and that a CUDA entry refuses a
      wrong dtype, a non-contiguous operand and a CPU tensor;
+  3e. the complex one-step entries cheb_step_c64/c128 (ops/csrc/
+     cheb_step.cu) against their plain version at the shape of each
+     operator this script runs them on: the herm_p9 cell's Hofstadter
+     cylinder (512 x 512 sites: N = 262,144, M = 72, seven complex
+     diagonals 0, +-1, +-511, +-512), phase 11 leg 1's gauge-rotated P=10
+     Laplacian (N = 1,048,576, M = 72, five) and phase 11's banded
+     Hermitian leg (N = 65,536, M = 24, nine), each operator's Gershgorin
+     interval mapped onto [-1, 1] as the solver maps it: one step, then
+     8 steps; and at the awkward shapes of phase 3 with complex diagonals; T
+     outputs and acc, tolerance relative to max|acc|: one step c64 1e-6,
+     c128 1e-14; 8 steps c64 1e-5, c128 1e-13. Then at each of the three
+     shapes each entry's time per launch (CUDA events), its plain
+     version's, and the bound (5 planes and the diagonals at the card's
+     bandwidth); the kernels line gives herm_p9's as the row's own;
   3d. the seeded subspace drawn on the card (ops/seeded_draw.py,
      ops/csrc/seeded_draw.cu): the card's log1p and exp against the host
      libm's (the once-a-process check, which must pass), then
@@ -161,13 +175,14 @@ Phases, each printed before the last line:
   11. complex Hermitian pencils and operators beyond 32 diagonals, through
      the entry points: (1) feast on the P=10 Laplacian under a seeded
      diagonal unitary gauge D A D^* (five complex diagonals, the spectrum
-     exactly lap2d's; the polynomial path's unfused recurrence on the
-     complex DIA entries, c64 on the f32 rung and c128 on the fp64 rung)
-     once cold and twice warm (the first with every kernel's launches
-     counted, which must show the complex entries and no real DIA entry or
-     Chebyshev kernel; the second with its stages timed: each rung's
-     filter, its DIA launches inside the filter x their phase-3c time, the
-     torch glue of the unfused step, Rayleigh-Ritz, host set-up), checked
+     exactly lap2d's; the polynomial path's fused complex one-step
+     entries, cheb_step_c64 on the f32 rung and cheb_step_c128 on the
+     fp64 rung, and dia_matvec_c128 for Rayleigh-Ritz) once cold and twice
+     warm (the first with every kernel's launches counted, which must show
+     those entries and no real DIA entry or real Chebyshev kernel; the
+     second with its stages timed: each rung's filter, its launches inside
+     the filter and their time a launch against the bound, Rayleigh-Ritz,
+     host set-up), checked
      for M = 52, error <= 1e-8, residuals <= 1e-8 and info 0; (2) the P=9
      Laplacian under a seeded symmetric permutation (hundreds of DIA
      diagonals: the unfused recurrence on torch CSR products, no kernel
@@ -484,6 +499,9 @@ def phase_build():
 KERNELS = {   # name -> (steps per launch, source, TPU kernel it replaces)
     "cheb_step_f32": (1, "cheb_step.cu", "feastkit_tpu/ops/cheb_pallas.py:685"),
     "cheb_step_f64": (1, "cheb_step.cu", "feastkit_tpu/ops/cheb_pallas.py:256"),
+    # no TPU kernel: the JAX package runs a complex recurrence unfused
+    "cheb_step_c64": (1, "cheb_step.cu", None),
+    "cheb_step_c128": (1, "cheb_step.cu", None),
     "cheb_step_cm_f32": (1, "cheb_step_cm.cu",
                          "feastkit_tpu/ops/cheb_pallas.py:685"),
     "cheb_step_cm_f64": (1, "cheb_step_cm.cu",
@@ -722,6 +740,132 @@ def phase_kernels(card_name):
             del carry
             torch.cuda.empty_cache()
         del dia
+    return out
+
+
+def _coo_dia(A):
+    from feastkit_tpu_torch.ops.dia import bcoo_to_dia
+    C = A.tocoo()
+    return bcoo_to_dia(C.data, np.stack([C.row, C.col], 1), A.shape[0])
+
+
+def cylinder_dia(nx, ny, flux=1 / 4096, seed=0):
+    """The Harper-Hofstadter cylinder of the herm_p9 cell (the benchmark's
+    generator, a seeded potential) in DIA form: seven complex diagonals
+    0, +-1, +-(ny - 1), +-ny."""
+    from portbench.generators import hofstadter_cyl
+    v = 0.01 * np.random.default_rng(seed).standard_normal(nx)
+    return _coo_dia(hofstadter_cyl.operator(v, flux, ny))
+
+
+def complex_step_shapes():
+    """(label, diags, offsets, M) of each operator on which this script
+    launches cheb_step_c64 / _c128: the herm_p9 cell's cylinder (N =
+    262,144, seven diagonals), phase 11 leg 1's gauge-rotated P=10
+    Laplacian (N = 1,048,576, five) and phase 11's banded Hermitian leg
+    (N = 65,536, kd 4: nine)."""
+    import scipy.sparse as sp
+    nx, kd = 1024, 4
+    lap = gauge_rotated(lap2d(nx), np.random.default_rng(12).uniform(
+        0.0, 2.0 * np.pi, nx * nx))
+    bands = banded_hermitian_throughput(kd=kd)
+    n = bands.shape[1]
+    # row r of the band holds offset kd - r (band_eigs' upper layout)
+    band = sp.diags([bands[r, kd - r:] if r <= kd else bands[r, :n + kd - r]
+                     for r in range(2 * kd + 1)],
+                    [kd - r for r in range(2 * kd + 1)])
+    return [("herm_p9", *cylinder_dia(512, 512), 72),
+            ("hermitian_p10", *_coo_dia(lap), 72),
+            ("banded_hermitian", *_coo_dia(band), 24)]
+
+
+def phase_complex_kernels(card_name):
+    """Phase 3e: the complex one-step entries against their plain version
+    at the shape of every operator this script runs them on and at phase
+    3's awkward shapes, and their time a launch against the bound at each
+    of those operators' shapes. The row's own numbers are herm_p9's."""
+    import torch
+    from feastkit_tpu_torch.ops import cheb_kernels as ck
+    from feastkit_tpu_torch.ops.chebfilter import _map_scalars
+    bw, _, peak64 = _card_rates(card_name)
+    print("== 3e. complex one-step entries against their plain version",
+          flush=True)
+    shapes = complex_step_shapes()
+    coeffs = np.random.default_rng(0).standard_normal(8) * 0.1
+    rng = np.random.default_rng(61)
+    awkward = [(dn * np.exp(2j * np.pi * rng.random(dn.shape)), on, an, am)
+               for dn, on, an, am in _awkward_operators()]
+    out = {}
+    for name, dtype, tol1, tol8 in (
+            ("cheb_step_c64", torch.complex64, 1e-6, 1e-5),
+            ("cheb_step_c128", torch.complex128, 1e-14, 1e-13)):
+        wrapper, plain = getattr(ck, name), ck.cheb_step_plain
+        size = torch.empty((), dtype=dtype).element_size()
+        rows = {}
+        for label, dia_np, offsets, M in shapes:
+            N, nd = dia_np.shape[1], len(offsets)
+            # the solver's map: the operator's Gershgorin interval onto
+            # [-1, 1], in the rung's real precision
+            d0 = np.real(dia_np[offsets.index(0)]).astype(np.float64)
+            radius = np.abs(dia_np).astype(np.float64).sum(0) - np.abs(d0)
+            sc, sh = _map_scalars(float((d0 - radius).min()),
+                                  float((d0 + radius).max()), dtype)
+            dia = torch.as_tensor(dia_np, device="cuda").to(dtype)
+            carry = _planes(torch, dtype, (N, M), 3, 1)
+            _, rel1 = _compare(torch, wrapper, plain, dia, offsets, carry,
+                               sc, sh, coeffs[:1])
+            err, rel = _compare(torch, wrapper, plain, dia, offsets, carry,
+                                sc, sh, coeffs)
+            print(f"   {name} {label} N={N} M={M} nd={nd}: one step "
+                  f"relative {rel1:.3e} (tol {tol1:g}); 8 steps max abs "
+                  f"err {err:.3e}, relative {rel:.3e} (tol {tol8:g})",
+                  flush=True)
+            check(rel1 <= tol1 and rel <= tol8,
+                  f"{name} agrees with its plain version at {label}'s shape")
+
+            def kern():
+                wrapper(dia, offsets, *carry, sc, sh, 0.01)
+                carry[0], carry[1] = carry[1], carry[0]
+
+            def plain_fn():
+                plain(dia, offsets, *carry, sc, sh, 0.01)
+                carry[0], carry[1] = carry[1], carry[0]
+
+            before = wrapper.launches
+            ms = cuda_time_ms(kern, 100)
+            plain_ms = cuda_time_ms(plain_fn, 10)
+            check(wrapper.launches == before + 103,
+                  f"{name} counts one launch per call")
+            # least bytes: T0, T1, acc read, T2 and acc written, the
+            # diagonals once; the real operations of a complex step
+            # (8 nd + 10)
+            nbytes = (5 * N * M + nd * N) * size
+            flops = N * M * (8 * nd + 10)
+            bound_ms = max(nbytes / bw, flops / peak64) * 1e3
+            print(f"   {name} {label}: {ms:.4f} ms/launch (plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms = "
+                  f"{nbytes / 1e9:.3f} GB at {bw / 1e12:.2f} TB/s, "
+                  f"{bound_ms / ms:.1%} of bound)", flush=True)
+            rows[label] = dict(
+                shape=[N, M, nd], max_abs_err=err, max_rel_err=rel,
+                one_step_rel_err=rel1, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes"
+                if nbytes / bw >= flops / peak64 else "operations")
+            del carry, dia, kern, plain_fn
+            torch.cuda.empty_cache()
+        worst = max(r["max_rel_err"] for r in rows.values())
+        for dn, on, an, am in awkward:
+            dd = torch.as_tensor(dn, device="cuda").to(dtype)
+            c2 = _planes(torch, dtype, (an, am), 3, 2)
+            _, r2 = _compare(torch, wrapper, plain, dd, on, c2, 0.37, 0.61,
+                             coeffs[:5])
+            print(f"   {name} N={an} M={am} offsets={on}: relative "
+                  f"{r2:.3e}", flush=True)
+            check(r2 <= tol8, f"{name} agrees at N={an} M={am}")
+            worst = max(worst, r2)
+        out[name] = dict(rows["herm_p9"], max_rel_err=worst,
+                         ms_per_step=rows["herm_p9"]["ms"],
+                         csr_spmm_ms=None, shapes=rows)
     return out
 
 
@@ -2460,13 +2604,17 @@ def phase_main_path(kernels):
 def _breakdown(A, B, Emin, Emax, M0, fpm):
     """One more warm solve with the solver's stages wrapped in timers (the
     device synchronised at each stage's edges): where the time goes; and
-    the DIA entries' launches inside each filter stage's timer
-    (``filter_launches``)."""
+    the DIA entries' and the Chebyshev kernels' launches inside each filter
+    stage's timer (``filter_launches``)."""
     import torch
+    from feastkit_tpu_torch.ops import cheb_kernels as ck
     from feastkit_tpu_torch.ops import dia as D
     from feastkit_tpu_torch.solvers import sparse
     times = {}
     filter_launches = {}
+
+    def launch_counts():
+        return {**D.launch_counts(), **ck.launch_counts()}
 
     def timed(name, bucket, sync=True, count=False):
         orig = getattr(sparse, name)
@@ -2474,7 +2622,7 @@ def _breakdown(A, B, Emin, Emax, M0, fpm):
         def wrapper(*a, **k):
             if sync:
                 torch.cuda.synchronize()
-            before = D.launch_counts() if count else None
+            before = launch_counts() if count else None
             t0 = time.perf_counter()
             out = orig(*a, **k)
             if sync:
@@ -2483,7 +2631,7 @@ def _breakdown(A, B, Emin, Emax, M0, fpm):
             times[key] = times.get(key, 0.0) + time.perf_counter() - t0
             if count:
                 seen = filter_launches.setdefault(key, {})
-                for n, v in D.launch_counts().items():
+                for n, v in launch_counts().items():
                     if v > before[n]:
                         seen[n] = seen.get(n, 0) + v - before[n]
             return out
@@ -3102,12 +3250,12 @@ def all_counts():
         seen.update(ck.launch_counts())
 
 
-def _hermitian_p10(dia_kernels, p, staged=True):
+def _hermitian_p10(p, staged=True):
     """Leg 1: feast(A_g, None, (Emin, Emax), 72) on the gauge-rotated 2D
-    Laplacian at P = p (the polynomial path, the unfused recurrence on the
-    complex DIA kernels): once cold, once warm (the launch counts and the
-    peak memory are the warm solve's), and with ``staged`` once more with
-    its stages timed."""
+    Laplacian at P = p (the polynomial path, the fused complex one-step
+    entries): once cold, once warm (the launch counts and the peak memory
+    are the warm solve's), and with ``staged`` once more with its stages
+    timed."""
     import torch
     import feastkit_tpu_torch as ft
     nx = 2 ** p
@@ -3137,13 +3285,16 @@ def _hermitian_p10(dia_kernels, p, staged=True):
         _check_result(r, exp, 1e-8, f"Hermitian P={p} {label}")
         check(len(exp) == 52 or p != 10, "fixture: 52 pairs")
         check(r.q.dtype == torch.complex128, "complex128 eigenvectors")
-        check(counts["dia_matvec_c64"] > 0
-              and counts["dia_matvec_c128"] > 0,
-              "the complex64 (f32 rung) and complex128 (fp64 rung, "
-              "Rayleigh-Ritz) DIA entries carried the products")
+        check(counts["cheb_step_c64"] > 0 and counts["cheb_step_c128"] > 0,
+              "the complex64 (f32 rung) and complex128 (fp64 rung) "
+              "one-step entries carried the filter")
+        check(counts["dia_matvec_c128"] > 0 and counts["dia_matvec_c64"] == 0,
+              "the complex128 DIA entry carried Rayleigh-Ritz, and no "
+              "filter product launched a DIA entry")
         check(all(counts[n] == 0 for n in REAL_DIA) and all(
-            counts[n] == 0 for n in KERNELS),
-            "no real DIA entry and no Chebyshev kernel launched")
+            counts[n] == 0 for n in KERNELS
+            if n not in ("cheb_step_c64", "cheb_step_c128")),
+            "no real DIA entry and no real Chebyshev kernel launched")
         del r
     cold_s, warm_s = secs["cold"], secs["warm"]
     if not staged:
@@ -3152,22 +3303,23 @@ def _hermitian_p10(dia_kernels, p, staged=True):
                     launches={k: v for k, v in counts.items() if v})
     breakdown = _breakdown(A, None, Emin, Emax, M0, fpm)
     warm = [warm_s, breakdown["wall_s"]]
-    ms = {n: dia_kernels[n]["ms"] for n in ("dia_matvec_c64",
-                                             "dia_matvec_c128")}
+    bw = _card_rates(torch.cuda.get_device_name(0))[0]
     stages = {}
-    for rung, name in (("f32", "dia_matvec_c64"), ("f64", "dia_matvec_c128")):
+    for rung, name, size in (("f32", "cheb_step_c64", 8),
+                             ("f64", "cheb_step_c128", 16)):
         filt = breakdown.get(f"filter_{rung}", 0.0)
         # the launches inside the rung's filter timer only (not those of
-        # Rayleigh-Ritz and the residuals)
+        # Rayleigh-Ritz and the residuals); the bound: 5 planes and the
+        # diagonals a launch
         n = breakdown["filter_launches"].get(f"filter_{rung}", {}).get(
             name, 0)
-        dia_s = n * ms[name] / 1e3
-        stages[rung] = dict(filter_s=filt, dia_launches=n, dia_ms=ms[name],
-                            dia_s=dia_s, glue_s=filt - dia_s)
+        bound_ms = (5 * N * M0 + 5 * N) * size / bw * 1e3
+        ms = filt / n * 1e3 if n else float("nan")
+        stages[rung] = dict(filter_s=filt, launches=n, ms_per_launch=ms,
+                            bound_ms=bound_ms)
         print(f"   {rung} rung: filter {filt:.3f} s; {name} {n} launches "
-              f"inside the filter x {ms[name]:.4f} ms (phase 3c, CUDA "
-              f"graph) = {dia_s:.3f} s; the unfused step's torch glue "
-              f"{filt - dia_s:.3f} s", flush=True)
+              f"inside the filter, {ms:.4f} ms a launch with the host's "
+              f"share (bound {bound_ms:.4f} ms)", flush=True)
     print(f"   warm solves {[round(s, 3) for s in warm]} s (the second with "
           f"stage timers), median {float(np.median(warm)):.3f} s",
           flush=True)
@@ -3288,7 +3440,7 @@ def _hermitian_krylov_leg(p):
                 precond=r.krylov["precond"], mg_levels=r.krylov["mg_levels"])
 
 
-def phase_hermitian(dia_kernels, device="cuda", staged=True, p_mass=8):
+def phase_hermitian(device="cuda", staged=True, p_mass=8):
     """Phase 11: complex Hermitian pencils and operators beyond 32
     diagonals through the entry points a user calls (``staged``: leg 1's
     staged warm solve; ``p_mass``: the permuted consistent-mass leg's P;
@@ -3297,7 +3449,7 @@ def phase_hermitian(dia_kernels, device="cuda", staged=True, p_mass=8):
     from feastkit_tpu_torch.core.parameters import feast_tolerance
     print("== 11. complex Hermitian sparse pencils, operators on more than "
           "32 diagonals", flush=True)
-    out = {"hermitian_p10": _hermitian_p10(dia_kernels, 10, staged)}
+    out = {"hermitian_p10": _hermitian_p10(10, staged)}
     out["permuted_p9"] = _permuted_leg(9)
     out[f"permuted_mass_p{p_mass}"] = _permuted_mass_leg(p_mass)
     out["hermitian_krylov_p7"] = _hermitian_krylov_leg(7)
@@ -3307,11 +3459,11 @@ def phase_hermitian(dia_kernels, device="cuda", staged=True, p_mass=8):
     out["banded_hermitian_c64"] = _direct_leg(
         "banded Hermitian throughput feast_hbev complex64 n=65536 kd=4",
         lambda: ft.feast_hbev(bands, 4, 4, 25.0, 35.0, 24), exp, 1e-5, tol,
-        "polynomial", device, launch_source="dia")
+        "polynomial", device)
     check(len(exp) == 20, "banded Hermitian leg: 20 eigenvalues")
-    check(out["banded_hermitian_c64"]["launches"].get("dia_matvec_c64", 0)
-          > 0, "banded Hermitian leg: the complex64 DIA entry carried the "
-          "filter")
+    check(out["banded_hermitian_c64"]["launches"].get("cheb_step_c64", 0)
+          > 0, "banded Hermitian leg: the complex64 one-step entry carried "
+          "the filter")
     A, exp = f3_fixture()
     out["f3_hcsrev"] = _direct_leg(
         "F3 fixture feast_hcsrev n=240", lambda: ft.feast_hcsrev(
@@ -3648,8 +3800,10 @@ DIA_PATHS = {
     "dia_matvec_f64": "Krylov P=8 (phase 8)",
     "dia_matvec_batched_f32": "Krylov P=8 (phase 8)",
     "dia_matvec_batched_f64": "Krylov P=8 (phase 8)",
-    "dia_matvec_c64": "Hermitian P=10 (phase 11 leg 1)",
-    "dia_matvec_c128": "Hermitian P=10 (phase 11 leg 1)",
+    # the fused complex step carries every Hermitian filter on a DIA
+    # form; phase 3c alone runs dia_matvec_c64
+    "dia_matvec_c64": "none in this script's solves",
+    "dia_matvec_c128": "Hermitian P=10 (phase 11 leg 1, Rayleigh-Ritz)",
     "dia_matvec_batched_c64": "Hermitian Krylov P=7 (phase 11 leg 4)",
     "dia_matvec_batched_c128": "Hermitian Krylov P=7 (phase 11 leg 4)",
 }
@@ -4872,10 +5026,8 @@ def main(argv):
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
     if "--hermitian" in argv:
-        dia_kernels, _ = phase_dia_kernels(smi.split(",")[0],
-                                           ptxas["dia_matvec"])
-        print(json.dumps({"hermitian": phase_hermitian(dia_kernels)}),
-              flush=True)
+        phase_dia_kernels(smi.split(",")[0], ptxas["dia_matvec"])
+        print(json.dumps({"hermitian": phase_hermitian()}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4933,6 +5085,7 @@ def main(argv):
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
     kernels = phase_kernels(smi.split(",")[0])
+    kernels.update(phase_complex_kernels(smi.split(",")[0]))
     gen_kernels = phase_gen_kernels(smi.split(",")[0], ptxas["cheb_step_cm"])
     nd9 = {k: gen_kernels.pop(k) for k in list(gen_kernels)
            if k.endswith("_nd9")}
@@ -4973,8 +5126,9 @@ def main(argv):
         print(json.dumps({"direct": phase_direct()}), flush=True)
         # the complex entries' own paths: the Hermitian polynomial leg for
         # the unbatched ones, the Hermitian Krylov leg for the batched ones
-        herm = phase_hermitian(dia_kernels, staged=False, p_mass=7)
-        for name in ("dia_matvec_c64", "dia_matvec_c128"):
+        herm = phase_hermitian(staged=False, p_mass=7)
+        for name in ("dia_matvec_c64", "dia_matvec_c128", "cheb_step_c64",
+                     "cheb_step_c128"):
             counts[name] = herm["hermitian_p10"]["launches"].get(name, 0)
         for name in ("dia_matvec_batched_c64", "dia_matvec_batched_c128"):
             counts[name] = herm["hermitian_krylov_p7"]["launches"][name]
@@ -5012,6 +5166,10 @@ def main(argv):
             csr_spmm_ms=k["csr_spmm_ms"]))
         if name in per_rank:  # phase 15: each rank's launches, per leg
             rows[-1]["sharded"] = per_rank[name]
+        if "shapes" in k:     # the complex entries: ms at herm_p9's shape,
+            # the launches phase 11 leg 1's, each shape's times beside
+            rows[-1].update(shape=k["shape"], shapes=k["shapes"],
+                            path="Hermitian P=10 (phase 11 leg 1)")
         if "forms" in k:      # the column-major entries: ms, bound of "bare"
             rows[-1].update(eager_ms=k["eager_ms"], plan=k["plan"], forms={
                 f: dict(v, launches=form_counts.get(name, {}).get(f))

@@ -17,6 +17,11 @@ rotate the carry (T0, T1, acc) <- (T1, T2, acc).
   TPU carries every vector as a double-single (hi, lo) f32 pair because its
   f64 is emulated; Hopper has native fp64, so the port's high rung is plain
   f64 with f64 scalars.
+* ``cheb_step_c64`` / ``cheb_step_c128`` are the port's own: the same step
+  on complex64 / complex128 diagonals and planes with f32 / fp64 scalars,
+  the two rungs of a complex Hermitian operator (the JAX package runs that
+  recurrence unfused: Mosaic has no complex type). They take one step per
+  launch; the multi-step kernels below are real only.
 
 The layout is the port's own: contiguous (N, M) tensors with no transposed
 128-lane packing and no zero margins (``convert.carry_from_reference_packed``
@@ -88,14 +93,16 @@ from .cuda_build import SMS as _SMS
 from .cuda_build import sm_count as _sm_count
 from .dia import dia_matvec_plain
 
-__all__ = ["cheb_step_f32", "cheb_step_f64", "cheb_step_plain",
+__all__ = ["cheb_step_f32", "cheb_step_f64", "cheb_step_c64",
+           "cheb_step_c128", "cheb_step_plain",
            "cheb_step_cm_f32", "cheb_step_cm_f64", "cheb_step_cm_plain",
            "CM_FORMS", "cm_step_plan",
            "cheb_step2_f32", "cheb_step4_f32", "cheb_step2_f64",
            "cheb_step4_f64", "cheb_step2_plain",
            "cheb_step4_plain",
            "cheb_combine_f32", "cheb_combine_f64", "cheb_combine_plain",
-           "cheb_f32_chunk", "cheb_f64_chunk", "cheb_f32_cm_chunk",
+           "cheb_f32_chunk", "cheb_f64_chunk", "cheb_c64_chunk",
+           "cheb_c128_chunk", "cheb_f32_cm_chunk",
            "cheb_f64_cm_chunk", "cheb_f32_2_chunk",
            "cheb_f32_4_chunk", "cheb_f64_2_chunk", "cheb_f64_4_chunk",
            "multistep_plan", "reckoned_traffic", "transpose_planes",
@@ -117,7 +124,8 @@ CM_FORMS = ("full", "no_t0", "no_acc", "bare")
 
 def cheb_step_plain(diags, offsets, t0, t1, acc, sc, sh, ck):
     """The plain PyTorch version of one fused step (same in-place contract
-    as the kernels; dtype-generic, so it is the plain version of both)."""
+    as the kernels; dtype-generic, so it is the plain version of all four
+    entries)."""
     y = dia_matvec_plain(diags, offsets, t1)
     t2 = 2.0 * (sc * y - sh * t1) - t0
     t0.copy_(t2)
@@ -149,7 +157,9 @@ def _library():
     from .cuda_build import load
     lib = load("cheb_step")
     for name, scalar in (("cheb_step_f32", ctypes.c_float),
-                         ("cheb_step_f64", ctypes.c_double)):
+                         ("cheb_step_f64", ctypes.c_double),
+                         ("cheb_step_c64", ctypes.c_float),
+                         ("cheb_step_c128", ctypes.c_double)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -225,6 +235,20 @@ def cheb_step_f32(diags, offsets, t0, t1, acc, sc, sh, ck):
 def cheb_step_f64(diags, offsets, t0, t1, acc, sc, sh, ck):
     """One fused fp64 step in place (T0 <- T2, acc += ck T2)."""
     _step(cheb_step_f64, torch.float64, diags, offsets, t0, t1, acc,
+          sc, sh, ck)
+
+
+def cheb_step_c64(diags, offsets, t0, t1, acc, sc, sh, ck):
+    """One fused complex64 step in place (T0 <- T2, acc += ck T2): complex
+    diagonals and planes, real scalars used as f32."""
+    _step(cheb_step_c64, torch.complex64, diags, offsets, t0, t1, acc,
+          sc, sh, ck)
+
+
+def cheb_step_c128(diags, offsets, t0, t1, acc, sc, sh, ck):
+    """One fused complex128 step in place; see :func:`cheb_step_c64`
+    (real scalars used as fp64)."""
+    _step(cheb_step_c128, torch.complex128, diags, offsets, t0, t1, acc,
           sc, sh, ck)
 
 
@@ -458,7 +482,9 @@ def cheb_combine_f64(z, x, t0, f, sc, sh, ck):
 
 def multistep_plan(offsets, N, M, dtype, steps):
     """Plan of the ``steps``-step kernel (2 or 4) for an (M, N) carry of
-    ``dtype``, or None when the shape does not fit this card: the streamed
+    real ``dtype`` (a complex one raises: the kernel is real only, and a
+    complex64 value's 32 bits of finfo would pass for f32), or None when
+    the shape does not fit this card: the streamed
     plan (:func:`_stream_plan`) of ``csrc/cheb_stream4.cu``, which gives
     ``steps``, ``tile`` (rows a block owns), ``tiles``, ``halo``,
     ``shared_bytes`` and the block shape. Pure function of its arguments:
@@ -466,6 +492,8 @@ def multistep_plan(offsets, N, M, dtype, steps):
     before any launch."""
     if steps not in (2, 4):
         raise ValueError(f"steps must be 2 or 4, got {steps}")
+    if dtype.is_complex:
+        raise TypeError(f"the multi-step kernels are real only, got {dtype}")
     return _stream_plan(offsets, N, M, itemsize=_itemsize(dtype),
                         steps=steps)
 
@@ -779,9 +807,10 @@ def cheb_step4_f64(diags, offsets, t0, t1, acc, out0, out1, sc, sh, cs):
                acc, out0, out1, sc, sh, cs)
 
 
-_WRAPPERS = (cheb_step_f32, cheb_step_f64, cheb_step2_f32, cheb_step4_f32,
-             cheb_step2_f64, cheb_step4_f64, cheb_step_cm_f32,
-             cheb_step_cm_f64, cheb_combine_f32, cheb_combine_f64)
+_WRAPPERS = (cheb_step_f32, cheb_step_f64, cheb_step_c64, cheb_step_c128,
+             cheb_step2_f32, cheb_step4_f32, cheb_step2_f64, cheb_step4_f64,
+             cheb_step_cm_f32, cheb_step_cm_f64, cheb_combine_f32,
+             cheb_combine_f64)
 
 
 def launch_counts() -> dict:
@@ -823,6 +852,18 @@ def cheb_f64_chunk(diags, offsets, carry, coeffs_chunk, sc, sh):
     """Advance the fp64 recurrence carry over a coefficient chunk
     (counterpart of ``cheb_ds_chunk``)."""
     return _chunk(cheb_step_f64, diags, offsets, carry, coeffs_chunk, sc, sh)
+
+
+def cheb_c64_chunk(diags, offsets, carry, coeffs_chunk, sc, sh):
+    """Advance the complex64 recurrence carry over a coefficient chunk, one
+    launch a step."""
+    return _chunk(cheb_step_c64, diags, offsets, carry, coeffs_chunk, sc, sh)
+
+
+def cheb_c128_chunk(diags, offsets, carry, coeffs_chunk, sc, sh):
+    """Advance the complex128 recurrence carry over a coefficient chunk."""
+    return _chunk(cheb_step_c128, diags, offsets, carry, coeffs_chunk, sc,
+                  sh)
 
 
 def cheb_f32_cm_chunk(diags, offsets, carry, coeffs_chunk, sc, sh):

@@ -281,18 +281,18 @@ def make_cheb_filter(apply_A, lo, hi, coeffs):
     return filt
 
 
-def _map_scalars(lo, hi, X):
-    """sc = 2 / (hi - lo) and sh = (hi + lo) / (hi - lo), computed in X's
-    real precision (as the JAX package computes them from its traced
-    lo / hi)."""
-    rdt = np.float32 if X.dtype in (torch.float32, torch.complex64) \
+def _map_scalars(lo, hi, dtype):
+    """sc = 2 / (hi - lo) and sh = (hi + lo) / (hi - lo), computed in the
+    real precision of the operand dtype ``dtype`` (as the JAX package
+    computes them from its traced lo / hi)."""
+    rdt = np.float32 if dtype in (torch.float32, torch.complex64) \
         else np.float64
     lo_, hi_ = rdt(lo), rdt(hi)
     return float(rdt(2.0) / (hi_ - lo_)), float((hi_ + lo_) / (hi_ - lo_))
 
 
 def _ahat(apply_A, lo, hi, X):
-    sc, sh = _map_scalars(lo, hi, X)
+    sc, sh = _map_scalars(lo, hi, X.dtype)
     return (sc * apply_A(X)).sub_(X, alpha=sh)
 
 
@@ -314,7 +314,7 @@ def make_cheb_stepper(apply_A, lo, hi):
     def step(carry, ck):
         trace.count_glue(4)
         T0, T1, acc = carry
-        sc, sh = _map_scalars(lo, hi, T1)
+        sc, sh = _map_scalars(lo, hi, T1.dtype)
         T2 = (2.0 * sc) * apply_A(T1)
         T2.sub_(T1, alpha=2.0 * sh).sub_(T0)
         return T1, T2, acc.add_(T2, alpha=float(ck))

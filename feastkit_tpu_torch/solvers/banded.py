@@ -9,11 +9,11 @@ solve, so a Hermitian pencil factors the mirrored nodes conj(z_e) too
 
 At throughput scale (N >= 4096, ``FEAST_CONTOUR_POLY`` on) a pencil takes
 the polynomial route of the sparse driver on its sparse form
-(``solvers/sparse._sparse_cheb_interval``), as in the JAX package: a real
-symmetric one on at most 32 diagonals in the fused Chebyshev kernels, a
-Hermitian one or one on more than 32 diagonals in the unfused recurrence
-(the complex DIA kernels, or CSR products). When that route is infeasible
-the driver answers with BCR. It never returns to the sparse router.
+(``solvers/sparse._sparse_cheb_interval``): one on at most 32 diagonals
+in the fused Chebyshev kernels (a Hermitian one in the complex one-step
+entries, where the JAX package runs the unfused recurrence), one on more
+than 32 in the unfused recurrence on CSR products. When that route is
+infeasible BCR answers. It never returns to the sparse router.
 
 The general and complex-symmetric drivers (``feast_gbev`` / ``gbgv`` /
 ``sbev_complex`` / ``sbgv_complex``) factor the shifted pencils of the full

@@ -16,22 +16,24 @@ Complex Hermitian operators (``hermitian=None`` means "complex data";
 ``hermitian=True`` on real data runs in complex work precision, as in the
 JAX package) run at native complex64 / complex128.
 
-A real operator on at most 32 diagonals (and, for the SPD-B composite, a B
-on at most 32) has its filter applications in the fused Chebyshev-step
-kernels. Everything else runs the JAX package's UNFUSED recurrence
-(``_sparse_cheb_filter_host``, which the JAX package takes for Hermitian
-operands, sparse.py:2027): a host loop over the coefficients on the
-operator's products, the complex DIA kernels of ``ops/dia.py`` for a
-complex operator, a torch CSR product (the JAX package's BCOO product) for
-one with more than 32 diagonals, and the composite q(B~) A~ on them for a
-sparse SPD B.
+An operator on at most 32 diagonals, real or complex Hermitian (and, for
+the SPD-B composite, a real one with a B on at most 32) has its filter
+applications in the fused Chebyshev-step kernels: a complex one in the
+one-step complex entries, where the JAX package runs the recurrence
+unfused (Mosaic has no complex type; sparse.py:2027). Everything else runs
+the JAX package's UNFUSED recurrence (``_sparse_cheb_filter_host``): a
+host loop over the coefficients on the operator's products, a torch CSR
+product (the JAX package's BCOO product) for an operator with more than 32
+diagonals, and the composite q(B~) A~ on them for a sparse SPD B with no
+DIA form; so does the stochastic count (fpm[14] = 2).
 
 Every fused filter application runs the fused Chebyshev-step kernels of
 ``ops/cheb_kernels.py`` on CUDA tensors (their plain versions on CPU
 tensors): one 1-step launch for the k=1 init, then 4-step passes where the
 shape fits the 4-step kernel, else 2-step passes, else 1-step launches
 (``FEAST_CHEB_FUSE2=0`` / ``FEAST_CHEB_FUSE4=0`` select the 1-step and the
-2-step configuration, as in the JAX package). It does so through a
+2-step configuration, as in the JAX package); a complex operator takes
+1-step launches throughout. It does so through a
 two-rung precision ladder: ``f32`` (the f32-rounded operator, half the bytes of the bandwidth-bound recurrence) while epsout
 is above the f32 floor, then ``f64``. The JAX package's middle
 double-single rung exists because a TPU emulates f64; on Hopper it is the
@@ -117,11 +119,13 @@ from ..kernel.hermitian import (SPURIOUS_RES, VERIFY_FILTER_TOL,
                                 make_rayleigh_ritz_update,
                                 verify_spurious_from)
 from ..ops.cheb_gen import cheb_gen_chunk, cheb_gen_init
-from ..ops.cheb_kernels import (cheb_f32_2_chunk, cheb_f32_4_chunk,
+from ..ops.cheb_kernels import (cheb_c64_chunk, cheb_c128_chunk,
+                                cheb_f32_2_chunk, cheb_f32_4_chunk,
                                 cheb_f32_chunk, cheb_f64_2_chunk,
                                 cheb_f64_4_chunk, cheb_f64_chunk,
                                 multistep_plan, transpose_planes)
-from ..ops.chebfilter import (ChebInfeasible, _cheb_init, binva_enclosure,
+from ..ops.chebfilter import (ChebInfeasible, _cheb_init, _map_scalars,
+                              binva_enclosure,
                               build_cheb_filter_coeffs, cheb_inverse_coeffs,
                               gershgorin_interval, make_apply_binv_a,
                               make_cheb_stepper, rational_filter_cheb_coeffs)
@@ -445,8 +449,24 @@ def _cheb_fused_context(A_dia, offsets, coeffs, lo, hi, M):
     (``multistep_plan``), else 2, else 1, decided per rung from the shape
     alone. ``FEAST_CHEB_FUSE2=0`` keeps the 1-step kernels for every step
     and ``FEAST_CHEB_FUSE4=0`` stops at two steps per pass (the JAX
-    package's opt-out switches, with its meaning)."""
+    package's opt-out switches, with its meaning).
+
+    Complex diagonals (a Hermitian operator) give the complex rungs: "f64"
+    complex128 and "f32" complex64, one step per launch (the multi-step
+    kernels are real only), with the map scalars of the unfused recurrence
+    (``ops/chebfilter._map_scalars``, in the rung's real precision), so on
+    the CPU an application equals that recurrence's."""
     N = A_dia.shape[1]
+    if A_dia.is_complex():
+        def rung(dtype, npd, chunk):
+            sc, sh = _map_scalars(lo, hi, dtype)
+            return dict(dia=A_dia.to(dtype), coeffs=np.asarray(coeffs, npd),
+                        sc=sc, sh=sh, half=0.5, chunk=chunk, dtype=dtype,
+                        steps=1)
+
+        return dict(offsets=offsets,
+                    f64=rung(torch.complex128, np.float64, cheb_c128_chunk),
+                    f32=rung(torch.complex64, np.float32, cheb_c64_chunk))
     fuse2 = os.environ.get("FEAST_CHEB_FUSE2") not in ("0", "")
     fuse4 = fuse2 and os.environ.get("FEAST_CHEB_FUSE4") not in ("0", "")
 
@@ -629,10 +649,11 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
     ``contour``: realize that contour's rational filter as a Chebyshev
     series; ``route=True`` (the auto route) also builds the indicator and
     keeps the cheaper one, and reports an ineligible configuration as
-    ChebInfeasible. The fused kernels carry a real operator on at most 32
-    diagonals (and a B on at most 32 for the SPD-B composite); every other
-    operator runs the unfused recurrence (``_sparse_cheb_filter_host``),
-    as the JAX package decides (``_fuse_base``, sparse.py:2027).
+    ChebInfeasible. The fused kernels carry an operator on at most 32
+    diagonals, real or complex Hermitian (and a B on at most 32 for the
+    SPD-B composite); every other operator runs the unfused recurrence
+    (``_sparse_cheb_filter_host``), as the JAX package decides for a real
+    one (``_fuse_base``, sparse.py:2027).
     ``mesh`` (a ``parallel/pfeast.py`` mesh, every rank calling): where
     M0 is a multiple of its rank count, each rank filters its own block
     of M0 / ranks columns (the recurrence is column-independent) and the
@@ -837,8 +858,8 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                 if cinfo.get("degree_lo") else None)
         rung_top = "f64" if f64 else "f32"
         use_lp = _mixed_enabled(config, device, f64)
-        fused = (not hermitian and offsets is not None
-                 and (b_kind != "spd" or offsets_B is not None))
+        fused = offsets is not None and (b_kind != "spd"
+                                         or offsets_B is not None)
         block = None
         if mesh is not None:
             from ..parallel.pfeast import _column_block
@@ -846,7 +867,9 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
         M_loc = M0 if block is None else block[1] - block[0]
         with trace.span("route.upload"):
             if fused:
-                A_dia = _upload(torch.as_tensor(A_dia_np, dtype=tdtype),
+                # complex diagonals for a Hermitian operator: the fused
+                # context's complex rungs
+                A_dia = _upload(torch.as_tensor(A_dia_np, dtype=wdtype),
                                 device)
 
                 def apply_A(X):
@@ -869,11 +892,10 @@ def _sparse_cheb_interval(A, B, Emin, Emax, M0, fpm, *, hermitian,
                                               M_loc)
                     filt = _sparse_cheb_filter_host_fused
             else:
-                # the unfused recurrence (a Hermitian operator, or an
-                # operand with no DIA form): each rung's operator in its own
-                # dtype, the composite q(B~) A~ on them for a sparse SPD B
-                # (the shorter inverse on the f32 rung, unless f32 is the
-                # top rung)
+                # the unfused recurrence (an operand with no DIA form):
+                # each rung's operator in its own dtype, the composite
+                # q(B~) A~ on them for a sparse SPD B (the shorter inverse
+                # on the f32 rung, unless f32 is the top rung)
                 def operators(dtype):
                     opA = _operator(A_data, A_idx, A_dia_np, offsets, N,
                                     dtype, device)

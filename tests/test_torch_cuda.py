@@ -1,6 +1,7 @@
 """PyTorch port on the card: CUDA kernels against their plain versions.
 
-The Chebyshev step kernels (row-major, column-major, 2- and 4-step; the
+The Chebyshev step kernels (row-major real and complex, column-major, 2-
+and 4-step; the
 multi-step ones under block shapes other than the plan's), the
 combine of the SPD-B composite and the DIA matvec entries, each against its
 plain version at small shapes; what a CUDA entry refuses; a standard, a
@@ -68,6 +69,51 @@ def test_kernel_matches_plain(name, dtype, tol, nx, ny, M):
     scale = plain[2].abs().max()
     for a, b in zip(carry, plain):
         assert float((a - b).abs().max() / scale) <= tol
+
+
+def _cylinder(nx, ny):
+    """The Harper-Hofstadter cylinder of the benchmark's herm_p9 cell on
+    nx x ny sites: seven complex diagonals 0, +-1, +-(ny - 1), +-ny."""
+    from portbench.generators import hofstadter_cyl
+    A = hofstadter_cyl.operator(0.01 * np.cos(np.arange(nx)), 1 / 4096,
+                                ny).tocoo()
+    return bcoo_to_dia(A.data, np.stack([A.row, A.col], 1), nx * ny)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,tol1,tol8", [
+    ("cheb_step_c64", torch.complex64, 1e-6, 1e-5),
+    ("cheb_step_c128", torch.complex128, 1e-14, 1e-13)])
+@pytest.mark.parametrize("nx,ny,M", [(512, 512, 72), (37, 29, 11),
+                                     (5, 7, 1)])
+def test_complex_step_matches_plain(name, dtype, tol1, tol8, nx, ny, M):
+    # one step and eight from the same carry, at the herm_p9 cell's shape
+    # (N = 262,144, M = 72) and two awkward ones, against the plain
+    # version on the card; the map scalars in the rung's real precision
+    _need_cuda()
+    from feastkit_tpu_torch.ops.chebfilter import _map_scalars
+    dia, offs = _cylinder(nx, ny)
+    d = torch.as_tensor(dia).to(dtype).cuda()
+    g = torch.Generator().manual_seed(1)
+    start = [torch.randn(nx * ny, M, generator=g, dtype=dtype).cuda()
+             for _ in range(3)]
+    sc, sh = _map_scalars(0.0, 8.05, dtype)
+    wrapper = getattr(ck, name)
+    coeffs = np.random.default_rng(2).standard_normal(8) * 0.1
+    for steps, tol in ((1, tol1), (8, tol8)):
+        carry = [t.clone() for t in start]
+        plain = [t.clone() for t in start]
+        before = wrapper.launches
+        for c in coeffs[:steps]:
+            wrapper(d, offs, *carry, sc, sh, c)
+            carry[0], carry[1] = carry[1], carry[0]
+            ck.cheb_step_plain(d, offs, *plain, sc, sh, float(c))
+            plain[0], plain[1] = plain[1], plain[0]
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + steps
+        scale = plain[2].abs().max()
+        for a, b in zip(carry, plain):
+            assert float((a - b).abs().max() / scale) <= tol, steps
 
 
 _MULTISTEP = [
@@ -884,9 +930,12 @@ def test_dia_matvec_any_complex_diagonals_one_launch(dtype, real_x):
 @pytest.mark.cuda
 def test_hermitian_feast_on_cuda_matches_cpu():
     # the gauge-rotated Laplacian (five complex diagonals) on the
-    # polynomial path: the unfused recurrence on the complex entries
+    # polynomial path: the fused complex one-step entries carry the
+    # filter (its spans say "fused" and count their launches), the
+    # complex128 DIA entry Rayleigh-Ritz
     _need_cuda()
     from feastkit_tpu_torch.ops import dia as D
+    from feastkit_tpu_torch.utils import trace
     nx = 32
     Dx = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(nx, nx))
     A = (sp.kron(Dx, sp.eye(nx)) + sp.kron(sp.eye(nx), Dx)).tocoo()
@@ -898,15 +947,30 @@ def test_hermitian_feast_on_cuda_matches_cpu():
     fpm[42] = 2
     D.reset_launch_counts()
     ck.reset_launch_counts()
-    rg = ft.feast(A, None, (0.001, 0.2), 24, fpm)
+    trace.clear()
+    trace.enable()
+    try:
+        rg = ft.feast(A, None, (0.001, 0.2), 24, fpm)
+    finally:
+        trace.disable()
+    spans = [s.as_dict() for s in trace.spans()]
+    trace.clear()
     counts = D.launch_counts()
+    cheb = ck.launch_counts()
     rc = ft.feast(A, None, (0.001, 0.2), 24, fpm, device="cpu")
     assert rg.q.is_cuda and rg.q.is_complex() and rg.info == 0
     assert rg.M == rc.M > 0
-    assert counts["dia_matvec_c64"] > 0 and counts["dia_matvec_c128"] > 0
+    assert cheb["cheb_step_c64"] > 0 and cheb["cheb_step_c128"] > 0
+    assert all(v == 0 for k, v in cheb.items()
+               if k not in ("cheb_step_c64", "cheb_step_c128"))
+    assert counts["dia_matvec_c128"] > 0 and counts["dia_matvec_c64"] == 0
     assert all(v == 0 for k, v in counts.items() if k[-3:] in ("f32",
                                                                "f64"))
-    assert all(v == 0 for v in ck.launch_counts().values())
+    filters = [s for s in spans if s["name"] == "filter"]
+    assert filters and all(s["attrs"]["body"] == "fused" for s in filters)
+    assert all(s["attrs"]["glue_passes"] == 0 for s in filters)
+    assert sum(s["attrs"]["launches"] for s in filters) \
+        == cheb["cheb_step_c64"] + cheb["cheb_step_c128"]
     assert np.abs(np.sort(rg.lam) - np.sort(rc.lam)).max() <= 1e-8
     assert rg.res.max() <= 1e-8
 

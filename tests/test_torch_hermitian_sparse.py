@@ -7,8 +7,8 @@ port must give the JAX package's M and info and its eigenvalues within
 the analytic or LAPACK eigenvalues to the same bar:
 * the 2D Laplacian under a seeded diagonal unitary gauge D A D^*
   (``gauge``: five complex diagonals, the Laplacian's spectrum exactly) at
-  nx = 16 with ``solver="cheb"`` and ``"contour_poly"`` (the unfused
-  complex recurrence on both rungs), through the auto route at nx = 32
+  nx = 16 with ``solver="cheb"`` and ``"contour_poly"`` (the fused
+  complex one-step entries on both rungs), through the auto route at nx = 32
   (the polynomial route), and the real Laplacian declared
   ``hermitian=True`` (complex work precision);
 * ``feast_hcsrgv`` with a positive diagonal B (the congruence, complex
@@ -328,12 +328,13 @@ def solves(tmp_path_factory):
     return ref, port
 
 
-WANT_ENGINES = {"cheb16": ["unfused"], "poly16": ["unfused"],
-                "herm_real16": ["unfused"],
-                "auto32": ["unfused"], "hcsrgv32": ["unfused"],
+# every polynomial case has a DIA form: the fused complex one-step entries
+WANT_ENGINES = {"cheb16": ["fused"], "poly16": ["fused"],
+                "herm_real16": ["fused"],
+                "auto32": ["fused"], "hcsrgv32": ["fused"],
                 "krylov_mg32": ["krylov"], "krylov_jacobi16": ["krylov"],
                 "f3": ["bcr"], "densify20": ["dense"],
-                "hbev4096": ["unfused"]}
+                "hbev4096": ["fused"]}
 
 
 @pytest.mark.parametrize("name", CASES)

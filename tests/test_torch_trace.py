@@ -11,10 +11,10 @@ schedule (``portbench/schedule.py``) records of the same applications,
 the same results to the bit, nothing but plain values behind the spans,
 and no bytes to a card. The card's byte count is in test_torch_cuda.py.
 A third operator, the complex Harper-Hofstadter cylinder of the
-benchmark's ``herm_p9`` cell on 24 x 24 sites, runs the unfused complex
-recurrence: its filter spans say so (``body``) and count its torch passes
-(``glue_passes``, four a step), which the fused bodies of the other two
-never run.
+benchmark's ``herm_p9`` cell on 24 x 24 sites, runs the fused complex
+one-step entries: its filter spans say so (``body``), and like the other
+two it counts none of the unfused recurrence's torch passes
+(``glue_passes``).
 """
 import functools
 import gc
@@ -31,7 +31,7 @@ from feastkit_tpu_torch.utils import trace  # noqa: E402
 
 CASES = ["lap2d", "cmass"]
 # with the Hermitian operator, for what holds on every filter body
-BODIES = {"lap2d": "fused", "cmass": "fused_gen", "herm": "unfused"}
+BODIES = {"lap2d": "fused", "cmass": "fused_gen", "herm": "fused"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -246,16 +246,15 @@ def test_no_bytes_to_a_card_on_the_cpu(case):
 
 @pytest.mark.parametrize("case", list(BODIES))
 def test_filter_body_and_glue_passes(case):
-    """Each filter span names the body that ran; the unfused recurrence
-    counts four torch passes a step (its init is one of the ``steps``:
-    the k = 1 term's product) and the fused bodies none."""
+    """Each filter span names the body that ran, and no fused body counts
+    a torch pass of the unfused recurrence (``glue_passes``; four a step
+    there, test_glue_counted_only_while_tracing)."""
     spans = _dicts(case)
     filters = [s for s in spans if s["name"] == "filter"]
     assert len(filters) >= 3
     for s in filters:
         assert s["attrs"]["body"] == BODIES[case]
-        want = 4 * s["attrs"]["steps"] if case == "herm" else 0
-        assert s["attrs"]["glue_passes"] == want
+        assert s["attrs"]["glue_passes"] == 0
     feast = spans[0]
     assert feast["name"] == "feast"
     assert feast["attrs"]["glue_passes"] == sum(
